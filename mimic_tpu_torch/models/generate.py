@@ -1,0 +1,259 @@
+"""Autoregressive generation: greedy and beam search.
+
+Counterpart of ``mimic_tpu/models/generate.py`` (HF semantics: ``num_beams``,
+``length_penalty``, early_stopping=False).  The JAX decode loop is one
+``lax.scan`` over a fixed number of steps; here it is a Python loop over the
+same steps.  Prompts must be left-padded so the last prompt position is
+aligned across the batch.
+
+Top-k selections use a stable descending sort, so among equal values the lower
+index comes first, as with ``jax.lax.top_k``: the beam state holds many equal
+``NEG`` slots, and ``torch.topk`` promises no order among ties.
+
+Not ported yet: sampling, int8 prompt KV (``quant_kv``), prefix tuning,
+separate int8 decode parameters, LoRA adapters.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..bridge import tree_leaves
+from ..shared import ModelConfig
+from .decoder import init_kv_cache
+from .lvlm import LVLMBatch, encode_images, lvlm_forward
+
+NEG = -1.0e9
+
+
+def _param_dtype(params) -> torch.dtype:
+    """Model compute dtype: the first floating leaf that is not fp32."""
+    for leaf in tree_leaves(params):
+        if leaf.is_floating_point() and leaf.dtype != torch.float32:
+            return leaf.dtype
+    return torch.float32
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: descending, ties lower-index first."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B,N,M], idx [B,J] → x[b, idx[b, j], :] as [B,J,M]."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+class GenerateResult(NamedTuple):
+    tokens: torch.Tensor  # [B, max_new_tokens], pad-filled after EOS
+    scores: torch.Tensor  # [B] sequence scores (beam) or 0.0 (greedy)
+
+
+def _prefill(
+    params, cfg: ModelConfig, batch: LVLMBatch, total_len: int, shift, logz2: str,
+    dtype, attn_impl: str = "xla",
+):
+    """Run the prompt through the model (cache-empty prefill).
+
+    Returns (last_logits [B,V], cache with the prompt written, image_feats),
+    the image features for the decode steps to reuse.
+    """
+    B, T = batch.input_ids.shape
+    image_feats = None
+    if batch.pixel_values is not None:
+        image_feats = encode_images(
+            params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
+        )
+    cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype)
+    out = lvlm_forward(
+        params, cfg, batch,
+        image_feats=image_feats,
+        kv_total_len=total_len,
+        kv_cache=cache,
+        cache_empty=True,
+        shift=shift,
+        logz2=logz2,
+        attn_impl=attn_impl,
+        last_logit_only=True,
+    )
+    # left padding → the last position is the prompt end
+    return out.logits[:, -1], out.decoder.kv_cache, image_feats
+
+
+@torch.no_grad()
+def greedy_generate(
+    params,
+    cfg: ModelConfig,
+    batch: LVLMBatch,
+    max_new_tokens: int,
+    eos_token_id: int,
+    pad_token_id: int,
+    shift: Optional[Dict[str, torch.Tensor]] = None,
+    logz2: str = "unmasked",
+    attn_impl: str = "xla",
+) -> GenerateResult:
+    B, T = batch.input_ids.shape
+    total = T + max_new_tokens
+    dtype = _param_dtype(params)
+    last_logits, cache, image_feats = _prefill(
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl
+    )
+    am = batch.attention_mask
+    n_real = am.sum(-1)  # [B]
+    mask_full = torch.cat([am, am.new_zeros(B, max_new_tokens)], dim=-1)
+    tok = last_logits.argmax(-1)
+    finished = torch.zeros(B, dtype=torch.bool, device=am.device)
+    toks = []
+    for i in range(max_new_tokens):
+        tok = torch.where(finished, pad_token_id, tok)
+        mask_full[:, T + i] = 1
+        out = lvlm_forward(
+            params, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
+            image_feats=image_feats,
+            position_ids=(n_real + i)[:, None],
+            kv_cache=cache,
+            kv_total_len=total,
+            shift=shift,
+            logz2=logz2,
+        )
+        cache = out.decoder.kv_cache
+        finished = finished | (tok == eos_token_id)
+        toks.append(tok)
+        tok = torch.where(finished, pad_token_id, out.logits[:, -1].argmax(-1))
+    return GenerateResult(
+        tokens=torch.stack(toks, dim=1),
+        scores=torch.zeros(B, dtype=torch.float32, device=am.device),
+    )
+
+
+@torch.no_grad()
+def beam_generate(
+    params,
+    cfg: ModelConfig,
+    batch: LVLMBatch,
+    max_new_tokens: int,
+    num_beams: int,
+    eos_token_id: int,
+    pad_token_id: int,
+    length_penalty: float = 0.0,
+    shift: Optional[Dict[str, torch.Tensor]] = None,
+    logz2: str = "unmasked",
+    attn_impl: str = "xla",
+) -> GenerateResult:
+    """HF-semantics beam search (do_sample=False, early_stopping=False).
+
+    The prompt region of the cache is identical across a row's beams (one
+    prefill), so it is kept once at batch B (``prompt_k/v``, read with the
+    beams folded into the query-group axis) and each beam holds only the thin
+    generated region, which is all a beam reorder has to gather.
+    """
+    B, T = batch.input_ids.shape
+    K = num_beams
+    Tp = T
+    total = Tp + max_new_tokens
+    dtype = _param_dtype(params)
+    last_logits, cache, image_feats = _prefill(
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl
+    )
+    V = last_logits.shape[-1]
+    dev = last_logits.device
+
+    L, _, _, Hkv, Dh = cache["k"].shape
+    gen_shape = (L, B * K, max_new_tokens, Hkv, Dh)
+    cache = {
+        "prompt_k": cache["k"][:, :, :Tp],
+        "prompt_v": cache["v"][:, :, :Tp],
+        "k": torch.zeros(gen_shape, dtype=cache["k"].dtype, device=dev),
+        "v": torch.zeros(gen_shape, dtype=cache["v"].dtype, device=dev),
+        "length": cache["length"],
+    }
+    if image_feats is not None:
+        image_feats = image_feats.repeat_interleave(K, dim=0)
+    am = batch.attention_mask
+    n_real = am.sum(-1).repeat_interleave(K)  # [B*K]
+    mask_full = torch.cat([am, am.new_zeros(B, total - Tp)], dim=-1).repeat_interleave(K, dim=0)
+
+    logprobs0 = F.log_softmax(last_logits.float(), dim=-1)  # [B,V]
+    first_scores, first_toks = _top_k(logprobs0, K)  # [B,K]
+
+    tokens = torch.full((B, K, max_new_tokens), pad_token_id, dtype=torch.int64, device=dev)
+    tokens[:, :, 0] = first_toks
+    last_tok = first_toks
+    scores = first_scores
+    lengths = torch.ones(B, K, dtype=torch.int64, device=dev)
+    alive = torch.ones(B, K, dtype=torch.bool, device=dev)
+    fin_tokens = torch.full_like(tokens, pad_token_id)
+    fin_scores = torch.full((B, K), NEG, dtype=torch.float32, device=dev)
+
+    # move beams whose first token is EOS into the finished set
+    is_eos = alive & (last_tok == eos_token_id)
+    pen = scores / (lengths.float() ** length_penalty)
+    all_fin_scores = torch.cat([fin_scores, torch.where(is_eos, pen, NEG)], dim=1)
+    all_fin_tokens = torch.cat([fin_tokens, tokens], dim=1)
+    fin_scores, top_idx = _top_k(all_fin_scores, K)
+    fin_tokens = _take_rows(all_fin_tokens, top_idx)
+    alive = alive & ~is_eos
+    scores = torch.where(is_eos, NEG, scores)
+
+    for i in range(1, max_new_tokens):
+        mask_full[:, Tp + i - 1] = 1
+        out = lvlm_forward(
+            params, cfg,
+            LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full),
+            image_feats=image_feats,
+            position_ids=(n_real + i - 1)[:, None],
+            kv_cache=cache,
+            kv_total_len=total,
+            shift=shift,
+            logz2=logz2,
+        )
+        logprobs = F.log_softmax(out.logits[:, -1].float(), dim=-1).reshape(B, K, V)
+        cand = torch.where(alive[..., None], scores[..., None] + logprobs, NEG)
+        top_scores, top_flat = _top_k(cand.reshape(B, K * V), 2 * K)  # [B,2K]
+        parent = top_flat // V
+        tok = top_flat % V
+
+        # the K running beams are the top K non-EOS among the 2K candidates
+        is_eos_cand = tok == eos_token_id
+        _, keep_idx = _top_k(torch.where(is_eos_cand, NEG, top_scores), K)
+        run_parent = torch.gather(parent, 1, keep_idx)
+        run_tok = torch.gather(tok, 1, keep_idx)
+        run_scores = torch.gather(top_scores, 1, keep_idx)
+        run_alive = run_scores > NEG / 2
+
+        # EOS candidates finish directly (their sequence = parent's tokens + EOS)
+        eos_tokens = _take_rows(tokens, parent)
+        eos_tokens[:, :, i] = eos_token_id
+        eos_len = torch.gather(lengths, 1, parent) + 1
+        eos_pen = torch.where(is_eos_cand, top_scores, NEG) / (eos_len.float() ** length_penalty)
+        eos_pen = torch.where(is_eos_cand, eos_pen, NEG)
+        fin_scores, fin_idx = _top_k(torch.cat([fin_scores, eos_pen], dim=1), K)
+        fin_tokens = _take_rows(torch.cat([fin_tokens, eos_tokens], dim=1), fin_idx)
+
+        # reorder the running state by parent beam; only the generated region
+        # of the cache is per-beam, the shared prompt region never moves
+        tokens = _take_rows(tokens, run_parent)
+        tokens[:, :, i] = run_tok
+        flat_parent = (torch.arange(B, device=dev)[:, None] * K + run_parent).reshape(B * K)
+        step_cache = out.decoder.kv_cache
+        cache = {
+            "prompt_k": step_cache["prompt_k"],
+            "prompt_v": step_cache["prompt_v"],
+            "k": step_cache["k"].index_select(1, flat_parent),
+            "v": step_cache["v"].index_select(1, flat_parent),
+            "length": step_cache["length"],
+        }
+        lengths = torch.gather(lengths, 1, run_parent) + 1
+        last_tok = run_tok
+        scores = torch.where(run_alive, run_scores, NEG)
+        alive = run_alive
+
+    # close out still-running beams at max length
+    run_pen = torch.where(alive, scores / (lengths.float() ** length_penalty), NEG)
+    best_scores, best_idx = _top_k(torch.cat([fin_scores, run_pen], dim=1), 1)
+    best_tokens = _take_rows(torch.cat([fin_tokens, tokens], dim=1), best_idx)[:, 0]
+    return GenerateResult(tokens=best_tokens, scores=best_scores[:, 0])
