@@ -1,5 +1,5 @@
-"""mimic_tpu_torch — the MimIC serving path in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+"""mimic_tpu_torch — the MimIC serving path and dual-pass train step in
+PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``mimic_tpu`` (JAX/Pallas), which stays the reference.  Module paths
 and function names mirror the JAX package, so
@@ -9,9 +9,8 @@ stacked ``[L, ...]`` tensors with the same tree as the JAX pytree
 (``bridge.py`` maps one to the other).
 
 This package imports ``torch`` and never ``jax``.  From ``mimic_tpu`` it reuses
-only modules that import no JAX (``models.config``, ``models.processor``,
-``models.tokenizer``, ``data.templates`` and ``config``), all through
-``shared.py``.
+only modules that import no JAX (configs, processor, tokenizer, templates,
+dataset adapters, the training collator), all through ``shared.py``.
 """
 
 __version__ = "0.1.0"

@@ -50,12 +50,13 @@ def tree_leaves(tree: Any) -> list:
 
 def _leaf_to_torch(x: Any, device: torch.device) -> torch.Tensor:
     a = np.asarray(x)
+    # np.array(order="C") keeps 0-d leaves 0-d (np.ascontiguousarray makes them 1-d)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        t = torch.from_numpy(np.array(a, order="C").view(np.int16))
         return t.view(torch.bfloat16).to(device)
     if a.dtype not in _NP_TO_TORCH:
         raise TypeError(f"no torch dtype for numpy dtype {a.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
 def _leaf_to_numpy(t: torch.Tensor, bfloat16: Optional[Any]) -> np.ndarray:

@@ -10,10 +10,14 @@ the reference ``do_shift`` (``logz2="unmasked"``).
 Ported: stacked self-attention layers with the shift-key split, the
 cache-empty prefill through the attention kernels (``attn_impl="flash"``), the
 cached two-part decode with a beam-shared prompt region, and the cache append.
+The hidden-state captures of the training step (``capture_attn`` /
+``capture_ffn``, optionally gathered at ``capture_gather_idx``) are ported;
+the flash path differentiates through ``flash_attention_diff``.
 Not ported yet (raise ``NotImplementedError``): gated cross-attention
 (idefics1), q/k/v biases (qwen2), qk-layernorms, the sliding window
 (Mistral), LoRA adapters, prefix-merge prefill, ring attention, quantized
-weights, hidden-state captures and perturbations, per-row cache writes.
+weights, layer-input captures and perturbations, rematerialisation, per-row
+cache writes.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention_diff
 from ..shared import TextConfig
 from ..shift.functional import apply_attn_shift, apply_output_shift
 from .layers import (
@@ -40,8 +44,10 @@ Params = Dict[str, Any]
 
 
 class DecoderOutput(NamedTuple):
-    hidden: torch.Tensor                      # [B,T,D] final hidden states (pre lm_head)
-    kv_cache: Optional[Dict[str, Any]]
+    hidden: torch.Tensor                                # [B,T,D] final hidden states (pre lm_head)
+    attn_capture: Optional[torch.Tensor] = None         # [L,B,T|M,D] self-attn block outputs
+    ffn_capture: Optional[torch.Tensor] = None          # [L,B,T|M,D] MLP block outputs
+    kv_cache: Optional[Dict[str, Any]] = None
 
 
 # ---------------------------------------------------------------------------
@@ -165,8 +171,9 @@ def _self_attention(
         )
     elif use_flash:
         # the CUDA kernels on the card, their plain version on the CPU: causal +
-        # key padding handled inside, both log-normalizers come out
-        attn, lse, lse_u = flash_attention(
+        # key padding handled inside, both log-normalizers come out; gradients
+        # (out, lse and lse_u) through the backward kernels
+        attn, lse, lse_u = flash_attention_diff(
             q, k, v, key_mask, causal=True, need_unmasked=need_unmasked
         )
     else:
@@ -182,7 +189,6 @@ def _self_attention(
 
 _UNPORTED_DEFAULTS = {
     "adapters": None, "lora_scaling": 1.0, "lora_dropout": 0.0, "dropout_rng": None,
-    "capture_attn": False, "capture_ffn": False, "capture_gather_idx": None,
     "cross_states": None, "cross_mask": None, "ring_mesh": None,
     "capture_layer_inputs": False, "perturb_attn": None, "perturb_ffn": None,
     "remat": False, "cache_write_pos": None, "prefix_flash_len": 0,
@@ -203,6 +209,9 @@ def decoder_forward(
     key_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
     cache_empty: bool = False,
+    capture_attn: bool = False,
+    capture_ffn: bool = False,
+    capture_gather_idx: Optional[torch.Tensor] = None,
     **unported: Any,
 ) -> DecoderOutput:
     """Run the decoder stack.
@@ -213,6 +222,10 @@ def decoder_forward(
     attention kernels, when ``select_attn_path`` allows).  kv_cache: dict with
     ``k``/``v`` [L,B,S,Hkv,Dh], ``length`` (int) and optionally the
     beam-shared ``prompt_k``/``prompt_v`` [L,B0,Sp,Hkv,Dh].
+    capture_attn / capture_ffn: return each layer's attention / MLP block
+    output (after any output shift) as ``[L,B,T,D]``, or ``[L,B,M,D]`` at the
+    rows ``capture_gather_idx`` [B,M] selects (an indexing gather; the JAX
+    package's one-hot matmul exists for the TPU and is exact either way).
 
     The cache's ``k``/``v`` tensors are updated in place (the current block is
     written at the timeline length) instead of copied; the returned cache dict
@@ -260,6 +273,14 @@ def decoder_forward(
         if isinstance(w, dict):
             raise NotImplementedError(f"quantized weight {name!r} is not ported yet")
     write_at = cache_len - prompt_len
+
+    def capture(x: torch.Tensor) -> torch.Tensor:
+        if capture_gather_idx is None:
+            return x
+        idx = capture_gather_idx.long()[..., None].expand(-1, -1, x.shape[-1])
+        return torch.gather(x, 1, idx)
+
+    attn_caps, ffn_caps = [], []
     h = input_embeds
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
@@ -287,6 +308,10 @@ def decoder_forward(
         ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
         ffn_out = apply_output_shift(ffn_out, os_.get("ffn_shift"), os_.get("ffn_scale"))
         h = residual + ffn_out
+        if capture_attn:
+            attn_caps.append(capture(attn_out))
+        if capture_ffn:
+            ffn_caps.append(capture(ffn_out))
         if use_cache:
             # the layer read its cache slice above; slots >= the written length
             # are masked there, so appending now changes nothing it saw
@@ -300,7 +325,12 @@ def decoder_forward(
         if has_prompt:
             new_cache["prompt_k"] = kv_cache["prompt_k"]
             new_cache["prompt_v"] = kv_cache["prompt_v"]
-    return DecoderOutput(hidden=h, kv_cache=new_cache)
+    return DecoderOutput(
+        hidden=h,
+        attn_capture=torch.stack(attn_caps) if capture_attn else None,
+        ffn_capture=torch.stack(ffn_caps) if capture_ffn else None,
+        kv_cache=new_cache,
+    )
 
 
 # ---------------------------------------------------------------------------

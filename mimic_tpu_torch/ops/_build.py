@@ -1,10 +1,13 @@
 """Build the CUDA kernels of ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 The sources are compiled on first use into ``ops/build/`` (git-ignored), as
-one shared library with a plain C interface, for ``sm_90a``:
+one shared library with a plain C interface, for ``sm_90a``.  Each source is
+compiled to an object by its own ``nvcc``, all started together, then linked:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libmimic_attn-<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
+         -lineinfo -c -o build/<hash>/<name>.o csrc/<name>.cu      # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/libmimic_attn-<hash>.so build/<hash>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import
@@ -24,10 +27,10 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_fwd.cu", "onepass_fwd.cu")
+SOURCES = ("flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu")
 HEADERS = ("attn_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -55,30 +58,45 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Dict[str, object]:
-    """Compile the kernels unless an up-to-date library exists.
-
-    Returns a dict with the library ``path``, the ``seconds`` spent compiling
-    and the nvcc ``command`` (0 and "" when the library was up to date).
-    """
-    path = BUILD_DIR / f"libmimic_attn-{_digest()}.so"
-    if path.exists():
-        return {"path": str(path), "seconds": 0.0, "command": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp),
-        *(str(CSRC / s) for s in SOURCES),
-    ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+def _check(proc: subprocess.CompletedProcess, cmd) -> None:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+
+
+def build() -> Dict[str, object]:
+    """Compile the kernels unless an up-to-date library exists.
+
+    Returns a dict with the library ``path``, the ``seconds`` spent compiling
+    and the nvcc ``command`` lines (0 and "" when the library was up to date).
+    """
+    digest = _digest()
+    path = BUILD_DIR / f"libmimic_attn-{digest}.so"
+    if path.exists():
+        return {"path": str(path), "seconds": 0.0, "command": ""}
+    obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
+    obj_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    t0 = time.perf_counter()
+    compiles = []
+    for src in SOURCES:
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o",
+               str(obj_dir / (Path(src).stem + ".o")), str(CSRC / src)]
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.PIPE, text=True)))
+    for cmd, p in compiles:
+        out, err = p.communicate()
+        _check(subprocess.CompletedProcess(cmd, p.returncode, out, err), cmd)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+            *(str(obj_dir / (Path(s).stem + ".o")) for s in SOURCES)]
+    _check(subprocess.run(link, capture_output=True, text=True), link)
+    seconds = time.perf_counter() - t0
     os.replace(tmp, path)
-    return {"path": str(path), "seconds": seconds, "command": " ".join(cmd)}
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    command = "\n".join(" ".join(c) for c in [*(c for c, _ in compiles), link])
+    return {"path": str(path), "seconds": seconds, "command": command}
 
 
 def load_library() -> ctypes.CDLL:
@@ -87,13 +105,20 @@ def load_library() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(build()["path"])
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("mimic_flash_fwd", "mimic_onepass_fwd"):
         fn = getattr(lib, name)
         # q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv, D, dtype, scale,
         # causal, need_unmasked, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
         fn.restype = i
+    # q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse, g_lse_u, dq,
+    # B, T, S, H, Hkv, D, dtype, scale, causal, need_unmasked, stream
+    lib.mimic_flash_bwd_dq.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
+    lib.mimic_flash_bwd_dq.restype = i
+    # the same with dk, dv in place of dq
+    lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 7 + [f, i, i, p]
+    lib.mimic_flash_bwd_dkv.restype = i
     lib.mimic_cuda_error_string.argtypes = [i]
     lib.mimic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -21,7 +21,9 @@ Two hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version, ``attention_plain``, only for CPU tensors.  ``LAUNCHES`` counts
-kernel launches by name; nothing else touches it.
+kernel launches by name; nothing else touches it.  Gradients go through
+``flash_attention_diff`` (a ``torch.autograd.Function`` whose backward is the
+pair of kernels of ``flash_backward.py``).
 
 Rows with no attendable key (left-padded prompt rows, padded ViT slots) are
 finite everywhere: masked scores sit at ``NEG = -1e30`` and the denominator is
@@ -180,6 +182,65 @@ def onepass_attention(
     return _route("onepass_fwd", q, k, v, key_mask, causal, scale, need_unmasked)
 
 
+def _dispatch(q, k, v, key_mask, causal, scale, need_unmasked) -> Out3:
+    """The JAX package's forward rule (see ``flash_attention``)."""
+    T, S = q.shape[1], k.shape[1]
+    max_s = ONEPASS_MAX_S if causal else ONEPASS_MAX_S_NONCAUSAL
+    if S % 128 == 0 and T % 8 == 0 and S <= max_s:
+        return onepass_attention(q, k, v, key_mask, causal, scale, need_unmasked)
+    return _route("flash_fwd", q, k, v, key_mask, causal, scale, need_unmasked)
+
+
+class FlashAttentionDiff(torch.autograd.Function):
+    """``flash_attention`` with gradients: the counterpart of the JAX package's
+    ``jax.custom_vjp`` ``flash_attention_diff``.
+
+    Forward: the dispatched kernel on CUDA, ``attention_plain`` on the CPU
+    (without an autograd graph).  Backward: ``flash_attention_backward``, the
+    two backward kernels on CUDA always (the JAX size crossover to a plain
+    pullback is a TPU cut-off and is not carried over), the plain backward on
+    the CPU.  The cotangents of ``out``, ``lse`` and ``lse_u`` all reach ds;
+    ``lse_u``'s is dropped without ``need_unmasked``, as in JAX.  ``key_mask``
+    gets no gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, scale, need_unmasked):
+        out, lse, lse_u = _dispatch(q, k, v, key_mask, causal, scale, need_unmasked)
+        if lse_u is lse:  # the plain version returns one tensor for both
+            lse_u = lse.clone()
+        ctx.save_for_backward(q, k, v, key_mask, out, lse, lse_u)
+        ctx.causal, ctx.scale, ctx.need_unmasked = causal, scale, need_unmasked
+        ctx.set_materialize_grads(False)
+        return out, lse, lse_u
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse, g_lse_u):
+        from .flash_backward import flash_attention_backward
+
+        q, k, v, key_mask, out, lse, lse_u = ctx.saved_tensors
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, key_mask, out, lse, lse_u, g_out, g_lse, g_lse_u,
+            causal=ctx.causal, scale=ctx.scale, need_unmasked=ctx.need_unmasked,
+        )
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_diff(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    causal: bool = True,
+    scale: Optional[float] = None,
+    need_unmasked: bool = True,
+) -> Out3:
+    """Differentiable ``flash_attention`` (see ``FlashAttentionDiff``)."""
+    return FlashAttentionDiff.apply(q, k, v, key_mask, causal, scale, need_unmasked)
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -196,9 +257,10 @@ def flash_attention(
     ``ONEPASS_MAX_S_NONCAUSAL`` go to the full-row kernel; everything else to
     the online-softmax kernel.  The JAX package's tiny-shape cut-off to plain
     XLA is not carried over: on CUDA every call launches one of the kernels.
+    When gradients are being recorded and q, k or v requires grad, the call
+    goes through ``flash_attention_diff``: the kernels write their outputs
+    through raw pointers, which autograd cannot see.
     """
-    T, S = q.shape[1], k.shape[1]
-    max_s = ONEPASS_MAX_S if causal else ONEPASS_MAX_S_NONCAUSAL
-    if S % 128 == 0 and T % 8 == 0 and S <= max_s:
-        return onepass_attention(q, k, v, key_mask, causal, scale, need_unmasked)
-    return _route("flash_fwd", q, k, v, key_mask, causal, scale, need_unmasked)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return flash_attention_diff(q, k, v, key_mask, causal, scale, need_unmasked)
+    return _dispatch(q, k, v, key_mask, causal, scale, need_unmasked)

@@ -1,0 +1,106 @@
+"""Training entry: assembles a full run (counterpart of
+``mimic_tpu/pipeline/train_entry.py``).
+
+Differences from the JAX entry, each a later slice's work: one process on one
+device (no mesh, no per-host sharding), no training vision-feature cache
+(``train/vision_cache.py``), shift encoders only (LoRA and prefix raise).
+``attn_impl="auto"`` resolves to ``"flash"`` on CUDA and ``"xla"`` on the
+CPU; on the flash path the collator pads to multiples of 128, the alignment
+the decoder's flash path needs (at the collator's default of 64 a batch
+could silently take the plain path).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models.factory import build_model
+from ..shared import TrainCollator, TrainConfig, build_adapter, prefetch
+from ..shift.params import init_shift_params
+from ..train.optim import build_optimizer, cosine_warmup_schedule
+from ..train.step import TrainState, make_train_step
+from ..train.trainer import get_max_epochs, train_loop
+
+
+def init_trainable(cfg: TrainConfig, text_cfg, generator: torch.Generator, device) -> Dict[str, Any]:
+    if cfg.peft.lora is not None or cfg.peft.prefix is not None:
+        raise NotImplementedError("LoRA and prefix-tuning training are not ported yet")
+    if cfg.encoder.kind == "none":
+        raise ValueError("Nothing to train: encoder kind 'none' and no LoRA/prefix config")
+    return {"shift": init_shift_params(cfg.encoder, text_cfg, generator, resolve_device(device))}
+
+
+def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
+    if attn_impl == "auto":
+        return "flash" if device.type == "cuda" else "xla"
+    return attn_impl
+
+
+def run_train(
+    cfg: TrainConfig,
+    result_dir: str = "results",
+    runner=None,
+    splits=None,
+    device: Optional[DeviceLike] = None,
+) -> TrainState:
+    """Train ``cfg``'s shift on ``runner`` (built from ``cfg.model_name`` on
+    ``device`` when not given) and write ``<result_dir>/ckpt/<runname>/``."""
+    if runner is None:
+        if device is None:
+            raise ValueError("run_train needs a runner or an explicit device")
+        runner = build_model(cfg.model_name, device=device, dtype=getattr(torch, cfg.dtype),
+                             seed=cfg.seed)
+    dev = runner.device
+    adapter = build_adapter(cfg.data, splits=splits)
+    trainable = init_trainable(
+        cfg, runner.cfg.text, torch.Generator(device=dev).manual_seed(cfg.seed), dev
+    )
+
+    dl = adapter.train_dataloader(runner.apply_prompt_template, cfg.batch_size)
+    max_epochs = cfg.epochs or get_max_epochs(cfg.model_name, cfg.data.num_query_samples)
+    steps_per_epoch = max(len(dl) // max(cfg.accumulate_grad_batches, 1), 1)
+    total_steps = steps_per_epoch * max_epochs
+    warmup = (
+        int(cfg.warmup_step * total_steps)
+        if isinstance(cfg.warmup_step, float)
+        else int(cfg.warmup_step)
+    )
+    tx = build_optimizer(
+        trainable,
+        lr=cfg.peft.lr,
+        weight_decay=cfg.weight_decay,
+        warmup_steps=warmup,
+        total_steps=total_steps,
+        grad_clip=cfg.grad_clip_val,
+        scale_lr=cfg.peft.scale_lr,
+        accumulate_steps=cfg.accumulate_grad_batches,
+    )
+    attn_impl = resolve_attn_impl(cfg.attn_impl, dev)
+    step = make_train_step(
+        runner.cfg, cfg.encoder, tx,
+        ce_loss_weight=cfg.peft.ce_loss_weight,
+        align_loss_weight=cfg.peft.align_loss_weight,
+        attn_impl=attn_impl,
+    )
+    collator = TrainCollator(
+        runner.processor, cfg.encoder.strategy(),
+        num_image_in_query=cfg.data.num_image_in_query,
+        pad_multiple=128 if attn_impl == "flash" else 64,
+        max_query_len=cfg.data.max_query_len,
+        max_full_len=cfg.data.max_full_len,
+    )
+    state = TrainState(trainable, tx.init(trainable), 0)
+
+    def epoch_batches(epoch: int):
+        # collate (tokenize + image preprocessing) in background threads while
+        # the device runs the current step
+        return prefetch(dl, depth=2, transform=collator, workers=max(1, cfg.data.num_workers))
+
+    return train_loop(
+        cfg, state, runner.params, step, epoch_batches,
+        result_dir=result_dir, max_epochs=max_epochs,
+        lr_schedule=cosine_warmup_schedule(cfg.peft.lr, warmup, total_steps),
+    )

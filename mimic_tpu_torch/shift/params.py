@@ -65,3 +65,15 @@ def init_shift_params(
     elif encoder_cfg.kind != "none":
         raise ValueError(f"Unknown encoder kind {encoder_cfg.kind!r}")
     return params
+
+
+def needs_attn_capture(encoder_cfg: EncoderConfig) -> bool:
+    return ShiftStrategy.RECORD_HIDDEN_STATES in encoder_cfg.attn()
+
+
+def needs_ffn_capture(encoder_cfg: EncoderConfig) -> bool:
+    return ShiftStrategy.RECORD_HIDDEN_STATES in encoder_cfg.ffn()
+
+
+def multi_head(encoder_cfg: EncoderConfig) -> bool:
+    return ShiftStrategy.MULTI_HEAD in encoder_cfg.attn()

@@ -57,6 +57,17 @@ def test_shift_params_round_trip_bit_exact(preset):
     _assert_bit_equal(to_numpy(to_torch(shift, device="cpu")), shift)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16, jnp.int32])
+def test_zero_dim_leaves_keep_their_shape(dtype):
+    tree = {"s": np.asarray(jnp.asarray(1.5, dtype)), "v": np.asarray(jnp.ones((2,), dtype))}
+    t = to_torch(tree, "cpu")
+    assert t["s"].shape == () and t["v"].shape == (2,)
+    back = to_numpy(t, bfloat16=jnp.bfloat16)
+    for k, x in tree.items():
+        assert back[k].dtype == x.dtype and back[k].shape == x.shape
+        assert back[k].tobytes() == x.tobytes()
+
+
 def test_param_module_rebuilds_tree_and_moves_dtype():
     cfg = get_model_config("tiny-idefics2")
     tree_t = to_torch(_np_tree(init_lvlm_params(cfg, jax.random.PRNGKey(0))), device="cpu")

@@ -134,7 +134,7 @@ def test_masks_and_positions():
 
 
 @pytest.mark.parametrize("kwarg", [
-    {"capture_attn": True}, {"adapters": {}}, {"prefix_flash_len": 4},
+    {"remat": True}, {"adapters": {}}, {"prefix_flash_len": 4},
     {"cross_states": torch.zeros(1, 2, 3)},
 ])
 def test_unported_features_raise(setup, kwarg):

@@ -1,6 +1,8 @@
-"""mimic_tpu_torch.ops.flash_attention without JAX: the dispatch rule, the
-launch counters, the no-fallback rules and, on a CUDA card, each CUDA kernel
-against its plain version in fp32 and bf16.
+"""mimic_tpu_torch.ops.flash_attention and .flash_backward without JAX: the
+dispatch rule, the launch counters, the no-fallback rules, the autograd
+Function and, on a CUDA card, each CUDA kernel against its plain version in
+fp32 and bf16, and gradients through the kernels against gradients through
+the plain version.
 
 This file imports no JAX, so it also runs on a machine with a card and no JAX:
 
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from mimic_tpu_torch.ops import flash_attention as tfa
+from mimic_tpu_torch.ops import flash_backward as tfb
 
 
 def make_inputs(B=2, T=128, S=128, H=4, Hkv=2, D=32, seed=0, left_pad=0):
@@ -72,6 +75,31 @@ def test_cpu_path_never_launches_or_builds():
     tfa.flash_attention(_t(q)[:, :100], _t(k)[:, :100], _t(v)[:, :100], _t(km)[:, :100])
     assert tfa.LAUNCHES == {"flash_fwd": 0, "onepass_fwd": 0}
     assert _build._lib is None
+
+
+def test_cpu_backward_never_launches_and_grad_goes_through_the_function():
+    from mimic_tpu_torch.ops import _build
+
+    tfb.reset_launch_counts()
+    q, k, v, km = make_inputs(D=128, left_pad=10)
+    q, k, v = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out, lse, lse_u = tfa.flash_attention(q, k, v, _t(km), causal=True)
+    # the kernels write through raw pointers: only the Function carries gradients
+    assert type(out.grad_fn).__name__ == "FlashAttentionDiffBackward"
+    assert lse.grad_fn is out.grad_fn and lse_u.grad_fn is out.grad_fn
+    (out.sum() + lse.sum() + lse_u.sum()).backward()
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+    assert tfb.LAUNCHES == {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert _build._lib is None
+    with torch.no_grad():  # no graph wanted: the plain dispatch, no Function
+        assert tfa.flash_attention(q, k, v, _t(km))[0].grad_fn is None
+
+
+def test_backward_on_other_devices_raises():
+    q = torch.zeros(1, 128, 2, 128, device="meta")
+    lse = torch.zeros(1, 128, 2, device="meta")
+    with pytest.raises(ValueError):
+        tfb.flash_attention_backward(q, q, q, None, q, lse, lse, q, None, None)
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -150,3 +178,77 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
         diff = (a.float() - b.float()).abs()
         diff = diff if rows is None else diff[rows]
         assert diff.max().item() <= atol, (diff.max().item(), atol)
+
+
+# (B, T, S, H, Hkv, causal, need_unmasked, left_pad); head dim 128
+BWD_CASES = [
+    (2, 256, 256, 8, 2, True, True, 37),
+    (1, 640, 640, 4, 1, True, True, 0),
+    (2, 300, 300, 8, 2, True, False, 20),
+    (2, 200, 200, 4, 4, False, True, 0),
+    (1, 130, 130, 4, 2, False, False, 0),
+]
+
+
+def _bwd_inputs(case, dtype, dev, seed):
+    B, T, S, H, Hkv, causal, need_unmasked, left_pad = case
+    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=128, left_pad=left_pad, seed=seed)
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(seed + 1)
+    g_out = rng.normal(size=q.shape).astype(np.float32)
+    g_lse, g_lse_u = (rng.normal(size=(B, T, H)).astype(np.float32) for _ in range(2))
+    return ([_t(x).to(dev, dt) for x in (q, k, v)], _t(km).to(dev), _t(g_out).to(dev, dt),
+            _t(g_lse).to(dev), _t(g_lse_u).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
+    causal, need_unmasked = case[5], case[6]
+    (q, k, v), km, g_out, g_lse, g_lse_u = _bwd_inputs(case, dtype, cuda_device, case[1])
+    out, lse, lse_u = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
+    before = dict(tfb.LAUNCHES)
+    got = tfb.flash_attention_backward(q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u,
+                                       causal=causal, need_unmasked=need_unmasked)
+    torch.cuda.synchronize()
+    assert {n: tfb.LAUNCHES[n] - before[n] for n in before} == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    want = tfb.flash_attention_backward_plain(q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u,
+                                              causal=causal, need_unmasked=need_unmasked)
+    # fp32: summation order only; bf16: each gradient is rounded to bf16 once
+    # (relative 2^-8) from fp32 sums of the same bf16 inputs
+    rtol = 1e-4 if dtype == "float32" else 1e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.isfinite(a.float()).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= rtol * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_unmasked", [True, False])
+def test_gradients_through_kernels_match_plain_on_card(cuda_device, need_unmasked):
+    # no left padding: for a row with no attendable key the contract (JAX's
+    # too) gives p = 0, while autograd through the plain forward would see its
+    # uniform mean of v
+    case = (2, 256, 256, 8, 2, True, need_unmasked, 0)
+    (q, k, v), km, g_out, g_lse, g_lse_u = _bwd_inputs(case, "float32", cuda_device, 5)
+
+    def grads(attention):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out, lse, lse_u = attention(*leaves, km, causal=True, need_unmasked=need_unmasked)
+        ((out * g_out).sum() + (lse * g_lse).sum() + (lse_u * g_lse_u).sum()).backward()
+        return [x.grad for x in leaves]
+
+    before = dict(tfb.LAUNCHES)
+    got = grads(tfa.flash_attention)
+    torch.cuda.synchronize()
+    assert tfb.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    # autograd through the plain version: the reference the kernels replace.
+    # Without need_unmasked both lse outputs are the masked lse, and the JAX
+    # contract drops lse_u's cotangent; the plain autograd keeps it
+    want = grads(tfa.attention_plain) if need_unmasked else grads(
+        lambda *a, **kw: (lambda o, l, lu: (o, l, lu.detach()))(*tfa.attention_plain(*a, **kw)))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * b.abs().max().item(), (name, err)

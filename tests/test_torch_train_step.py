@@ -1,0 +1,197 @@
+"""The training slice as a whole: mimic_tpu_torch's dual-pass step against
+``mimic_tpu.train`` in fp32 on the CPU.
+
+A tiny idefics2 with JAX-initialised parameters and shift trees carried
+across by the bridge, one collated string batch (``TrainCollator``, shared by
+both packages), the same optimizer settings.  Checked: ``compute_loss`` and
+its metrics at the initial point, and 5 steps of ``make_train_step`` (each
+step's metrics and the final trainable tree) for the ``mimic`` and
+``mimic_attn_mse`` presets (layer-wise MSE on FFN / attention captures), an
+LM-loss-only shift and the KL strategy (``licv``: output shift, scale-lr
+group), on the plain path and, for ``mimic``, on the ``"flash"`` path
+(tiny_text head dim 128, batches padded to 128).
+
+Tolerances: metrics rtol 1e-5; the KL term, a difference of two fp32
+log-softmaxes of about 1e-3, atol 1e-7; the trainable tree after 5 steps
+|port − JAX| / |JAX| ≤ 1e-5 per leaf (Adam divides each gradient element by
+its own running RMS, so elementwise relative differences of near-zero
+gradient entries are not meaningful; the norm is).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mimic_tpu.config import EncoderConfig, get_preset
+from mimic_tpu.models.config import get_model_config, tiny_text
+from mimic_tpu.models.lvlm import init_lvlm_params
+from mimic_tpu.models.processor import LVLMProcessor
+from mimic_tpu.models.tokenizer import SimpleTokenizer
+from mimic_tpu.shift.params import init_shift_params
+from mimic_tpu.train import TrainCollator, TrainState, build_optimizer, make_train_step
+from mimic_tpu.train.step import _to_device_batch
+from mimic_tpu.train.step import compute_loss as jax_compute_loss
+from mimic_tpu_torch.bridge import to_torch
+from mimic_tpu_torch.models import decoder as td
+from mimic_tpu_torch.shift import params as tsp
+from mimic_tpu_torch.train import optim as to
+from mimic_tpu_torch.train import step as ts
+from test_train_step import string_batch
+
+RTOL = 1e-5
+KL_ATOL = 1e-7
+STEPS = 5
+
+
+def _preset(name):
+    if name == "lm_only":
+        enc = EncoderConfig(model_strategy="Strategy.LM_LOSS")
+        _, peft = get_preset("mimic")
+        return enc, peft
+    return get_preset(name)
+
+
+def _cfg(flash: bool, tk):
+    cfg = tiny_text("idefics2", head_dim=128) if flash else get_model_config("tiny-idefics2")
+    cfg = cfg.replace(image_token_id=tk.image_token_id, pad_token_id=tk.pad_token_id,
+                      bos_token_id=tk.bos_token_id, eos_token_id=tk.eos_token_id)
+    return cfg.replace(text=dataclasses.replace(cfg.text, vocab_size=tk.vocab_size))
+
+
+_SETUPS = {}
+
+
+def setup(preset: str, flash: bool):
+    """Parameters, trainable tree and collated batch for one configuration."""
+    key = (preset, flash)
+    if key not in _SETUPS:
+        tk = SimpleTokenizer(padding_side="right")
+        cfg = _cfg(flash, tk)
+        enc, peft = _preset(preset)
+        frozen = jax.tree.map(np.asarray, init_lvlm_params(cfg, jax.random.PRNGKey(0)))
+        shift = jax.tree.map(np.asarray, init_shift_params(enc, cfg.text, jax.random.PRNGKey(1)))
+        collator = TrainCollator(LVLMProcessor(cfg, tk), enc.strategy(), num_image_in_query=1,
+                                 pad_multiple=128 if flash else 64)
+        tb = collator(string_batch())
+        _SETUPS[key] = (cfg, enc, peft, frozen, {"shift": shift}, tb)
+    return _SETUPS[key]
+
+
+def _opt_kwargs(peft):
+    return dict(lr=peft.lr, weight_decay=1e-3, warmup_steps=2, total_steps=20, grad_clip=1.0,
+                scale_lr=peft.scale_lr)
+
+
+def _check_metrics(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        g, w = float(got[k]), float(np.asarray(want[k]))
+        if k == "logits_kl_loss":
+            assert abs(g - w) <= KL_ATOL, (k, g, w)
+        else:
+            assert abs(g - w) <= RTOL * abs(w), (k, g, w)
+
+
+def _check_tree(got, want):
+    for k, w in want["shift"].items():
+        w = np.asarray(w)
+        g = got["shift"][k].detach().numpy()
+        assert g.shape == w.shape
+        assert np.linalg.norm(g - w) <= RTOL * np.linalg.norm(w), k
+
+
+CONFIGS = [("mimic", False), ("mimic", True), ("mimic_attn_mse", False), ("lm_only", False),
+           ("licv", False)]
+IDS = ["mimic", "mimic-flash", "mimic_attn_mse", "lm_only", "licv-kl"]
+
+
+@pytest.mark.parametrize("preset,flash", CONFIGS, ids=IDS)
+def test_compute_loss_matches_jax(preset, flash):
+    cfg, enc, peft, frozen, trainable, tb = setup(preset, flash)
+    attn_impl = "flash" if flash else "xla"
+    kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=tsp.needs_attn_capture(enc),
+              rec_ffn=tsp.needs_ffn_capture(enc), mh=tsp.multi_head(enc),
+              ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+              logz2="unmasked", attn_impl=attn_impl)
+    loss_j, metrics_j = jax_compute_loss(trainable, frozen, _to_device_batch(tb),
+                                         lora_scaling=1.0, **kw)
+    td.ATTN_PATH_LOG.clear()
+    loss_t, metrics_t = ts.compute_loss(to_torch(trainable, "cpu"), to_torch(frozen, "cpu"),
+                                        ts.to_device_batch(tb, "cpu"), **kw)
+    n_passes = 1 if preset == "lm_only" else 2
+    assert td.ATTN_PATH_LOG == [attn_impl] * n_passes
+    assert abs(float(loss_t) - float(loss_j)) <= RTOL * abs(float(loss_j))
+    _check_metrics(metrics_t, metrics_j)
+
+
+@pytest.mark.parametrize("preset,flash", CONFIGS, ids=IDS)
+def test_train_steps_match_jax(preset, flash):
+    cfg, enc, peft, frozen, trainable, tb = setup(preset, flash)
+    attn_impl = "flash" if flash else "xla"
+    common = dict(ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                  attn_impl=attn_impl)
+    tx_j = build_optimizer(trainable, **_opt_kwargs(peft))
+    step_j = make_train_step(cfg, enc, tx_j, donate=False, **common)
+    state_j = TrainState(trainable, tx_j.init(trainable), jnp.zeros((), jnp.int32))
+    tree = to_torch(trainable, "cpu")
+    tx_t = to.build_optimizer(tree, **_opt_kwargs(peft))
+    step_t = ts.make_train_step(cfg, enc, tx_t, **common)
+    state_t = ts.TrainState(tree, tx_t.init(tree), 0)
+    frozen_t = to_torch(frozen, "cpu")
+    batch_j, batch_t = _to_device_batch(tb), ts.to_device_batch(tb, "cpu")
+    for _ in range(STEPS):
+        state_j, m_j = step_j(state_j, frozen, batch_j)
+        state_t, m_t = step_t(state_t, frozen_t, batch_t)
+        _check_metrics(m_t, m_j)
+    assert state_t.step == int(state_j.step) == STEPS
+    _check_tree(state_t.trainable, state_j.trainable)
+
+
+def test_gradient_accumulation_matches_jax():
+    cfg, enc, peft, frozen, trainable, tb = setup("mimic", False)
+    kw = dict(_opt_kwargs(peft), accumulate_steps=2)
+    common = dict(ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight)
+    tx_j = build_optimizer(trainable, **kw)
+    step_j = make_train_step(cfg, enc, tx_j, donate=False, **common)
+    state_j = TrainState(trainable, tx_j.init(trainable), jnp.zeros((), jnp.int32))
+    tree = to_torch(trainable, "cpu")
+    tx_t = to.build_optimizer(tree, **kw)
+    step_t = ts.make_train_step(cfg, enc, tx_t, **common)
+    state_t = ts.TrainState(tree, tx_t.init(tree), 0)
+    frozen_t = to_torch(frozen, "cpu")
+    batch_j, batch_t = _to_device_batch(tb), ts.to_device_batch(tb, "cpu")
+    for _ in range(4):
+        state_j, m_j = step_j(state_j, frozen, batch_j)
+        state_t, m_t = step_t(state_t, frozen_t, batch_t)
+        _check_metrics(m_t, m_j)
+    _check_tree(state_t.trainable, state_j.trainable)
+
+
+def test_frozen_weights_stay_frozen_and_shift_moves():
+    cfg, enc, peft, frozen, trainable, tb = setup("mimic", True)
+    frozen_t = to_torch(frozen, "cpu")
+    before = {k: v.clone() for k, v in frozen_t["lm"]["decoder"]["layers"].items()}
+    tree = to_torch(trainable, "cpu")
+    tx = to.build_optimizer(tree, **dict(_opt_kwargs(peft), warmup_steps=0))
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=0.5, align_loss_weight=1.0,
+                              attn_impl="flash")
+    state = ts.TrainState(tree, tx.init(tree), 0)
+    state, m = step(state, frozen_t, ts.to_device_batch(tb, "cpu"))
+    for k, v in frozen_t["lm"]["decoder"]["layers"].items():
+        assert not v.requires_grad and torch.equal(v, before[k]), k
+    assert all(not v.requires_grad for v in state.trainable["shift"].values())
+    moved = [not torch.equal(state.trainable["shift"][k], tree["shift"][k]) for k in tree["shift"]]
+    assert all(moved) and float(m["grad_norm"]) > 0
+
+
+@pytest.mark.parametrize("kwargs", [{"lora_dropout": 0.1}, {"shift_remat": True},
+                                    {"attn_impl": "ring"}], ids=["lora-dropout", "remat", "ring"])
+def test_unported_options_raise(kwargs):
+    cfg, enc, peft, _, trainable, _ = setup("mimic", False)
+    tx = to.build_optimizer(to_torch(trainable, "cpu"), **_opt_kwargs(peft))
+    with pytest.raises(NotImplementedError):
+        ts.make_train_step(cfg, enc, tx, ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
