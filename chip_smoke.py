@@ -47,6 +47,24 @@ Phases (any failure propagates: non-zero exit, no result line):
              kernels against the plain attention path (cosine >= 0.99), and the
              step timed again on precomputed image features (what a training
              vision-feature cache would leave of it), once under the profiler.
+6. int8 kernels — int8_matmul, fused_mlp_int8 and prompt_attn_int8 against their
+             plain versions on the card, bf16, at the decode shapes of the int8
+             serving path (phase 2's rules: max error against stated tolerances,
+             both times from CUDA events).
+7. tiny int8 — phase 3's tiny idefics2 (text width 128) with quant="int8" and a
+             MimIC shift: beam-3 tokens on the card identical to the CPU's,
+             prefill and first-decode-step logits within 1e-4, exact int8 kernel
+             launch counts, and the int8 trees quantized on the card bit-identical
+             to the CPU's; then one decoder_forward decode step over an int8
+             prompt cache, card (kernels) against CPU (plain versions), 1e-4.
+8. 8B int8 — after phase 5, on the same runner: set_quant("int8"), calls A and B
+             with the shift (exact launch counts, q/s), the first decode step's
+             logits through the kernels against a bf16 tree dequantized from the
+             same int8 handles (row cosine >= 0.99), one int8 call A under the
+             profiler; call B without a shift, which takes the int8 prompt KV,
+             timed against the same call with quant_kv=False; then
+             set_quant("int8-memory"): call A, peak device memory, kernels in the
+             prefill (lm head) and the decode steps.
 
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...}.
 Without a CUDA card the script exits non-zero and prints no result.
@@ -54,6 +72,7 @@ Without a CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -81,6 +100,12 @@ MIN_LOGIT_COSINE = 0.99
 TOL_BWD_BF16 = 1e-2
 MIN_GRAD_COSINE = 0.99
 TRAIN_STEPS = 3
+# int8 kernels against their plain versions (same bf16 inputs): matmul, MLP,
+# and prompt-attention o and l within 1e-2 of max |reference| (one bf16
+# rounding of an fp32 sum, plus the MLP's bf16 intermediate and the rounded
+# p·vscale); the prompt attention's m (fp32 from identical scores) 1e-3 absolute
+TOL_INT8_REL = 1e-2
+TOL_INT8_M = 1e-3
 
 KERNEL_META = {
     "flash_fwd": {
@@ -102,6 +127,23 @@ KERNEL_META = {
         "route": "cuda",
         "source": "mimic_tpu_torch/ops/csrc/flash_bwd.cu",
         "replaces": "mimic_tpu/ops/flash_backward.py:109",
+    },
+    # one kernel for both Pallas matmuls: a stacked layer is a pointer offset
+    "int8_matmul": {
+        "route": "cuda",
+        "source": "mimic_tpu_torch/ops/csrc/int8_matmul.cu",
+        "replaces": "mimic_tpu/ops/quant.py:232",
+        "also_replaces": ["mimic_tpu/ops/quant.py:299"],
+    },
+    "fused_mlp_int8": {
+        "route": "cuda",
+        "source": "mimic_tpu_torch/ops/csrc/fused_mlp_int8.cu",
+        "replaces": "mimic_tpu/ops/quant.py:511",
+    },
+    "prompt_attn_int8": {
+        "route": "cuda",
+        "source": "mimic_tpu_torch/ops/csrc/prompt_attn_int8.cu",
+        "replaces": "mimic_tpu/ops/decode_attention.py:87",
     },
 }
 
@@ -292,14 +334,14 @@ def phase_backward_kernels():
 # ---------------------------------------------------------------------------
 
 
-def tiny_cfg(tk):
+def tiny_cfg(tk, **text_kw):
     """tiny idefics2 with text head dim 128 (the flash path's) and a 70 px
-    SigLIP with head dim 72 (the ViT's)."""
+    SigLIP with head dim 72 (the ViT's); ``text_kw`` overrides the text tower."""
     import dataclasses
 
     from mimic_tpu_torch.shared import tiny_text
 
-    cfg = tiny_text("idefics2", head_dim=128)
+    cfg = tiny_text("idefics2", head_dim=128, **text_kw)
     return cfg.replace(
         text=dataclasses.replace(cfg.text, vocab_size=tk.vocab_size),
         vision=dataclasses.replace(cfg.vision, hidden_size=144, num_heads=2, image_size=70),
@@ -469,11 +511,16 @@ def profile_run(label, run):
         log(f"[profile] {label}: the profiler recorded no device time")
         return
     groups = {"attention forward kernels": 0.0, "attention backward kernels": 0.0,
-              "matmuls": 0.0, "other": 0.0}
+              "int8_matmul": 0.0, "fused_mlp": 0.0, "prompt_attn": 0.0,
+              "int8 split-K reduce": 0.0, "matmuls": 0.0, "other": 0.0}
     for key, t in us.items():
         k = key.lower()
         group = ("attention backward kernels" if "flash_bwd" in key
                  else "attention forward kernels" if "mimic::" in key
+                 else "int8_matmul" if "int8_matmul_kernel" in key
+                 else "fused_mlp" if "fused_mlp_kernel" in key
+                 else "prompt_attn" if "prompt_attn" in key
+                 else "int8 split-K reduce" if "splitk_reduce" in key
                  else "matmuls" if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass"))
                  else "other")
         groups[group] += t
@@ -486,6 +533,28 @@ def profile_run(label, run):
 
 def profile_call(name, run):
     profile_run(f"call {name}", lambda: run(name)[1])
+
+
+def serving_calls():
+    """name → (images, texts, prompt bucket) of the two serving calls."""
+    return {
+        "A": ([[synthetic_image(10 + i)] for i in range(4)],
+              [f"Image:<image> {synthetic_text(20 + i, 250 + 40 * i)}Question: what is in "
+               f"the image? Answer:" for i in range(4)], 512),
+        "B": ([[synthetic_image(30 + i)] for i in range(2)],
+              [f"Image:<image> {synthetic_text(40 + i, 3700 + 150 * i)}Question: what is in "
+               f"the image? Answer:" for i in range(2)], 4096),
+    }
+
+
+def timed_generate(runner, calls, name):
+    """runner.generate on call ``name``: (decoded strings, synchronised wall s)."""
+    images, texts, _ = calls[name]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = runner.generate(images, texts, num_beams=NUM_BEAMS, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
 
 
 def phase_main():
@@ -509,26 +578,14 @@ def phase_main():
                                        torch.device("cuda")))
     assert runner.logz2 == "unmasked"
 
-    calls = {
-        "A": ([[synthetic_image(10 + i)] for i in range(4)],
-              [f"Image:<image> {synthetic_text(20 + i, 250 + 40 * i)}Question: what is in "
-               f"the image? Answer:" for i in range(4)], 512),
-        "B": ([[synthetic_image(30 + i)] for i in range(2)],
-              [f"Image:<image> {synthetic_text(40 + i, 3700 + 150 * i)}Question: what is in "
-               f"the image? Answer:" for i in range(2)], 4096),
-    }
+    calls = serving_calls()
     for name, (images, texts, bucket) in calls.items():
         width = runner.processor(None, texts)["input_ids"].shape[1]
         if not bucket // 2 < width <= bucket:
             raise AssertionError(f"call {name}: prompt width {width} misses the {bucket} bucket")
 
     def run(name):
-        images, texts, _ = calls[name]
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = runner.generate(images, texts, num_beams=NUM_BEAMS, max_new_tokens=MAX_NEW_TOKENS)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
+        return timed_generate(runner, calls, name)
 
     for name in calls:  # warm-up
         _, secs = run(name)
@@ -784,6 +841,423 @@ def phase_train_8b(runner):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the int8 kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def _int8_weight(gen, shape, scale_base):
+    """Random int8 weights and positive fp32 per-column scales around ``scale_base``."""
+    wq = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    scale = (torch.rand(shape[:-2] + shape[-1:], generator=gen, device="cuda") + 0.5) * scale_base
+    return wq, scale
+
+
+def cold_ms(fn, layers, reps):
+    """``cuda_ms`` of ``fn(layer)`` with the layer cycling through a stack larger
+    than the card's 50 MB L2 cache, so every launch reads its weights from HBM
+    as a decode step does (one layer's weights fit in L2)."""
+    order = itertools.cycle(range(layers))
+    return cuda_ms(lambda: fn(next(order)), reps)
+
+
+def check_int8(label, kernel, plain, layers, layer, reps, fields=None):
+    """``kernel(layer)`` against ``plain(layer)``: every output within
+    TOL_INT8_REL of its max |reference| (``fields`` named "m": TOL_INT8_M
+    absolute); then both timed cold.  Returns (per-field max abs err, ms, plain ms)."""
+    got, want = kernel(layer), plain(layer)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    errs = {}
+    for field, a, b in zip(fields or ("out",), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {field} {tuple(a.shape)} {a.dtype} or non-finite values")
+        errs[field] = (a.float() - b.float()).abs().max().item()
+        tol = TOL_INT8_M if field == "m" else TOL_INT8_REL * b.float().abs().max().item()
+        if errs[field] > tol:
+            raise AssertionError(f"{label}: {field} max abs err {errs[field]} > {tol}")
+    return errs, cold_ms(kernel, layers, reps), cold_ms(plain, layers, reps)
+
+
+def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
+    """int8_matmul (stacked when ``layers``) at [M, K] x [K, N]; ``n_real``:
+    the lm head's handle, N 128-padded in storage and sliced back by qdot,
+    fp32 logits out."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wq, scale = _int8_weight(gen, (layers, K, N) if layers else (K, N), 4e-4)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    if n_real:
+        wq[:, n_real:] = 0
+        handle = {"q8": wq, "scale": scale[:n_real].contiguous()}
+        kernel = lambda _: tq.qdot(x, handle, preferred_element_type=torch.float32)
+        plain = lambda _: tq.int8_matmul_plain(x, wq[:, :n_real], handle["scale"], torch.float32)
+    else:
+        kernel = lambda l: tq.int8_matmul_stacked(x, wq, scale, l)
+        plain = lambda l: tq.int8_matmul_plain(x, wq[l], scale[l])
+    errs, ms, plain_ms = check_int8(label, kernel, plain, max(layers, 1), layer, reps)
+    log(f"[int8] {label}: int8_matmul M{M} K{K} N{n_real or N}"
+        f"{f' layer {layer} of {layers}' if layers else ''}: max abs err {errs['out']:.3e} "
+        f"(tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "int8_matmul", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms}
+
+
+def check_fused_mlp(label, seed, M, D, F, reps):
+    from mimic_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    layers, layer = 4, 3
+    gu, gs = _int8_weight(gen, (layers, D, 2 * F), 4e-4)
+    dn, ds = _int8_weight(gen, (layers, F, D), 1e-4)
+    x = torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16)
+    errs, ms, plain_ms = check_int8(
+        label, lambda l: tq.fused_mlp_stacked(x, gu, gs, dn, ds, l),
+        lambda l: tq.fused_mlp_plain(x, gu[l], gs[l], dn[l], ds[l]), layers, layer, reps)
+    log(f"[int8] {label}: fused_mlp_int8 M{M} D{D} F{F} layer {layer} of {layers}: max abs err "
+        f"{errs['out']:.3e} (tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms")
+    return {"name": "fused_mlp_int8", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms}
+
+
+def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
+    """prompt_attn_int8 on a 16-layer int8 prompt cache quantized on the card,
+    folded layout, against its plain version (checked at layer 1)."""
+    from mimic_tpu_torch.ops import decode_attention as tda
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    D, layers = tda.HEAD_DIM, 16
+    kv = [torch.randn(layers, B0, Sp, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(2)]
+    pk, pv = tda.quantize_prompt_kv(*kv)
+    del kv
+    qg = (torch.randn(B0 * beams, 1, Hkv, G, D, generator=gen, device="cuda") / D**0.5)
+    qf = tda._fold(qg.to(torch.bfloat16), B0).contiguous()
+    mask = torch.from_numpy(left_padded_mask(B0, Sp, pads)).cuda()
+    args = lambda l: (qf, pk["q8"][l], pk["scale"][l], pv["q8"][l], pv["scale"][l], mask)
+    errs, ms, plain_ms = check_int8(
+        label, lambda l: tda._launch(*args(l)),
+        lambda l: tda.prompt_attention_int8_plain(*args(l)), layers, 1, reps, fields="oml")
+    log(f"[int8] {label}: prompt_attn_int8 B0 {B0} x beams {beams}, Hkv {Hkv}, G {G}, Sp {Sp}, "
+        f"D {D}, left pads {list(pads)}: max abs err o {errs['o']:.3e} m {errs['m']:.3e} "
+        f"l {errs['l']:.3e} (tol o, l {TOL_INT8_REL} x max |ref|, m {TOL_INT8_M}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {"name": "prompt_attn_int8", "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def phase_int8_kernels():
+    """The int8 kernels at idefics2-8b's decode shapes (D 4096, 32 heads / 8 kv
+    heads, F 14336, vocab 32003): M = 12 is call A's decode (4 requests x 3
+    beams), M = 6 call B's; M = 255 the largest M that takes the kernel.  The
+    times kept for each kernel are those at its first (main-path) shape."""
+    results = [
+        check_int8_matmul("qkv-12", 20, 12, 4096, 6144, 32, 5, 0, reps=32),
+        check_int8_matmul("o-12", 21, 12, 4096, 4096, 32, 7, 0, reps=32),
+        check_int8_matmul("lm-head-12", 22, 12, 4096, 32128, 0, 0, 32003, reps=20),
+        check_int8_matmul("qkv-6", 23, 6, 4096, 6144, 32, 31, 0, reps=32),
+        check_int8_matmul("qkv-255", 24, 255, 4096, 6144, 32, 1, 0, reps=32),
+        check_fused_mlp("mlp-12", 25, 12, 4096, 14336, reps=16),
+        check_fused_mlp("mlp-6", 26, 6, 4096, 14336, reps=16),
+        check_prompt_attn("call-B", 27, 2, NUM_BEAMS, 8, 4, 4096, (0, 250), reps=32),
+        check_prompt_attn("call-A", 28, 4, NUM_BEAMS, 8, 4, 512, (130, 0, 37, 300), reps=32),
+    ]
+    summary = {}
+    for r in results:
+        s = summary.setdefault(r["name"], {"max_abs_err": 0.0})
+        s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
+        s.setdefault("ms", r["ms"])
+        s.setdefault("plain_ms", r["plain_ms"])
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the tiny int8 slice, kernels on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+class LogitSpy:
+    """Records the last-position logits of every ``lvlm_forward`` call made by
+    ``models/generate.py`` (the prefill first, then one per decode step)."""
+
+    def __init__(self):
+        from mimic_tpu_torch.models import generate as tg
+
+        self.tg, self.logits = tg, []
+
+    def __enter__(self):
+        self.orig = self.tg.lvlm_forward
+
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.logits.append(out.logits[:, -1].float())
+            return out
+
+        self.tg.lvlm_forward = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.tg.lvlm_forward = self.orig
+
+
+def _same_tree_bytes(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree_bytes(a[k], b[k]) for k in a)
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def _int8_counts():
+    from mimic_tpu_torch.ops import decode_attention as tda
+    from mimic_tpu_torch.ops import quant as tq
+
+    return {**tq.LAUNCHES, **tda.LAUNCHES}
+
+
+def _reset_int8_counts():
+    from mimic_tpu_torch.ops import decode_attention as tda
+    from mimic_tpu_torch.ops import quant as tq
+
+    tq.reset_launch_counts()
+    tda.reset_launch_counts()
+
+
+def phase_tiny_int8():
+    from mimic_tpu_torch.models import decoder as td
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.ops import decode_attention as tda
+    from mimic_tpu_torch.shared import SimpleTokenizer, get_preset
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    tk = SimpleTokenizer(padding_side="left")
+    # text width 128: no lane padding on the down projection, so the fused MLP is eligible
+    cfg = tiny_cfg(tk, hidden_size=128)
+    L = cfg.text.num_layers
+    cpu = torch.device("cpu")
+    params = init_lvlm_params(cfg, torch.Generator().manual_seed(0), cpu)
+    # the shift as initialised: phase 3 already amplifies it through the attention kernels
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text, torch.Generator().manual_seed(1), cpu)
+    rng = np.random.default_rng(7)
+    images = [[rng.integers(0, 255, (70, 70, 3)).astype(np.uint8)] for _ in range(2)]
+    texts = ["Image:<image> Question: what is it? Answer:",
+             "Image:<image> Question: and what colour is the thing on the left? Answer:"]
+    runners = {dev: LVLMRunner(cfg, params, SimpleTokenizer(padding_side="left"), device=dev,
+                               quant="int8") for dev in ("cpu", "cuda")}
+    if not _same_tree_bytes(runners["cpu"].decode_params, runners["cuda"].decode_params):
+        raise AssertionError("tiny int8: the int8 tree quantized on the card differs from the CPU's")
+    new = 6
+    logits, tokens = {}, {}
+    for dev, r in runners.items():
+        r.set_shift(shift)
+        batch = r.process_input(images, texts, pad_to=128)
+        _reset_int8_counts()
+        with LogitSpy() as spy:
+            tokens[dev] = tg.beam_generate(
+                r.params, cfg, batch, max_new_tokens=new, num_beams=NUM_BEAMS,
+                eos_token_id=tk.eos_token_id, pad_token_id=tk.pad_token_id, shift=r.shift,
+                logz2="unmasked", attn_impl="flash" if dev == "cuda" else "xla",
+                decode_params=r.decode_params,
+            ).tokens.cpu()
+        logits[dev] = [spy.logits[0].cpu(), spy.logits[1].cpu()]
+    torch.cuda.synchronize()
+    launches = _int8_counts()
+    want = {"int8_matmul": (new - 1) * (2 * L + 1), "fused_mlp_int8": (new - 1) * L,
+            "prompt_attn_int8": 0}
+    errs = [(g - w).abs().max().item() for g, w in zip(logits["cuda"], logits["cpu"])]
+    close = all(torch.allclose(g, w, rtol=TOL_TINY_FP32, atol=TOL_TINY_FP32)
+                for g, w in zip(logits["cuda"], logits["cpu"]))
+    same = torch.equal(tokens["cuda"], tokens["cpu"])
+    log(f"[tiny-int8] fp32, quant='int8' with a MimIC shift, kernels on the card vs plain on the "
+        f"CPU: int8 trees bit-identical; prefill logits max abs err {errs[0]:.3e}, first decode "
+        f"step {errs[1]:.3e} (rtol = atol = {TOL_TINY_FP32}: {close}); beam-3 tokens identical: "
+        f"{same}; tokens {tokens['cuda'].tolist()}; launches {launches} (want {want})")
+    if not close or not same or launches != want:
+        raise AssertionError("tiny int8 slice: the kernel path disagrees with the plain path")
+
+    # one decode step over an int8 prompt cache (beam 3, 128 prompt slots)
+    tcfg = cfg.text
+    B0, T = 2, 128
+    B = B0 * NUM_BEAMS
+    plain_dec = params["lm"]["decoder"]
+    qdec = runners["cpu"].decode_params["lm"]["decoder"]
+    embeds = torch.from_numpy(rng.normal(size=(B0, T, tcfg.hidden_size)).astype(np.float32))
+    step = torch.from_numpy(rng.normal(size=(B, 1, tcfg.hidden_size)).astype(np.float32))
+    mask = torch.from_numpy(left_padded_mask(B0, T, [0, 40]))
+    pre = td.decoder_forward(plain_dec, tcfg, embeds, td.make_causal_mask(mask),
+                             td.positions_from_mask(mask), kv_cache=td.init_kv_cache(tcfg, B0, T, cpu),
+                             key_mask=mask, cache_empty=True)
+    prompt = [pre.kv_cache["k"], pre.kv_cache["v"]]
+    mask_full = torch.cat([mask, torch.zeros(B0, 4, dtype=mask.dtype)], 1).repeat_interleave(
+        NUM_BEAMS, 0)
+    mask_full[:, T] = 1
+    pos = mask.sum(-1).repeat_interleave(NUM_BEAMS)[:, None]
+    quantized = {dev: tda.quantize_prompt_kv(*(p.to(dev) for p in prompt)) for dev in ("cpu", "cuda")}
+    if not _same_tree_bytes(dict(enumerate(quantized["cpu"])), dict(enumerate(quantized["cuda"]))):
+        raise AssertionError("tiny int8: prompt KV quantized on the card differs from the CPU's")
+    hidden, paths = {}, {}
+    for dev, (pk, pv) in quantized.items():
+        gen_shape = (tcfg.num_layers, B, 4, tcfg.num_kv_heads, tcfg.head_size)
+        cache = {"prompt_k": pk, "prompt_v": pv, "k": torch.zeros(gen_shape, device=dev),
+                 "v": torch.zeros(gen_shape, device=dev), "length": T}
+        _reset_int8_counts()
+        td.ATTN_PATH_LOG.clear()
+        hidden[dev] = td.decoder_forward(
+            _to(qdec, dev), tcfg, step.to(dev), None, pos.to(dev), kv_cache=cache,
+            key_mask=mask_full.to(dev)).hidden.cpu()
+        paths[dev] = (list(td.ATTN_PATH_LOG), _int8_counts())
+    err = (hidden["cuda"] - hidden["cpu"]).abs().max().item()
+    close = torch.allclose(hidden["cuda"], hidden["cpu"], rtol=TOL_TINY_FP32, atol=TOL_TINY_FP32)
+    log(f"[tiny-int8] decode step over an int8 prompt cache (B0 {B0} x beams {NUM_BEAMS}, "
+        f"{T} prompt slots), card vs CPU: hidden max abs err {err:.3e} (rtol = atol = "
+        f"{TOL_TINY_FP32}: {close}); paths and launches {paths}")
+    if (not close or paths["cuda"][0] != ["cached", "quant_kv"]
+            or paths["cuda"][1]["prompt_attn_int8"] != L or paths["cpu"][1]["prompt_attn_int8"]):
+        raise AssertionError("tiny int8 prompt-KV step: the kernel path disagrees with the plain path")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the int8 serving modes on idefics2-8b-base
+# ---------------------------------------------------------------------------
+
+
+def dequantized_tree(tree):
+    """A copy of ``tree`` with every int8 handle dequantized to bf16 [.., K, N]
+    (layer by layer: no fp32 copy of a whole stack); other leaves shared."""
+    from mimic_tpu_torch.ops.quant import dequantize, is_quantized
+
+    if is_quantized(tree):
+        q8, n = tree["q8"], tree["scale"].shape[-1]
+        if q8.dim() == 2:
+            return dequantize(tree).to(torch.bfloat16)
+        out = torch.empty(q8.shape[0], q8.shape[1], n, dtype=torch.bfloat16, device=q8.device)
+        for l in range(q8.shape[0]):
+            out[l] = dequantize(dict(tree, layer=l)).to(torch.bfloat16)
+        return out
+    if isinstance(tree, dict):
+        return {k: dequantized_tree(v) for k, v in tree.items()}
+    return tree
+
+
+def _row_cosine(a, b):
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+
+
+def phase_int8_8b(runner):
+    import gc
+
+    from mimic_tpu_torch.models import generate as tg
+
+    calls = serving_calls()
+    cfg = runner.cfg
+    L = cfg.text.num_layers
+    steps = MAX_NEW_TOKENS - 1
+    want = {"int8_matmul": steps * (2 * L + 1), "fused_mlp_int8": steps * L, "prompt_attn_int8": 0}
+    totals = dict.fromkeys(want, 0)
+    shift = runner.shift
+
+    def counted(name, label, expect):
+        _, secs = timed_generate(runner, calls, name)
+        log(f"[int8] warm-up call {name} ({label}): {secs:.3f} s")
+        _reset_int8_counts()
+        out, secs = timed_generate(runner, calls, name)
+        got = _int8_counts()
+        n = len(calls[name][1])
+        log(f"[int8] call {name} ({label}): {n} requests, bucket {calls[name][2]}, beam "
+            f"{NUM_BEAMS}, {MAX_NEW_TOKENS} new tokens: {secs:.3f} s = {n / secs:.3f} q/s; "
+            f"launches {got}; decoded {json.dumps(out)}")
+        if got != expect or len(out) != n:
+            raise AssertionError(f"call {name} ({label}): launches {got}, want {expect}")
+        for k in totals:
+            totals[k] += got[k]
+        return secs
+
+    def batch_of(name):
+        images, texts, bucket = calls[name]
+        runner.tokenizer.padding_side = "left"  # as generate() pads
+        return runner.process_input(images, texts, pad_to=bucket)
+
+    def beam(batch, new, decode_params, **kw):
+        tok = runner.tokenizer
+        return tg.beam_generate(
+            runner.params, cfg, batch, max_new_tokens=new, num_beams=NUM_BEAMS,
+            eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id, shift=runner.shift,
+            logz2=runner.logz2, attn_impl="flash", decode_params=decode_params, **kw)
+
+    def first_step_logits(batch, decode_params, **kw):
+        with LogitSpy() as spy:
+            beam(batch, 2, decode_params, **kw)
+        return spy.logits[1]
+
+    # 1. "int8": the bf16 tree prefills, the int8 copy decodes; with the shift
+    t0 = time.perf_counter()
+    runner.set_quant("int8")
+    torch.cuda.synchronize()
+    log(f"[int8] set_quant('int8'): int8 decode copy made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    for name in calls:
+        counted(name, "int8, shift", want)
+    profile_run("int8 call A", lambda: timed_generate(runner, calls, "A")[1])
+
+    batch = batch_of("A")
+    deq = dequantized_tree(runner.decode_params)
+    a = first_step_logits(batch, runner.decode_params)
+    b = first_step_logits(batch, deq)
+    del deq
+    cos = _row_cosine(a, b)
+    log(f"[int8] 8B first decode step (call A, beam {NUM_BEAMS}, shift): logits through the int8 "
+        f"kernels vs a bf16 tree dequantized from the same handles: max abs diff "
+        f"{(a - b).abs().max().item():.4f} of max |logit| {b.abs().max().item():.4f}, min row "
+        f"cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if a.shape != (4 * NUM_BEAMS, cfg.text.vocab_size) or not torch.isfinite(a).all():
+        raise AssertionError(f"8B int8 logits: shape {tuple(a.shape)} or non-finite values")
+    if cos < MIN_LOGIT_COSINE:
+        raise AssertionError("8B int8 logits disagree with the dequantized bf16 path")
+
+    # 2. call B without a shift: Tp = 4096 >= 1024 turns the int8 prompt KV on
+    runner.set_shift(None)
+    counted("B", "int8, no shift: int8 prompt KV", {**want, "prompt_attn_int8": steps * L})
+    batch = batch_of("B")
+    times = {True: [], False: []}
+    for quant_kv in (True, False):  # warm-up
+        beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
+    for quant_kv in (True, False, True, False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
+        torch.cuda.synchronize()
+        times[quant_kv].append(time.perf_counter() - t)
+    on = first_step_logits(batch, runner.decode_params, quant_kv=True)
+    off = first_step_logits(batch, runner.decode_params, quant_kv=False)
+    cos = _row_cosine(on, off)
+    log(f"[int8] call B without a shift through beam_generate: quant_kv on "
+        f"{', '.join(f'{t:.3f}' for t in times[True])} s, off "
+        f"{', '.join(f'{t:.3f}' for t in times[False])} s; first decode step logits on vs off: "
+        f"max abs diff {(on - off).abs().max().item():.4f}, min row cosine {cos:.6f} "
+        f"(need >= {MIN_LOGIT_COSINE})")
+    if cos < MIN_LOGIT_COSINE or not torch.isfinite(on).all():
+        raise AssertionError("8B int8 prompt-KV logits disagree with the bf16 prompt KV")
+    runner.set_shift(shift)
+
+    # 3. "int8-memory": one int8 tree serves the prefill and the decode steps
+    t0 = time.perf_counter()
+    runner.set_quant("int8-memory")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"[int8] set_quant('int8-memory'): {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    # the prefill's lm head (M = 4) is the one kernel launch outside the decode steps
+    counted("A", "int8-memory, shift", {**want, "int8_matmul": want["int8_matmul"] + 1})
+    log(f"[int8] int8-memory: peak device memory over call A {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated after it")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available (torch.cuda.is_available() is False)",
@@ -806,19 +1280,25 @@ def main() -> int:
 
     summary = phase_kernels()
     summary.update(phase_backward_kernels())
+    summary.update(phase_int8_kernels())
     phase_tiny_reference()
     phase_tiny_train()
+    phase_tiny_int8()
     runner, serve_launches = phase_main()
     train_launches = phase_train_8b(runner)
+    int8_launches = phase_int8_8b(runner)
 
-    # launches: each path's counted run (serving, then training), summed
-    launches = {name: serve_launches.get(name, 0) + train_launches[name] for name in KERNEL_META}
-    log(f"[card] kernel launches: serving {serve_launches}, training {train_launches}")
+    # launches: each path's counted runs (serving, training, int8 serving), summed
+    launches = {name: sum(d.get(name, 0) for d in (serve_launches, train_launches, int8_launches))
+                for name in KERNEL_META}
+    log(f"[card] kernel launches: serving {serve_launches}, training {train_launches}, "
+        f"int8 serving {int8_launches}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched on its main path: {launches}")
     kernels = [
         {"name": name, **KERNEL_META[name], "launches": launches[name], **summary[name]}
-        for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                     "int8_matmul", "fused_mlp_int8", "prompt_attn_int8")
     ]
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

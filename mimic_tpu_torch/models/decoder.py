@@ -13,11 +13,14 @@ cached two-part decode with a beam-shared prompt region, and the cache append.
 The hidden-state captures of the training step (``capture_attn`` /
 ``capture_ffn``, optionally gathered at ``capture_gather_idx``) are ported;
 the flash path differentiates through ``flash_attention_diff``.
+Int8 weights (``ops/quant.py`` handles, fused ``qkv_proj`` / ``gateup_proj``
+or unfused) go through ``qdot`` and ``fused_mlp`` as stacked handles
+``{"q8", "scale", "layer": l}`` (no per-layer copy); an int8 prompt cache
+(``ops/decode_attention.py``) through ``cached_attention``'s int8 branch.
 Not ported yet (raise ``NotImplementedError``): gated cross-attention
 (idefics1), q/k/v biases (qwen2), qk-layernorms, the sliding window
-(Mistral), LoRA adapters, prefix-merge prefill, ring attention, quantized
-weights, layer-input captures and perturbations, rematerialisation, per-row
-cache writes.
+(Mistral), LoRA adapters, prefix-merge prefill, ring attention, layer-input
+captures and perturbations, rematerialisation, per-row cache writes.
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
+from ..ops.quant import fused_mlp, qdot
 from ..shared import TextConfig
 from ..shift.functional import apply_attn_shift, apply_output_shift
 from .layers import (
@@ -129,9 +134,14 @@ def init_kv_cache(
 def _project_qkv(lp: Params, x: torch.Tensor, cfg: TextConfig):
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-    q = x @ lp["q_proj"]
-    k = x @ lp["k_proj"]
-    v = x @ lp["v_proj"]
+    if "qkv_proj" in lp:
+        # the int8 serving tree fuses q/k/v into one matmul
+        qkv = qdot(x, lp["qkv_proj"])
+        q = qkv[..., : H * Dh]
+        k = qkv[..., H * Dh : (H + Hkv) * Dh]
+        v = qkv[..., (H + Hkv) * Dh :]
+    else:
+        q, k, v = (qdot(x, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
     return q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
 
 
@@ -162,7 +172,7 @@ def _self_attention(
 
     if cache_k is not None:
         key_mask_new = key_mask[:, cache_len:cache_len + T]
-        gen_key_mask = key_mask[:, prompt_k.shape[1]:] if prompt_k is not None else key_mask
+        gen_key_mask = key_mask[:, prompt_kv_len(prompt_k):] if prompt_k is not None else key_mask
         gen_key_mask = gen_key_mask[:, : cache_k.shape[1]]
         attn, lse, lse_u = cached_attention(
             q, k, v, cache_k, cache_v, cache_len, gen_key_mask, key_mask_new,
@@ -184,7 +194,16 @@ def _self_attention(
     if ls:
         log_z2 = lse if logz2 == "masked" else lse_u
         attn = apply_attn_shift(ls, q, log_z2, attn, multi_head)
-    return attn.reshape(B, T, -1) @ lp["o_proj"], k, v
+    return qdot(attn.reshape(B, T, -1), lp["o_proj"]), k, v
+
+
+def _layer_view(w: Any, l: int) -> Any:
+    """Layer ``l`` of a stacked leaf: a view of a tensor, or for a quantized
+    handle (weights or prompt KV) the stacked handle with ``layer`` set, which
+    the kernels read in place."""
+    if isinstance(w, dict):
+        return dict(w, layer=l)
+    return w[l]
 
 
 _UNPORTED_DEFAULTS = {
@@ -248,7 +267,8 @@ def decoder_forward(
     use_cache = kv_cache is not None
     cache_len = int(kv_cache["length"]) if use_cache else 0
     has_prompt = use_cache and "prompt_k" in kv_cache
-    prompt_len = kv_cache["prompt_k"].shape[2] if has_prompt else 0
+    prompt_quant = has_prompt and is_quantized_kv(kv_cache["prompt_k"])
+    prompt_len = prompt_kv_len(kv_cache["prompt_k"]) if has_prompt else 0
     if use_cache and key_mask is None:
         key_mask = torch.ones(
             B, prompt_len + kv_cache["k"].shape[2], dtype=torch.int32,
@@ -258,20 +278,19 @@ def decoder_forward(
     if has_prompt:
         # per-beam rows of the timeline mask are identical within a batch row's
         # beam group (one prefill, tiled): reduce to B0 rows once
-        B0 = kv_cache["prompt_k"].shape[1]
+        B0 = (kv_cache["prompt_k"]["q8"] if prompt_quant else kv_cache["prompt_k"]).shape[1]
         prompt_mask = key_mask[:, :prompt_len].reshape(B0, B // B0, prompt_len)[:, 0]
     attend_cacheless = not use_cache or cache_empty
     selected = select_attn_path(
         cfg, attn_impl, T, cacheless=attend_cacheless, has_key_mask=key_mask is not None
     )
     ATTN_PATH_LOG.append(selected)
+    if prompt_quant:
+        ATTN_PATH_LOG.append("quant_kv")  # once per call, as JAX logs it once per trace
     use_flash = selected == "flash"
     layer_key_mask = key_mask[:, :T] if (use_cache and cache_empty) else key_mask
 
     layers = params["layers"]
-    for name, w in layers.items():
-        if isinstance(w, dict):
-            raise NotImplementedError(f"quantized weight {name!r} is not ported yet")
     write_at = cache_len - prompt_len
 
     def capture(x: torch.Tensor) -> torch.Tensor:
@@ -283,7 +302,7 @@ def decoder_forward(
     attn_caps, ffn_caps = [], []
     h = input_embeds
     for l in range(cfg.num_layers):
-        lp = {name: w[l] for name, w in layers.items()}
+        lp = {name: _layer_view(w, l) for name, w in layers.items()}
         ls = {name: w[l] for name, w in layer_shift.items()}
         os_ = {name: w[l] for name, w in out_shift.items()}
         residual = h
@@ -295,8 +314,8 @@ def decoder_forward(
             cache_len, multi_head, logz2,
             key_mask=layer_key_mask,
             use_flash=use_flash,
-            prompt_k=kv_cache["prompt_k"][l] if has_prompt else None,
-            prompt_v=kv_cache["prompt_v"][l] if has_prompt else None,
+            prompt_k=_layer_view(kv_cache["prompt_k"], l) if has_prompt else None,
+            prompt_v=_layer_view(kv_cache["prompt_v"], l) if has_prompt else None,
             prompt_mask=prompt_mask,
         )
         attn_out = apply_output_shift(
@@ -305,7 +324,17 @@ def decoder_forward(
         h = residual + attn_out
         residual = h
         hn = rms_norm(h, lp["post_ln"], cfg.norm_eps)
-        ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
+        if "gateup_proj" in lp:
+            # decode-sized M on the card: the whole MLP in one kernel; else the
+            # two-qdot path (JAX decoder.py:541-552)
+            ffn_out = fused_mlp(hn, lp["gateup_proj"], lp["down_proj"])
+            if ffn_out is None:
+                gu = qdot(hn, lp["gateup_proj"])
+                F = gu.shape[-1] // 2
+                ffn_out = qdot(torch.nn.functional.silu(gu[..., :F]) * gu[..., F:],
+                               lp["down_proj"])
+        else:
+            ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
         ffn_out = apply_output_shift(ffn_out, os_.get("ffn_shift"), os_.get("ffn_scale"))
         h = residual + ffn_out
         if capture_attn:

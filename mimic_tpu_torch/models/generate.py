@@ -10,8 +10,11 @@ Top-k selections use a stable descending sort, so among equal values the lower
 index comes first, as with ``jax.lax.top_k``: the beam state holds many equal
 ``NEG`` slots, and ``torch.topk`` promises no order among ties.
 
-Not ported yet: sampling, int8 prompt KV (``quant_kv``), prefix tuning,
-separate int8 decode parameters, LoRA adapters.
+Int8 serving: ``decode_params`` (the int8 copy of the ``"int8"`` mode) is
+read by every decode step while the prefill reads ``params``; ``quant_kv``
+stores the beam-shared prompt KV int8 (``ops/decode_attention.py``).
+
+Not ported yet: sampling, prefix tuning, LoRA adapters.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..bridge import tree_leaves
+from ..ops.decode_attention import quantize_prompt_kv
 from ..shared import ModelConfig
 from .decoder import init_kv_cache
 from .lvlm import LVLMBatch, encode_images, lvlm_forward
@@ -29,8 +33,14 @@ from .lvlm import LVLMBatch, encode_images, lvlm_forward
 NEG = -1.0e9
 
 
+# prompt-region length from which beam search stores the prompt KV int8 by
+# default (kept from the JAX package, where it is a TPU measurement)
+QUANT_KV_MIN_PROMPT = 1024
+
+
 def _param_dtype(params) -> torch.dtype:
-    """Model compute dtype: the first floating leaf that is not fp32."""
+    """Model compute dtype: the first floating leaf that is not fp32 (int8
+    weight tables and their fp32 scales do not define it)."""
     for leaf in tree_leaves(params):
         if leaf.is_floating_point() and leaf.dtype != torch.float32:
             return leaf.dtype
@@ -95,9 +105,11 @@ def greedy_generate(
     shift: Optional[Dict[str, torch.Tensor]] = None,
     logz2: str = "unmasked",
     attn_impl: str = "xla",
+    decode_params=None,
 ) -> GenerateResult:
     B, T = batch.input_ids.shape
     total = T + max_new_tokens
+    dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
     last_logits, cache, image_feats = _prefill(
         params, cfg, batch, total, shift, logz2, dtype, attn_impl
@@ -112,7 +124,7 @@ def greedy_generate(
         tok = torch.where(finished, pad_token_id, tok)
         mask_full[:, T + i] = 1
         out = lvlm_forward(
-            params, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
+            dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
             image_feats=image_feats,
             position_ids=(n_real + i)[:, None],
             kv_cache=cache,
@@ -143,6 +155,8 @@ def beam_generate(
     shift: Optional[Dict[str, torch.Tensor]] = None,
     logz2: str = "unmasked",
     attn_impl: str = "xla",
+    decode_params=None,
+    quant_kv: Optional[bool] = None,
 ) -> GenerateResult:
     """HF-semantics beam search (do_sample=False, early_stopping=False).
 
@@ -150,11 +164,19 @@ def beam_generate(
     prefill), so it is kept once at batch B (``prompt_k/v``, read with the
     beams folded into the query-group axis) and each beam holds only the thin
     generated region, which is all a beam reorder has to gather.
+
+    ``quant_kv``: store that prompt region int8 and read it through the
+    ``prompt_attn_int8`` kernel.  Default: on when ``decode_params`` is set
+    and the prompt has at least ``QUANT_KV_MIN_PROMPT`` slots.  It runs only
+    on CUDA, without a shift, a sliding window or a head dim off 128 (JAX's
+    gate, with the card in the TPU's place); the prompt region is then
+    zero-padded to a multiple of 128 slots, masked out in the timeline.
     """
     B, T = batch.input_ids.shape
     K = num_beams
     Tp = T
     total = Tp + max_new_tokens
+    dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
     last_logits, cache, image_feats = _prefill(
         params, cfg, batch, total, shift, logz2, dtype, attn_impl
@@ -164,17 +186,30 @@ def beam_generate(
 
     L, _, _, Hkv, Dh = cache["k"].shape
     gen_shape = (L, B * K, max_new_tokens, Hkv, Dh)
+    prompt_k, prompt_v = cache["k"][:, :, :Tp], cache["v"][:, :, :Tp]
+    if quant_kv is None:
+        quant_kv = decode_params is not None and Tp >= QUANT_KV_MIN_PROMPT
+    # Tq: the prompt region's length in the decode timeline (128-padded when int8)
+    Tq = Tp
+    cache_len = cache["length"]
+    if (quant_kv and shift is None and cfg.text.sliding_window is None and Dh % 128 == 0
+            and dev.type == "cuda"):
+        Tq = ((Tp + 127) // 128) * 128
+        cache_len = cache_len + (Tq - Tp)
+        prompt_k, prompt_v = quantize_prompt_kv(prompt_k, prompt_v, padded_len=Tq)
+    total = Tq + max_new_tokens
     cache = {
-        "prompt_k": cache["k"][:, :, :Tp],
-        "prompt_v": cache["v"][:, :, :Tp],
+        "prompt_k": prompt_k,
+        "prompt_v": prompt_v,
         "k": torch.zeros(gen_shape, dtype=cache["k"].dtype, device=dev),
         "v": torch.zeros(gen_shape, dtype=cache["v"].dtype, device=dev),
-        "length": cache["length"],
+        "length": cache_len,
     }
     if image_feats is not None:
         image_feats = image_feats.repeat_interleave(K, dim=0)
     am = batch.attention_mask
     n_real = am.sum(-1).repeat_interleave(K)  # [B*K]
+    # (Tq - Tp) masked prompt-pad columns, then the generated region
     mask_full = torch.cat([am, am.new_zeros(B, total - Tp)], dim=-1).repeat_interleave(K, dim=0)
 
     logprobs0 = F.log_softmax(last_logits.float(), dim=-1)  # [B,V]
@@ -200,9 +235,9 @@ def beam_generate(
     scores = torch.where(is_eos, NEG, scores)
 
     for i in range(1, max_new_tokens):
-        mask_full[:, Tp + i - 1] = 1
+        mask_full[:, Tq + i - 1] = 1
         out = lvlm_forward(
-            params, cfg,
+            dparams, cfg,
             LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full),
             image_feats=image_feats,
             position_ids=(n_real + i - 1)[:, None],

@@ -16,6 +16,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.decode_attention import is_quantized_kv, prompt_attention_int8, prompt_kv_len
+from ..ops.quant import qdot
+
 # large-negative fill for masked logits; finite to keep lse well-defined in fp32
 NEG_INF = -2.0e38
 
@@ -147,11 +150,25 @@ def cached_attention(
     region is stored once per batch row and the beams are folded into the
     query-group axis, so its KV is read once per row.  ``cache_k/v`` then hold
     only the generated region and ``cache_len`` counts the full timeline.
-    Not ported yet: the int8 prompt-KV form and the sliding window.
+
+    Int8 prompt KV (``prompt_k/v`` quantized handles with a ``layer`` index,
+    ``ops/decode_attention.py``): ``prompt_attention_int8`` (the kernel on
+    CUDA) returns the prompt region's partial softmax state, merged here by
+    logsumexp with the generated and current parts; plain causal decode only
+    (no ``need_unmasked``), and both returned log-normalizers are the masked
+    one.  Not ported yet: the sliding window.
     """
-    if prompt_k is not None and isinstance(prompt_k, dict):
-        raise NotImplementedError("int8 prompt KV (quant_kv) is not ported yet")
     B, T, H, D = q.shape
+    if prompt_k is not None and is_quantized_kv(prompt_k):
+        if need_unmasked:
+            raise NotImplementedError(
+                "int8 prompt KV supports plain causal decode only "
+                "(no sliding window, no unmasked-lse shift consumer)"
+            )
+        return _cached_attention_int8_prompt(
+            q, k_new, v_new, cache_k, cache_v, cache_len, key_mask, key_mask_new, scale,
+            prompt_k, prompt_v, prompt_mask,
+        )
     S, Hkv = cache_k.shape[1], cache_k.shape[2]
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / (D**0.5)
@@ -229,6 +246,49 @@ def cached_attention(
     return out, to_bth(lse), to_bth(lse_u)
 
 
+def _cached_attention_int8_prompt(
+    q, k_new, v_new, cache_k, cache_v, cache_len, key_mask, key_mask_new, scale,
+    prompt_k, prompt_v, prompt_mask,
+):
+    """The int8-prompt branch of ``cached_attention`` (JAX ``layers.py:216-246``).
+
+    The kernel gets ``qg`` in the activation dtype, already multiplied by
+    1/√D, as in JAX; it multiplies by log2 e and rounds back itself."""
+    B, T, H, D = q.shape
+    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    G = H // Hkv
+    scale = scale if scale is not None else 1.0 / (D**0.5)
+    dev = q.device
+    qg = (q.float() * scale).to(q.dtype).reshape(B, T, Hkv, G, D)
+    gen_len = cache_len - prompt_kv_len(prompt_k)
+    qf = qg.float()
+    s_cache = torch.einsum("btkgd,bskd->bkgts", qf, cache_k.float())
+    s_new = torch.einsum("btkgd,bskd->bkgts", qf, k_new.to(cache_k.dtype).float())
+    written = (torch.arange(S, device=dev) < gen_len)[None, None, None, None, :]
+    cache_mask = written & key_mask[:, None, None, None, :].bool()
+    causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))[None, None, None]
+    new_mask = causal & key_mask_new[:, None, None, None, :].bool()
+
+    o_p, m_p, l_p = prompt_attention_int8(qg, prompt_k, prompt_v, prompt_mask)
+    rest = torch.cat([torch.where(cache_mask, s_cache, NEG_INF),
+                      torch.where(new_mask, s_new, NEG_INF)], dim=-1)  # [B,Hkv,G,T,S+T]
+    m_r = rest.amax(dim=-1)
+    p_r = torch.exp(rest - m_r[..., None])
+    l_r = p_r.sum(dim=-1)
+    p_r = p_r.to(cache_v.dtype).float()
+    o_r = torch.einsum("bkgts,bskd->bkgtd", p_r[..., :S], cache_v.float()) + torch.einsum(
+        "bkgts,bskd->bkgtd", p_r[..., S:], v_new.to(cache_v.dtype).float()
+    )
+    m_tot = torch.maximum(m_p, m_r)
+    ap = torch.exp(m_p - m_tot)
+    ar = torch.exp(m_r - m_tot)
+    l_tot = (l_p * ap + l_r * ar).clamp_min(1e-30)
+    o = o_p * ap[..., None] + o_r * ar[..., None]
+    out = (o / l_tot[..., None]).permute(0, 3, 1, 2, 4).reshape(B, T, H, D).to(q.dtype)
+    lse = (m_tot + torch.log(l_tot)).reshape(B, H, T).transpose(1, 2)
+    return out, lse, lse
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -237,8 +297,9 @@ def cached_attention(
 def swiglu_mlp(
     x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_w: torch.Tensor
 ) -> torch.Tensor:
-    """LLaMA-family MLP: down(silu(gate(x)) * up(x)); weights stored [in, out]."""
-    return (F.silu(x @ gate_w) * (x @ up_w)) @ down_w
+    """LLaMA-family MLP: down(silu(gate(x)) * up(x)); weights stored [in, out],
+    plain tensors or int8 handles (``qdot`` dispatches)."""
+    return qdot(F.silu(qdot(x, gate_w)) * qdot(x, up_w), down_w)
 
 
 def gelu_act(x: torch.Tensor, kind: str) -> torch.Tensor:

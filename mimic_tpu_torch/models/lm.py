@@ -7,6 +7,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from ..ops.quant import qdot
 from ..shared import TextConfig
 from .decoder import DecoderOutput, decoder_forward, dense_init, init_decoder_params
 
@@ -37,10 +38,12 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def lm_head(params: Params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits.  The product runs in the parameter dtype and is upcast
-    after (JAX accumulates into fp32 outputs directly; in fp32 the two agree)."""
-    w = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
-    return (hidden @ w).float()
+    """fp32 logits.  A plain product runs in the parameter dtype and is upcast
+    after (JAX accumulates into fp32 outputs directly; in fp32 the two agree);
+    an int8 ``lm_head`` writes fp32 logits from its fp32 sums (``qdot``)."""
+    if cfg.tie_word_embeddings:
+        return (hidden @ params["embed"].t()).float()
+    return qdot(hidden, params["lm_head"], preferred_element_type=torch.float32)
 
 
 def lm_forward(

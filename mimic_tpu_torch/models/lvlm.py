@@ -13,6 +13,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.decode_attention import prompt_kv_len
 from ..shared import ModelConfig
 from .decoder import make_causal_mask, positions_from_mask
 from .lm import LMOutput, embed_tokens, init_lm_params, lm_forward
@@ -124,7 +125,7 @@ def lvlm_forward(
         # cached two-part attention: a 2D slot-validity mask over the timeline
         total = kv_total_len or (
             kv_cache["k"].shape[2]
-            + (kv_cache["prompt_k"].shape[2] if "prompt_k" in kv_cache else 0)
+            + (prompt_kv_len(kv_cache["prompt_k"]) if "prompt_k" in kv_cache else 0)
         )
         key_mask2d = batch.attention_mask
         pad = total - key_mask2d.shape[1]

@@ -2,12 +2,12 @@
 
 Counterpart of ``mimic_tpu/models/runner.py``: bundles config, frozen
 parameters, tokenizer/processor and prompt template, and exposes
-``set_shift`` / ``apply_prompt_template`` / ``process_input`` / ``generate``,
-the surface the shared eval adapters drive.  The parameters live in a
-``ParamModule`` on the runner's device.
+``set_shift`` / ``set_quant`` / ``apply_prompt_template`` /
+``process_input`` / ``generate``, the surface the shared eval adapters drive.
+The parameters live in a ``ParamModule`` on the runner's device.
 
-Not ported yet: sampling, the vision feature cache, int8 serving modes
-(``set_quant``), LoRA adapters and prefix tuning.
+Not ported yet: sampling, the vision feature cache, the ``"int8-w8a8"``
+serving mode, LoRA adapters and prefix tuning.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from ..bridge import ParamModule
 from ..device import DeviceLike, resolve_device
+from ..ops.quant import is_quantized, quantize_lm_params
 from ..shared import LVLMProcessor, ModelConfig
 from ..shared import apply_prompt_template as render_template
 from .generate import beam_generate, greedy_generate
@@ -27,6 +28,12 @@ from .lvlm import LVLMBatch
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
+
+
+def _has_quantized(tree: Any) -> bool:
+    if is_quantized(tree):
+        return True
+    return isinstance(tree, dict) and any(_has_quantized(v) for v in tree.values())
 
 
 class LVLMRunner:
@@ -39,12 +46,16 @@ class LVLMRunner:
         logz2: str = "unmasked",
         pad_multiple: int = 128,
         length_buckets: tuple = (),
+        quant: Optional[str] = None,
     ):
         if cfg.family != "idefics2":
             raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.module = ParamModule(params).to(self.device)
+        self.decode_params = None
+        if quant:
+            self.set_quant(quant)
         self.tokenizer = tokenizer
         self.template = "idefics2"
         self.processor = LVLMProcessor(cfg, tokenizer)
@@ -68,6 +79,47 @@ class LVLMRunner:
         self.shift = (
             None if shift is None else {k: v.to(self.device) for k, v in shift.items()}
         )
+
+    def set_quant(self, quant: Optional[str]) -> None:
+        """(Re)build the weight-only int8 serving tree from the current params.
+
+        - ``"int8"``: dual copy; the prefill reads the full-precision tree,
+          every decode step the int8 copy (``decode_params``), whose tensors
+          other than the quantized matmuls are shared with the main tree.
+        - ``"int8-memory"``: single copy; the text tower's matmul weights are
+          replaced by their int8 form everywhere (prefill included) and the
+          ``ParamModule`` is rebuilt, so the bf16 stacks are freed once
+          nothing else holds them.  Applying it again changes nothing.
+        - ``None``: drop the int8 copy.
+
+        ``"int8"`` on an already-quantized tree and an unknown mode raise
+        ``ValueError``; ``"int8-w8a8"`` raises ``NotImplementedError``.
+        Quantization runs one layer at a time on the runner's device; the
+        scales stay fp32 (never cast a tree that holds quantized handles).
+        """
+        if quant is None:
+            self.decode_params = None
+            return
+        if quant == "int8-w8a8":
+            raise NotImplementedError(
+                "the int8-w8a8 mode (W8A8 prefill matmuls) is not ported yet: it is the next slice")
+        already = _has_quantized(self.params)
+        if quant == "int8":
+            if already:
+                raise ValueError("params already int8-quantized (int8-memory mode)")
+            with torch.no_grad():
+                self.decode_params = quantize_lm_params(self.params)
+        elif quant == "int8-memory":
+            self.decode_params = None
+            if not already:
+                with torch.no_grad():
+                    quantized = quantize_lm_params(self.params)
+                self.module = ParamModule(quantized)
+        else:
+            raise ValueError(
+                f"unknown quant mode {quant!r} (supported: 'int8', 'int8-memory'; "
+                "'int8-w8a8' is not ported yet)"
+            )
 
     def apply_prompt_template(self, conversation, add_generation_prompt: bool = False):
         return render_template(conversation, self.template, add_generation_prompt)
@@ -134,6 +186,7 @@ class LVLMRunner:
             shift=self.shift,
             logz2=self.logz2,
             attn_impl="flash" if self.device.type == "cuda" else "xla",
+            decode_params=self.decode_params,
         )
         if num_beams > 1:
             result = beam_generate(

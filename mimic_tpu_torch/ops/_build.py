@@ -7,7 +7,7 @@ compiled to an object by its own ``nvcc``, all started together, then linked:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
          -lineinfo -c -o build/<hash>/<name>.o csrc/<name>.cu      # one per source
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
-         -o build/libmimic_attn-<hash>.so build/<hash>/*.o
+         -o build/libmimic_kernels-<hash>.so build/<hash>/*.o
 
 The file name carries a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  Nothing here runs at import
@@ -27,8 +27,11 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu")
-HEADERS = ("attn_common.cuh",)
+SOURCES = (
+    "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
+    "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu",
+)
+HEADERS = ("attn_common.cuh", "int8_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -72,7 +75,7 @@ def build() -> Dict[str, object]:
     and the nvcc ``command`` lines (0 and "" when the library was up to date).
     """
     digest = _digest()
-    path = BUILD_DIR / f"libmimic_attn-{digest}.so"
+    path = BUILD_DIR / f"libmimic_kernels-{digest}.so"
     if path.exists():
         return {"path": str(path), "seconds": 0.0, "command": ""}
     obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
@@ -119,6 +122,17 @@ def load_library() -> ctypes.CDLL:
     # the same with dk, dv in place of dq
     lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 7 + [f, i, i, p]
     lib.mimic_flash_bwd_dkv.restype = i
+    lib.mimic_int8_matmul_ksplit.argtypes = [i, i, i]
+    lib.mimic_int8_matmul_ksplit.restype = i
+    # x, w, scale, work, out, M, K, N, ksplit, dtype, out_dtype, stream
+    lib.mimic_int8_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
+    lib.mimic_int8_matmul.restype = i
+    # xn, gu, gu_scale, down, down_scale, work, out, M, D, F, dtype, out_dtype, stream
+    lib.mimic_fused_mlp_int8.argtypes = [p] * 7 + [i] * 5 + [p]
+    lib.mimic_fused_mlp_int8.restype = i
+    # q, k8, ks, v8, vs, mask, work, o, m, l, B0, Hkv, M, Sp, dtype, stream
+    lib.mimic_prompt_attn_int8.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.mimic_prompt_attn_int8.restype = i
     lib.mimic_cuda_error_string.argtypes = [i]
     lib.mimic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

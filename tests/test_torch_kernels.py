@@ -252,3 +252,210 @@ def test_gradients_through_kernels_match_plain_on_card(cuda_device, need_unmaske
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * b.abs().max().item(), (name, err)
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels (ops/quant.py, ops/decode_attention.py)
+# ---------------------------------------------------------------------------
+
+
+def _quantized(rng, shape):
+    from mimic_tpu_torch.ops.quant import quantize_weight
+
+    return quantize_weight(_t(rng.normal(size=shape).astype(np.float32)))
+
+
+def test_int8_cpu_paths_never_launch_or_build(monkeypatch):
+    from mimic_tpu_torch.ops import _build
+    from mimic_tpu_torch.ops import decode_attention as tda
+    from mimic_tpu_torch.ops import quant as tq
+
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    # earlier cuda-marked tests may have loaded the library: fail on any use of it
+    monkeypatch.setattr(_build, "load_library", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    tq.reset_launch_counts()
+    tda.reset_launch_counts()
+    rng = np.random.default_rng(30)
+    gu, down = _quantized(rng, (2, 128, 256)), _quantized(rng, (2, 128, 128))
+    x = _t(rng.normal(size=(3, 128)).astype(np.float32))
+    tq.qdot(x, dict(gu, layer=1))
+    assert tq.fused_mlp(x, dict(gu, layer=1), dict(down, layer=1)) is None  # CPU: declined
+    tq.fused_mlp_stacked(x, gu["q8"], gu["scale"], down["q8"], down["scale"], 1)
+    pk, pv = tda.quantize_prompt_kv(*(_t(rng.normal(size=(2, 1, 128, 2, 128)).astype(np.float32))
+                                      for _ in range(2)))
+    q = _t(rng.normal(size=(2, 1, 2, 2, 128)).astype(np.float32))
+    tda.prompt_attention_int8(q, dict(pk, layer=1), dict(pv, layer=1), torch.ones(1, 128))
+    assert tq.LAUNCHES == {"int8_matmul": 0, "fused_mlp_int8": 0}
+    assert tda.LAUNCHES == {"prompt_attn_int8": 0}
+
+
+def test_int8_other_devices_raise():
+    from mimic_tpu_torch.ops import quant as tq
+
+    w = {"q8": torch.zeros(64, 128, dtype=torch.int8, device="meta"),
+         "scale": torch.zeros(128, device="meta")}
+    with pytest.raises(ValueError):
+        tq.qdot(torch.zeros(2, 64, device="meta"), w)
+    with pytest.raises(ValueError):
+        tq.int8_matmul(torch.zeros(2, 64, device="meta"), w["q8"], w["scale"])
+
+
+INT8_MATMUL_CASES = [
+    # (M, K, N, stacked layer or None)
+    (12, 256, 384, 1),
+    (6, 200, 256, None),     # ragged K
+    (4, 512, 128, 0),
+    (40, 128, 256, None),    # several 16-row blocks
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", INT8_MATMUL_CASES)
+def test_int8_matmul_matches_plain_on_card(cuda_device, case, dtype):
+    from mimic_tpu_torch.ops import quant as tq
+
+    M, K, N, layer = case
+    rng = np.random.default_rng(M * K)
+    dt = getattr(torch, dtype)
+    q = _quantized(rng, (3, K, N) if layer is not None else (K, N))
+    wq, sc = q["q8"].to(cuda_device), q["scale"].to(cuda_device)
+    x = _t(rng.normal(size=(M, K)).astype(np.float32)).to(cuda_device, dt)
+    before = tq.LAUNCHES["int8_matmul"]
+    if layer is None:
+        got = tq.int8_matmul(x, wq, sc)
+        want = tq.int8_matmul_plain(x, wq, sc)
+    else:
+        got = tq.int8_matmul_stacked(x, wq, sc, layer)
+        want = tq.int8_matmul_plain(x, wq[layer], sc[layer])
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["int8_matmul"] == before + 1
+    assert got.dtype == dt and got.shape == (M, N)
+    # fp32: summation order only; bf16: one rounding of an fp32 sum (2^-8)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,D,F", [(12, 256, 128), (6, 128, 128), (20, 128, 192)])
+def test_fused_mlp_matches_plain_on_card(cuda_device, M, D, F, dtype):
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(M + D + F)
+    dt = getattr(torch, dtype)
+    gu, down = _quantized(rng, (2, D, 2 * F)), _quantized(rng, (2, F, D))
+    args = [t.to(cuda_device) for t in (gu["q8"], gu["scale"], down["q8"], down["scale"])]
+    x = _t(rng.normal(size=(M, D)).astype(np.float32) / np.sqrt(D)).to(cuda_device, dt)
+    before = tq.LAUNCHES["fused_mlp_int8"]
+    got = tq.fused_mlp_stacked(x, *args, 1)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["fused_mlp_int8"] == before + 1
+    want = tq.fused_mlp_plain(x, *(a[1] for a in args))
+    # fp32: summation order (and silu's exp) only; bf16: the rounded
+    # intermediate may flip by one step, then one rounding of the output
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item(), err
+    # the dispatcher takes the kernel for stacked handles at decode M
+    h_gu = {"q8": args[0], "scale": args[1], "layer": 1}
+    h_down = {"q8": args[2], "scale": args[3], "layer": 1}
+    assert torch.equal(tq.fused_mlp(x, h_gu, h_down), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("stacked", [True, False])
+def test_qdot_gradient_through_kernel_on_card(cuda_device, dtype, stacked):
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(31)
+    dt = getattr(torch, dtype)
+    q = _quantized(rng, (2, 96, 200) if stacked else (96, 200))
+    w = {k: v.to(cuda_device) for k, v in q.items()}
+    if stacked:
+        w["layer"] = 1
+    x = _t(rng.normal(size=(2, 3, 96)).astype(np.float32)).to(cuda_device, dt).requires_grad_(True)
+    g = _t(rng.normal(size=(2, 3, 200)).astype(np.float32)).to(cuda_device, dt)
+    before = tq.LAUNCHES["int8_matmul"]
+    out = tq.qdot(x, w)
+    assert type(out.grad_fn).__name__ != "NoneType"
+    (out.float() * g.float()).sum().backward()
+    assert tq.LAUNCHES["int8_matmul"] == before + 1
+    deq = tq.dequantize(w)
+    want = (g.float().reshape(-1, 200) @ deq.t()).to(dt).reshape(x.shape)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    err = (x.grad.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_w8a8_prefill_raises_on_card(cuda_device):
+    from mimic_tpu_torch.ops.quant import qdot, quantize_weight
+
+    w = quantize_weight(torch.randn(64, 128, device=cuda_device), act_quant=True)
+    qdot(torch.randn(8, 64, device=cuda_device), w)  # decode M: the weight-only kernel
+    with pytest.raises(NotImplementedError):
+        qdot(torch.randn(256, 64, device=cuda_device), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pads", [(40, 0), (130, 5)])  # (130: a fully masked first chunk)
+def test_prompt_attention_int8_matches_plain_on_card(cuda_device, dtype, pads):
+    from mimic_tpu_torch.ops import decode_attention as tda
+
+    B0, Kb, Hkv, G, D, Sp, L = 2, 3, 2, 4, 128, 384, 2
+    rng = np.random.default_rng(32)
+    dt = getattr(torch, dtype)
+    pk, pv = tda.quantize_prompt_kv(
+        *(_t(rng.normal(size=(L, B0, Sp, Hkv, D)).astype(np.float32)).to(cuda_device)
+          for _ in range(2)))
+    qg = _t(rng.normal(size=(B0 * Kb, 1, Hkv, G, D)).astype(np.float32) / np.sqrt(D))
+    qg = qg.to(cuda_device, dt)
+    mask = np.ones((B0, Sp), np.int32)
+    for b, p in enumerate(pads):
+        mask[b, :p] = 0
+    mask = _t(mask).to(cuda_device)
+    before = tda.LAUNCHES["prompt_attn_int8"]
+    o, m, l = tda.prompt_attention_int8(qg, dict(pk, layer=1), dict(pv, layer=1), mask)
+    torch.cuda.synchronize()
+    assert tda.LAUNCHES["prompt_attn_int8"] == before + 1
+    assert o.shape == (B0 * Kb, Hkv, G, 1, D) and m.shape == l.shape == (B0 * Kb, Hkv, G, 1)
+    qf = tda._fold(qg, B0).contiguous()
+    want = [tda._unfold(t, B0 * Kb, G) for t in tda.prompt_attention_int8_plain(
+        qf, pk["q8"][1], pk["scale"][1], pv["q8"][1], pv["scale"][1], mask)]
+    # m: fp32 scores of identical inputs; o and l: fp32 sums (bf16: p·vscale
+    # rounded against the chunk's max rather than the row's, 2^-8 relative)
+    rtol = 1e-5 if dtype == "float32" else 1e-2
+    assert (m - want[1]).abs().max().item() <= 1e-3
+    for a, b in ((o, want[0]), (l, want[2])):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= rtol * b.abs().max().item()
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 200), (3, 64, 200)], ids=["2d", "stacked"])
+def test_quantization_on_card_gives_the_cpu_bytes(cuda_device, shape):
+    from mimic_tpu_torch.ops import decode_attention as tda
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(33)
+    w = _t(rng.normal(size=shape).astype(np.float32)).to(torch.bfloat16)
+    want, got = tq.quantize_weight(w), tq.quantize_weight(w.to(cuda_device))
+    for key in ("q8", "scale"):
+        assert torch.equal(_bits(got[key]), _bits(want[key])), key
+    kv = _t(rng.normal(size=(2, 1, 200, 2, 128)).astype(np.float32)).to(torch.bfloat16)
+    cpu_kv = tda.quantize_prompt_kv(kv, kv, padded_len=256)
+    card_kv = tda.quantize_prompt_kv(kv.to(cuda_device), kv.to(cuda_device), padded_len=256)
+    for a, b in zip(card_kv, cpu_kv):
+        for key in ("q8", "scale"):
+            assert torch.equal(_bits(a[key]), _bits(b[key])), key
