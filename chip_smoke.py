@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive mimic_tpu_torch's serving and training paths once on one CUDA card and check them.
+"""Drive mimic_tpu_torch's serving, training and eval paths once on one CUDA card and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -66,8 +66,33 @@ Phases (any failure propagates: non-zero exit, no result line):
              set_quant("int8-memory"): call A, peak device memory, kernels in the
              prefill (lm head) and the decode steps.
 
+9. W8A8 kernel — w8a8_matmul against w8a8_matmul_plain at the 8B prefill shapes
+             of call A (M = 2048: q/k/v, o, gate/up, down; stacked, at a layer other
+             than 0), a ragged M, a lane-padded N through qdot and a K below the
+             tile: fp32 and bf16 outputs EQUAL; times cold, beside torch._int_mm +
+             scales and the dequantize + bf16 matmul path; quantize_rows on the
+             card bit-identical to the CPU's.
+10. tiny W8A8 — phase 7's tiny idefics2 in "int8-w8a8" at 256 prompt rows: exact
+             launches (4 per layer per prefill), prefill logits on the card against
+             a CPU computation through the plain W8A8 functions.
+11. 8B eval — this slice's path: run_train on the bf16 8B runner writes epoch-10
+             (after phase 5), then (after phase 8) the CLI's eval entry on a model
+             built anew: checkpoint load, set_quant("int8-w8a8"), run_eval on
+             2 x 4 requests (bucket 512, beam 3, 10 new tokens, shift active).
+             The record file holds the metric; every prefill took "flash";
+             w8a8_matmul launched 4 x 32 times per prefill and the decode kernels
+             as in "int8-memory"; first-step logits against a bf16 tree
+             dequantized from the same handles (row cosine >= 0.99); q/s, peak
+             memory, and the prefill timed in "int8-w8a8" beside "int8-memory".
+
+Every kernel's entry in the next-to-last line carries its time, its plain
+version's, the least time the card could take (bound_ms, bound_by) and the time
+of the one PyTorch call that computes the same function where there is one
+(library_ms: timed here, never used by the port).
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...}.
 Without a CUDA card the script exits non-zero and prints no result.
+
+    python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
 """
 
 from __future__ import annotations
@@ -77,6 +102,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -94,6 +120,14 @@ TOL_OUT_BF16 = 3e-2
 TOL_LSE_BF16 = 2e-3
 TOL_TINY_FP32 = 1e-4
 MIN_LOGIT_COSINE = 0.99
+# "int8-w8a8" against the same weights dequantized: every text prefill matmul
+# also rounds its input rows to 127 steps of their peak.  The down projection's
+# rows (silu(g) * u, heavy-tailed) have a peak far above their rms, so their
+# rounding noise is several times the weights'; phase 11 prints each product's
+# error beside what its rows' peak / rms predicts, and holds the kernel path
+# to the plain W8A8 functions bit for bit, so none of the difference is the
+# kernel's.  Measured 0.982 on random weights (NVIDIA H100 80GB HBM3).
+MIN_W8A8_COSINE = 0.97
 # backward kernels against their plain version (same bf16 inputs, same saved
 # forward): dq/dk/dv are fp32 sums rounded once to bf16 (2^-8 = 3.9e-3 of the
 # value) and summed in another order; error relative to max |reference|
@@ -145,7 +179,41 @@ KERNEL_META = {
         "source": "mimic_tpu_torch/ops/csrc/prompt_attn_int8.cu",
         "replaces": "mimic_tpu/ops/decode_attention.py:87",
     },
+    # one kernel for both Pallas W8A8 matmuls, again by a pointer offset
+    "w8a8_matmul": {
+        "route": "cuda",
+        "source": "mimic_tpu_torch/ops/csrc/w8a8_matmul.cu",
+        "replaces": "mimic_tpu/ops/quant.py:382",
+        "also_replaces": ["mimic_tpu/ops/quant.py:403"],
+    },
 }
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): device
+# memory bytes/s and tensor-core operations/s by input type.
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: int, n_ops: int, op_type: str) -> dict:
+    """The least time the card could take: every input byte read once and every
+    output byte written once at the memory peak, or the operations at the
+    tensor cores' peak for their type, whichever is larger."""
+    by_bytes, by_ops = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_OPS[op_type] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops
+            else "operations", "bytes": n_bytes, "operations": n_ops}
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bytes'] / 1e6:.1f} MB, "
+            f"{b['operations'] / 1e9:.2f} G operations)")
+
+
+# what a kernel's entry in the last-but-one line holds beside its error
+TIMING_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -218,11 +286,25 @@ def check_kernel(label, name, seed, B, T, S, H, Hkv, D, key_mask, causal, need_u
     plain_ms = cuda_ms(
         lambda: tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked), reps
     )
+    # work these inputs need: scores on every (query, key) pair when lse_u is
+    # wanted, else on the attendable pairs; p @ v on the attendable pairs
+    pairs = int(allowed.expand(B, T, S).sum().item())
+    b = bound(nbytes(q, k, v, km, got[0], got[1], got[2] if need_unmasked else None),
+              2 * H * D * ((B * T * S if need_unmasked else pairs) + pairs), "bf16")
+    # one PyTorch call gives the same function only without lse_u and lse
+    library_ms = None
+    if not causal and not need_unmasked:
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=(km > 0)[:, None, None, :], enable_gqa=H != Hkv), reps)
     log(f"[kernels] {label}: {name} B{B} T{T} S{S} H{H}/{Hkv} D{D} causal={causal} "
         f"need_unmasked={need_unmasked}: max abs err out {errs['out']:.3e} "
         f"lse {errs['lse']:.3e} lse_u {errs['lse_u']:.3e} "
-        f"(tol {TOL_OUT_BF16}/{TOL_LSE_BF16}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"name": name, "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms}
+        f"(tol {TOL_OUT_BF16}/{TOL_LSE_BF16}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"{bound_text(b)}, scaled_dot_product_attention "
+        f"{'none (no call returns lse_u)' if library_ms is None else f'{library_ms:.3f} ms'}")
+    return {"name": name, "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": library_ms}
 
 
 def left_padded_mask(B, S, pads):
@@ -261,7 +343,7 @@ def phase_kernels():
         s = summary.setdefault(r["name"], {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
         if main_shape:
-            s["ms"], s["plain_ms"] = r["ms"], r["plain_ms"]
+            s.update({k: r[k] for k in TIMING_KEYS})
     return summary
 
 
@@ -290,6 +372,20 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
         if errs[field] > TOL_BWD_BF16:
             raise AssertionError(f"{label}: {field} max err {errs[field]:.3e} of max |ref| "
                                  f"{ref:.3e} > {TOL_BWD_BF16}")
+    # work these inputs need: with lse_u the scores and ds cover every (query,
+    # key) pair, else the attendable pairs; dp = dO vT (and dv = pT dO) the
+    # attendable pairs.  dq: scores, dp, ds k; dk/dv: scores, dp, dv, dsT q.
+    allowed = (km[:, None, :] > 0).expand(B, T, S)
+    if causal:
+        allowed = allowed & torch.ones(T, S, dtype=torch.bool, device=q.device).tril()[None]
+    pairs = int(allowed.sum().item())
+    wide = B * T * S if need_unmasked else pairs
+    delta = torch.empty(B, T, H, device=q.device)  # fp32 [B,T,H], made by the wrapper
+    read = nbytes(q, k, v, g_out, km, lse, lse_u if need_unmasked else None, delta, g_lse,
+                  g_lse_u if need_unmasked else None)
+    bounds = {"flash_bwd_dq": bound(read + nbytes(got[0]), 2 * H * 128 * (2 * wide + pairs), "bf16"),
+              "flash_bwd_dkv": bound(read + nbytes(got[1], got[2]),
+                                     2 * H * 128 * (2 * wide + 2 * pairs), "bf16")}
     del got, want
     ms = {name: cuda_ms(lambda n=name: tfb._launch_backward(*args, kernels=(n,)), reps)
           for name in tfb.KERNELS}
@@ -298,12 +394,15 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
         f"need_unmasked={need_unmasked}: max err / max |ref| dq {errs['dq']:.3e} "
         f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol {TOL_BWD_BF16}: one bf16 rounding "
         f"of an fp32 sum); flash_bwd_dq {ms['flash_bwd_dq']:.3f} ms, flash_bwd_dkv "
-        f"{ms['flash_bwd_dkv']:.3f} ms, plain backward (dq, dk, dv) {plain_ms:.3f} ms")
+        f"{ms['flash_bwd_dkv']:.3f} ms, plain backward (dq, dk, dv) {plain_ms:.3f} ms; "
+        f"dq {bound_text(bounds['flash_bwd_dq'])}, dkv {bound_text(bounds['flash_bwd_dkv'])}; "
+        f"no single PyTorch call gives these gradients (lse and lse_u carry gradient)")
     return [
-        {"name": "flash_bwd_dq", "max_abs_err": errs["dq"], "ms": ms["flash_bwd_dq"],
-         "plain_ms": plain_ms},
-        {"name": "flash_bwd_dkv", "max_abs_err": max(errs["dk"], errs["dv"]),
-         "ms": ms["flash_bwd_dkv"], "plain_ms": plain_ms},
+        {"name": name, "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms,
+         "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
+         "library_ms": None}
+        for name, err in (("flash_bwd_dq", errs["dq"]),
+                          ("flash_bwd_dkv", max(errs["dk"], errs["dv"])))
     ]
 
 
@@ -325,7 +424,7 @@ def phase_backward_kernels():
             s = summary.setdefault(r["name"], {"max_abs_err": 0.0})
             s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
             if i == 0:
-                s["ms"], s["plain_ms"] = r["ms"], r["plain_ms"]
+                s.update({k: r[k] for k in TIMING_KEYS})
     return summary
 
 
@@ -339,7 +438,7 @@ def tiny_cfg(tk, **text_kw):
     SigLIP with head dim 72 (the ViT's); ``text_kw`` overrides the text tower."""
     import dataclasses
 
-    from mimic_tpu_torch.shared import tiny_text
+    from mimic_tpu_torch.models.config import tiny_text
 
     cfg = tiny_text("idefics2", head_dim=128, **text_kw)
     return cfg.replace(
@@ -354,8 +453,9 @@ def phase_tiny_reference():
     from mimic_tpu_torch.models import generate as tg
     from mimic_tpu_torch.models.lvlm import init_lvlm_params
     from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
     from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
-    from mimic_tpu_torch.shared import SimpleTokenizer, get_preset
     from mimic_tpu_torch.shift.params import init_shift_params
 
     tk = SimpleTokenizer(padding_side="left")
@@ -406,11 +506,14 @@ def phase_tiny_reference():
 def phase_tiny_train():
     """3 MimIC steps through the kernels on the card against 3 through the
     plain attention path on the CPU, fp32, same parameters and batch."""
+    from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.processor import LVLMProcessor
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
     from mimic_tpu_torch.ops import flash_backward as tfb
-    from mimic_tpu_torch.shared import LVLMProcessor, SimpleTokenizer, TrainCollator, get_preset
     from mimic_tpu_torch.shift.params import init_shift_params
     from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.collate import TrainCollator
     from mimic_tpu_torch.train.optim import build_optimizer
 
     tk = SimpleTokenizer(padding_side="right")
@@ -558,11 +661,11 @@ def timed_generate(runner, calls, name):
 
 
 def phase_main():
+    from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.models import generate as tg
     from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
     from mimic_tpu_torch.models.factory import build_model
     from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
-    from mimic_tpu_torch.shared import get_preset
     from mimic_tpu_torch.shift.params import init_shift_params
 
     t0 = time.perf_counter()
@@ -720,11 +823,11 @@ def frozen_fingerprint(params) -> dict:
 
 
 def phase_train_8b(runner):
+    from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
     from mimic_tpu_torch.models.lvlm import encode_images
     from mimic_tpu_torch.ops import flash_attention as tfa
     from mimic_tpu_torch.ops import flash_backward as tfb
-    from mimic_tpu_torch.shared import get_preset
     from mimic_tpu_torch.shift.params import (init_shift_params, multi_head, needs_attn_capture,
                                                needs_ffn_capture)
     from mimic_tpu_torch.train import step as ts
@@ -898,10 +1001,15 @@ def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
         kernel = lambda l: tq.int8_matmul_stacked(x, wq, scale, l)
         plain = lambda l: tq.int8_matmul_plain(x, wq[l], scale[l])
     errs, ms, plain_ms = check_int8(label, kernel, plain, max(layers, 1), layer, reps)
-    log(f"[int8] {label}: int8_matmul M{M} K{K} N{n_real or N}"
+    n_out = n_real or N
+    b = bound(nbytes(x) + K * n_out + 4 * n_out + M * n_out * (4 if n_real else 2),
+              2 * M * K * n_out, "bf16")
+    log(f"[int8] {label}: int8_matmul M{M} K{K} N{n_out}"
         f"{f' layer {layer} of {layers}' if layers else ''}: max abs err {errs['out']:.3e} "
-        f"(tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "int8_matmul", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms}
+        f"(tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"{bound_text(b)}; no PyTorch call multiplies bf16 rows by int8 weights")
+    return {"name": "int8_matmul", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
 def check_fused_mlp(label, seed, M, D, F, reps):
@@ -915,10 +1023,12 @@ def check_fused_mlp(label, seed, M, D, F, reps):
     errs, ms, plain_ms = check_int8(
         label, lambda l: tq.fused_mlp_stacked(x, gu, gs, dn, ds, l),
         lambda l: tq.fused_mlp_plain(x, gu[l], gs[l], dn[l], ds[l]), layers, layer, reps)
+    b = bound(2 * nbytes(x) + nbytes(gu[0], gs[0], dn[0], ds[0]), 2 * M * D * 3 * F, "bf16")
     log(f"[int8] {label}: fused_mlp_int8 M{M} D{D} F{F} layer {layer} of {layers}: max abs err "
         f"{errs['out']:.3e} (tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return {"name": "fused_mlp_int8", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms}
+        f"plain {plain_ms:.4f} ms, {bound_text(b)}; no PyTorch call fuses an int8 MLP")
+    return {"name": "fused_mlp_int8", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
 def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
@@ -943,8 +1053,17 @@ def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
         f"D {D}, left pads {list(pads)}: max abs err o {errs['o']:.3e} m {errs['m']:.3e} "
         f"l {errs['l']:.3e} (tol o, l {TOL_INT8_REL} x max |ref|, m {TOL_INT8_M}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # one layer's int8 keys and values with their scales, the query, the mask,
+    # and the partial (o, m, l) written; scores and p @ v on the unmasked keys
+    keys = int(mask.sum().item())
+    rows = beams * Hkv * G
+    b = bound(nbytes(qf, pk["q8"][0], pk["scale"][0], pv["q8"][0], pv["scale"][0], mask)
+              + B0 * rows * (D * 4 + 8), 4 * rows * D * keys, "bf16")
+    log(f"[int8] {label}: {bound_text(b)}; no PyTorch call attends over int8 keys and "
+        f"returns the partial (o, m, l)")
     return {"name": "prompt_attn_int8", "max_abs_err": max(errs.values()), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+            "library_ms": None}
 
 
 def phase_int8_kernels():
@@ -967,8 +1086,8 @@ def phase_int8_kernels():
     for r in results:
         s = summary.setdefault(r["name"], {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
-        s.setdefault("ms", r["ms"])
-        s.setdefault("plain_ms", r["plain_ms"])
+        for k in TIMING_KEYS:
+            s.setdefault(k, r[k])
     return summary
 
 
@@ -1025,12 +1144,13 @@ def _reset_int8_counts():
 
 
 def phase_tiny_int8():
+    from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.models import decoder as td
     from mimic_tpu_torch.models import generate as tg
     from mimic_tpu_torch.models.lvlm import init_lvlm_params
     from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
     from mimic_tpu_torch.ops import decode_attention as tda
-    from mimic_tpu_torch.shared import SimpleTokenizer, get_preset
     from mimic_tpu_torch.shift.params import init_shift_params
 
     tk = SimpleTokenizer(padding_side="left")
@@ -1066,7 +1186,7 @@ def phase_tiny_int8():
     torch.cuda.synchronize()
     launches = _int8_counts()
     want = {"int8_matmul": (new - 1) * (2 * L + 1), "fused_mlp_int8": (new - 1) * L,
-            "prompt_attn_int8": 0}
+            "w8a8_matmul": 0, "prompt_attn_int8": 0}
     errs = [(g - w).abs().max().item() for g, w in zip(logits["cuda"], logits["cpu"])]
     close = all(torch.allclose(g, w, rtol=TOL_TINY_FP32, atol=TOL_TINY_FP32)
                 for g, w in zip(logits["cuda"], logits["cpu"]))
@@ -1155,7 +1275,8 @@ def phase_int8_8b(runner):
     cfg = runner.cfg
     L = cfg.text.num_layers
     steps = MAX_NEW_TOKENS - 1
-    want = {"int8_matmul": steps * (2 * L + 1), "fused_mlp_int8": steps * L, "prompt_attn_int8": 0}
+    want = {"int8_matmul": steps * (2 * L + 1), "fused_mlp_int8": steps * L, "w8a8_matmul": 0,
+            "prompt_attn_int8": 0}
     totals = dict.fromkeys(want, 0)
     shift = runner.shift
 
@@ -1258,6 +1379,483 @@ def phase_int8_8b(runner):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the W8A8 eval path
+# ---------------------------------------------------------------------------
+
+
+def check_w8a8(label, seed, M, K, N, layers, layer, reps, n_real=0, timed=True):
+    """w8a8_matmul (stacked when ``layers``) on rows quantized by quantize_rows
+    against w8a8_matmul_plain: fp32 and bf16 outputs must be EQUAL (the int32 sum
+    is exact and both multiply (acc * s_x) * s_w).  ``n_real``: a lane-padded
+    handle through qdot's a8 branch (scale padded, output sliced).  Timed with
+    the layer cycling through a stack larger than L2, beside torch._int_mm + the
+    two scale multiplies and the dequantize + bf16 torch.matmul path."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wq, scale = _int8_weight(gen, (layers, K, N) if layers else (K, N), 4e-4)
+    x = (torch.randn(M, K, generator=gen, device="cuda")
+         * (torch.rand(M, 1, generator=gen, device="cuda") * 4 + 0.25)).to(torch.bfloat16)
+    x8, xs = tq.quantize_rows(x)
+    worst = 0.0
+    if n_real:
+        wq[..., n_real:] = 0
+        handle = {"q8": wq, "scale": scale[..., :n_real].contiguous(),
+                  "a8": torch.zeros(0, dtype=torch.int8, device="cuda")}
+        pairs = [(tq.qdot(x, handle, preferred_element_type=dt),
+                  tq.w8a8_matmul_plain(x8, xs, wq[:, :n_real], handle["scale"], dt))
+                 for dt in (torch.float32, torch.bfloat16)]
+    elif layers:
+        pairs = [(tq.w8a8_matmul_stacked(x8, xs, wq, scale, layer, out_dtype=dt),
+                  tq.w8a8_matmul_plain(x8, xs, wq[layer], scale[layer], dt))
+                 for dt in (torch.float32, torch.bfloat16)]
+    else:
+        pairs = [(tq.w8a8_matmul(x8, xs, wq, scale, out_dtype=dt),
+                  tq.w8a8_matmul_plain(x8, xs, wq, scale, dt))
+                 for dt in (torch.float32, torch.bfloat16)]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} or non-finite values")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: {got.dtype} output differs from the plain version "
+                                 f"(max abs err {worst}); it must be equal bit for bit")
+    ref = pairs[0][1].abs().max().item()
+    del pairs
+    n_out = n_real or N
+    b = bound(nbytes(x8, xs) + K * n_out + 4 * n_out + 2 * M * n_out, 2 * M * K * n_out, "int8")
+    result = {"name": "w8a8_matmul", "max_abs_err": worst, "bound_ms": b["bound_ms"],
+              "bound_by": b["bound_by"]}
+    if not timed:
+        log(f"[w8a8] {label}: w8a8_matmul M{M} K{K} N{n_out}"
+            f"{f' layer {layer} of {layers}' if layers else ''}: fp32 and bf16 outputs equal to "
+            f"the plain version's (max abs err {worst}, max |ref| {ref:.3f})")
+        return result
+    nl = max(layers, 1)
+    sel = (lambda l: (wq[l], scale[l])) if layers else (lambda l: (wq, scale))
+    ms = cold_ms(lambda l: tq.w8a8_matmul_stacked(x8, xs, wq, scale, l) if layers
+                 else tq.w8a8_matmul(x8, xs, wq, scale), nl, reps)
+    plain_ms = cold_ms(lambda l: tq.w8a8_matmul_plain(x8, xs, *sel(l)), nl, max(reps // 4, 2))
+
+    def int_mm(l):
+        w, sw = sel(l)
+        return ((torch._int_mm(x8, w).float() * xs[:, None]) * sw[None, :]).to(torch.bfloat16)
+
+    if not torch.equal(int_mm(layer), tq.w8a8_matmul_plain(x8, xs, *sel(layer))):
+        raise AssertionError(f"{label}: torch._int_mm + scales differs from the plain version")
+    library_ms = cold_ms(int_mm, nl, reps)
+    product_ms = cold_ms(lambda l: torch._int_mm(x8, sel(l)[0]), nl, reps)
+    deq_ms = cold_ms(lambda l: x @ tq.dequantize(
+        {"q8": wq, "scale": scale, "layer": l if layers else None}).to(x.dtype), nl, reps)
+    rows_ms = cuda_ms(lambda: tq.quantize_rows(x), reps)
+    log(f"[w8a8] {label}: w8a8_matmul M{M} K{K} N{n_out}"
+        f"{f' layer {layer} of {layers}' if layers else ''}: fp32 and bf16 outputs equal to the "
+        f"plain version's (max abs err {worst}, max |ref| {ref:.3f}); kernel {ms:.4f} ms "
+        f"({2 * M * K * n_out / ms / 1e9:.1f} TOP/s), plain (float64 GEMM) {plain_ms:.4f} ms, "
+        f"torch._int_mm + two scale multiplies {library_ms:.4f} ms (its int32 product alone "
+        f"{product_ms:.4f} ms), dequantize + bf16 "
+        f"torch.matmul {deq_ms:.4f} ms, quantize_rows of the input {rows_ms:.4f} ms; "
+        f"{bound_text(b)}")
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    return result
+
+
+def phase_w8a8_kernels():
+    """w8a8_matmul at idefics2-8b's prefill shapes of call A (M = 4 x 512): the
+    fused q/k/v, o, gate/up and down projections, stacked at a layer other than
+    0; then a ragged M, a lane-padded N through qdot, and a K that is no
+    multiple of the 64-byte tile; and quantize_rows on the card against the CPU."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    results = [
+        check_w8a8("qkv-2048", 40, 2048, 4096, 6144, 4, 3, reps=16),
+        check_w8a8("o-2048", 41, 2048, 4096, 4096, 6, 5, reps=16),
+        check_w8a8("gateup-2048", 42, 2048, 4096, 28672, 2, 1, reps=8),
+        check_w8a8("down-2048", 43, 2048, 14336, 4096, 2, 1, reps=8),
+        check_w8a8("ragged-1000", 44, 1000, 4096, 6144, 2, 1, reps=0, timed=False),
+        check_w8a8("padded-n", 45, 300, 256, 384, 0, 0, reps=0, n_real=300, timed=False),
+        check_w8a8("k-80", 46, 257, 80, 144, 0, 0, reps=0, timed=False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(2048, 4096, generator=gen, device="cuda") * 3).to(dtype)
+        x[5] = 0  # an all-zero row takes the 1e-8 floor
+        on_card, on_cpu = tq.quantize_rows(x), tq.quantize_rows(x.cpu())
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+            raise AssertionError(f"quantize_rows ({dtype}) on the card differs from the CPU's")
+    log("[w8a8] quantize_rows [2048, 4096] fp32 and bf16: int8 rows and fp32 scales on the card "
+        "bit-identical to the CPU's")
+    summary = {"max_abs_err": max(r["max_abs_err"] for r in results)}
+    # the times kept are those of the largest product of the path, gate/up
+    summary.update({k: results[2][k] for k in TIMING_KEYS})
+    return {"w8a8_matmul": summary}
+
+
+def qdot_w8a8_plain(x, w, preferred_element_type=None):
+    """``qdot`` with the a8 branch through the plain W8A8 functions, wherever the
+    tensors lie: the reference of the tiny W8A8 phase on the CPU (where ``qdot``
+    itself ignores the marker, as the JAX package does off the TPU) and of the
+    8B prefill on the card."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    xm = x.reshape(-1, x.shape[-1])
+    if not (tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.KERNEL_MAX_M):
+        return tq.qdot(x, w, preferred_element_type)
+    wq, scale, layer = w["q8"], w["scale"], w.get("layer")
+    n = scale.shape[-1]
+    if wq.shape[-2] != xm.shape[1]:  # pad_k storage
+        xm = torch.nn.functional.pad(xm, (0, wq.shape[-2] - xm.shape[1]))
+    scale = torch.nn.functional.pad(scale, (0, wq.shape[-1] - n))
+    if layer is not None:
+        wq, scale = wq[layer], scale[layer]
+    x8, xs = tq.quantize_rows(xm)
+    # the plain version by name: on a CUDA tensor the wrapper would launch the kernel
+    out = tq.w8a8_matmul_plain(x8, xs, wq, scale, preferred_element_type or x.dtype)
+    return out[:, :n].reshape(*x.shape[:-1], n)
+
+
+# A rounding of x / s that lands within an ulp of a half flips between the card
+# and the CPU when their fp32 activations differ in the last bits; one flipped
+# int8 step moves a row's product by about 1/127 of its largest term.
+TOL_TINY_W8A8 = 5e-3
+
+
+def phase_tiny_w8a8():
+    """The tiny fp32 idefics2 of phase 7 in "int8-w8a8": 2 requests x 128 prompt
+    slots = 256 rows, so every text prefill matmul takes w8a8_matmul."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models import decoder as td
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    tk = SimpleTokenizer(padding_side="left")
+    cfg = tiny_cfg(tk, hidden_size=128)
+    L = cfg.text.num_layers
+    cpu = torch.device("cpu")
+    params = init_lvlm_params(cfg, torch.Generator().manual_seed(0), cpu)
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text, torch.Generator().manual_seed(1), cpu)
+    rng = np.random.default_rng(8)
+    images = [[rng.integers(0, 255, (70, 70, 3)).astype(np.uint8)] for _ in range(2)]
+    texts = ["Image:<image> Question: what is it? Answer:",
+             "Image:<image> Question: and what colour is the thing on the left? Answer:"]
+    runners = {dev: LVLMRunner(cfg, params, SimpleTokenizer(padding_side="left"), device=dev,
+                               quant="int8-w8a8") for dev in ("cpu", "cuda")}
+    if not _same_tree_bytes(runners["cpu"].params, runners["cuda"].params):
+        raise AssertionError("tiny w8a8: the int8 tree quantized on the card differs from the CPU's")
+    layers = runners["cuda"].params["lm"]["decoder"]["layers"]
+    marked = sorted(k for k, v in layers.items() if isinstance(v, dict) and "a8" in v)
+    if marked != ["down_proj", "gateup_proj", "o_proj", "qkv_proj"]:
+        raise AssertionError(f"tiny w8a8: a8 markers on {marked}")
+    new = 6
+    logits, tokens = {}, {}
+    for dev, r in runners.items():
+        r.set_shift(shift)
+        batch = r.process_input(images, texts, pad_to=128)
+        _reset_int8_counts()
+        orig = td.qdot
+        if dev == "cpu":
+            td.qdot = qdot_w8a8_plain
+        try:
+            with LogitSpy() as spy:
+                tokens[dev] = tg.beam_generate(
+                    r.params, cfg, batch, max_new_tokens=new, num_beams=NUM_BEAMS,
+                    eos_token_id=tk.eos_token_id, pad_token_id=tk.pad_token_id, shift=r.shift,
+                    logz2="unmasked", attn_impl="flash" if dev == "cuda" else "xla",
+                ).tokens.cpu()
+        finally:
+            td.qdot = orig
+        logits[dev] = spy.logits[0].cpu()
+    torch.cuda.synchronize()
+    launches = _int8_counts()
+    # the prefill: 4 W8A8 matmuls per layer and the lm head at M = 2; then
+    # new - 1 decode steps as in "int8-memory"
+    want = {"w8a8_matmul": 4 * L, "int8_matmul": (new - 1) * (2 * L + 1) + 1,
+            "fused_mlp_int8": (new - 1) * L, "prompt_attn_int8": 0}
+    err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+    close = torch.allclose(logits["cuda"], logits["cpu"], rtol=TOL_TINY_W8A8, atol=TOL_TINY_W8A8)
+    log(f"[tiny-w8a8] fp32, quant='int8-w8a8' with a MimIC shift: int8 trees bit-identical, a8 on "
+        f"{marked}; prefill logits, w8a8_matmul on the card vs the plain W8A8 functions on the "
+        f"CPU: max abs err {err:.3e} of max |logit| {logits['cpu'].abs().max().item():.3f} "
+        f"(rtol = atol = {TOL_TINY_W8A8}, a flipped activation rounding moves a row by ~1/127 of "
+        f"a term: {close}); beam-3 tokens card {tokens['cuda'].tolist()} CPU "
+        f"{tokens['cpu'].tolist()} identical: {torch.equal(tokens['cuda'], tokens['cpu'])}; "
+        f"launches {launches} (want {want})")
+    if not close or launches != want:
+        raise AssertionError("tiny w8a8 slice: the kernel path disagrees with the plain path")
+
+
+def synthetic_vqa_splits(n_train: int, n_val: int, size: int = 980):
+    """VQA-shaped train and validation splits with random images, made from seeds."""
+
+    def item(i, split):
+        word = WORDS[i % len(WORDS)]
+        return {
+            "question": f"what is next to the {word} in picture {i}?",
+            "question_id": i if split == "train" else 1000 + i,
+            "question_type": "what is", "answer_type": "other",
+            "answers": [{"answer": word, "answer_confidence": "yes", "answer_id": j}
+                        for j in range(10)],
+            "answer": word, "image_id": i,
+            "image": np.random.default_rng(50 + i + (0 if split == "train" else 500)).integers(
+                0, 256, size=(size, size, 3), dtype=np.uint8),
+        }
+
+    return {"train": [item(i, "train") for i in range(n_train)],
+            "validation": [item(i, "val") for i in range(n_val)]}
+
+
+EVAL_BATCH = 4
+EVAL_BATCHES = 2
+EVAL_BUCKET = 512
+
+
+def phase_train_for_eval(runner, result_dir):
+    """run_train on the bf16 8B runner: idefics2-8b-base's schedule for fewer
+    than 100 queries saves from epoch 10 on, so 11 epochs of one B2 step each
+    write epoch-10 (1-shot: two 980 px images per record row)."""
+    from mimic_tpu_torch.config import TrainConfig, get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.pipeline.train_entry import run_train
+
+    enc, peft = get_preset("mimic")
+    cfg = TrainConfig(runname="smoke", model_name="idefics2-8b-base", encoder=enc, peft=peft,
+                      epochs=11, batch_size=2, accumulate_grad_batches=1)
+    cfg.data.name, cfg.data.num_query_samples, cfg.data.num_shot = "vqav2", 2, 1
+    # a query row (64 image tokens + the question, byte-level) passes the default
+    # cap of 128 tokens, and a pass capped at its longest row is not 128-aligned
+    cfg.data.max_query_len = 256
+    ATTN_PATH_LOG.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = run_train(cfg, result_dir=result_dir, runner=runner, splits=synthetic_vqa_splits(6, 8))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ckpt = os.path.join(result_dir, "ckpt", "smoke-idefics2-8b-base-vqav2-2-1shot", "epoch-10")
+    paths = list(ATTN_PATH_LOG)
+    log(f"[eval] run_train (mimic preset, 1-shot, B2, 11 epochs x 1 step): {state.step} steps in "
+        f"{secs:.1f} s; attention paths {sorted(set(paths))}; checkpoint {os.path.relpath(ckpt, result_dir)}")
+    if state.step != 11 or set(paths) != {"flash"} or not os.path.exists(
+            os.path.join(ckpt, "encoder.msgpack")):
+        raise AssertionError(f"run_train: {state.step} steps, paths {set(paths)}, or no checkpoint")
+    return ckpt, state.trainable["shift"]
+
+
+def phase_eval_w8a8(ckpt, trained_shift, result_dir):
+    """This slice's path: the eval entry builds idefics2-8b-base, loads the
+    epoch checkpoint, applies quant="int8-w8a8" and answers 2 x 4 requests."""
+    import gc
+
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.factory import build_model
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.pipeline import cli
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # the model the CLI's eval builds (random weights from seed 0, on the card)
+    runner = build_model("idefics2-8b-base", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[eval] build_model('idefics2-8b-base') on {runner.device}: {time.perf_counter() - t0:.1f} s")
+    cfg = runner.cfg
+    L = cfg.text.num_layers
+    splits = synthetic_vqa_splits(6, EVAL_BATCH * EVAL_BATCHES)
+    overrides = [
+        "model_name=idefics2-8b-base", f"ckpt_path={ckpt}", "preset=mimic", "quant=int8-w8a8",
+        f"batch_size={EVAL_BATCH}", f"iterations={EVAL_BATCHES}", "data.name=vqav2",
+        f"data.num_query_samples={EVAL_BATCH * EVAL_BATCHES}", "data.num_shot=1",
+        f"data.length_buckets=[{EVAL_BUCKET}]",
+    ]
+
+    def evaluate(tag):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cli._eval(overrides + [f"result_dir={os.path.join(result_dir, tag)}"],
+                        splits=splits, runner=runner)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    _, secs = evaluate("warm")  # loads the checkpoint and quantizes, then warms up
+    log(f"[eval] warm-up eval (checkpoint load, set_quant('int8-w8a8'), {EVAL_BATCHES} batches): "
+        f"{secs:.1f} s; {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    if runner.shift is None or not all(
+            torch.equal(runner.shift[k].cpu(), v.cpu()) for k, v in trained_shift.items()):
+        raise AssertionError("eval: the runner's shift is not the trained checkpoint's")
+    layers = runner.params["lm"]["decoder"]["layers"]
+    if not all("a8" in layers[k] for k in ("qkv_proj", "o_proj", "gateup_proj", "down_proj")):
+        raise AssertionError("eval: the int8-w8a8 tree lacks its a8 markers")
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_int8_counts()
+    tfa.reset_launch_counts()
+    ATTN_PATH_LOG.clear()
+    (records, metrics), secs = evaluate("counted")
+    launches = {**tfa.LAUNCHES, **_int8_counts()}
+    paths = list(ATTN_PATH_LOG)
+    n = EVAL_BATCH * EVAL_BATCHES
+    record_file = os.path.join(result_dir, "counted", "record",
+                               "smoke-idefics2-8b-base-vqav2-2-1shot", "epoch-10.json")
+    with open(record_file) as f:
+        saved = json.load(f)
+    steps = MAX_NEW_TOKENS - 1
+    want = {"w8a8_matmul": EVAL_BATCHES * 4 * L,
+            "int8_matmul": EVAL_BATCHES * (steps * (2 * L + 1) + 1),
+            "fused_mlp_int8": EVAL_BATCHES * steps * L, "prompt_attn_int8": 0}
+    log(f"[eval] python -m mimic_tpu_torch eval {' '.join(overrides[:4])} ...: {n} requests "
+        f"(batch {EVAL_BATCH}, bucket {EVAL_BUCKET}, beam {NUM_BEAMS}, {MAX_NEW_TOKENS} new tokens, "
+        f"shift active) in {secs:.3f} s = {n / secs:.3f} q/s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; record "
+        f"{os.path.relpath(record_file, result_dir)} eval_result {json.dumps(saved['eval_result'])}; "
+        f"launches {launches}; raw outputs {json.dumps([r['raw_output'] for r in records])}")
+    got = {k: launches[k] for k in want}
+    if got != want or launches["onepass_fwd"] == 0:
+        raise AssertionError(f"eval: launches {launches}, want {want}")
+    if paths != (["flash"] + ["cached"] * steps) * EVAL_BATCHES:
+        raise AssertionError(f"eval: unexpected attention paths {paths}")
+    if (len(records) != n or len(saved["records"]) != n or "overall" not in saved["eval_result"]
+            or saved["eval_result"] != metrics or saved["eval_config"]["quant"] != "int8-w8a8"
+            or not all(isinstance(r["raw_output"], str) for r in records)):
+        raise AssertionError(f"eval: bad record {saved['eval_result']} / {len(records)} records")
+
+    # first-step logits against a bf16 tree dequantized from the same handles
+    calls = serving_calls()
+    images, texts, bucket = calls["A"]
+    runner.tokenizer.padding_side = "left"  # as generate() pads
+    batch = runner.process_input(images, texts, pad_to=bucket)
+    tok = runner.tokenizer
+
+    def first_logits(params):
+        with LogitSpy() as spy:
+            tg.beam_generate(params, cfg, batch, max_new_tokens=2, num_beams=NUM_BEAMS,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                             shift=runner.shift, logz2=runner.logz2, attn_impl="flash")
+        return spy.logits[:2]
+
+    a = first_logits(runner.params)
+    deq = dequantized_tree(runner.params)
+    b = first_logits(deq)
+    del deq
+    cos = [_row_cosine(x, y) for x, y in zip(a, b)]
+    same_beams = torch.equal(a[0].topk(NUM_BEAMS).indices, b[0].topk(NUM_BEAMS).indices)
+    log(f"[eval] 8B call A in 'int8-w8a8' vs a bf16 tree dequantized from the same handles: "
+        f"first-step (prefill) logits min row cosine {cos[0]:.6f} (need >= {MIN_W8A8_COSINE}), max "
+        f"abs diff {(a[0] - b[0]).abs().max().item():.4f} of max |logit| "
+        f"{b[0].abs().max().item():.4f}; first decode step {cos[1]:.6f}, not held to a bound: the "
+        f"two runs' beams chose {'the same' if same_beams else 'different'} first tokens, so their "
+        f"second steps read {'the same' if same_beams else 'different'} inputs")
+    if cos[0] < MIN_W8A8_COSINE or not all(torch.isfinite(x).all() for x in a):
+        raise AssertionError("8B int8-w8a8 logits disagree with the dequantized bf16 path")
+
+    # where that difference comes from, and that none of it is the kernel's: one
+    # prefill with every W8A8 product held against the weight-only product of the
+    # same rows, then one through the plain W8A8 functions, which must give the
+    # kernel path's logits bit for bit
+    from mimic_tpu_torch.models import decoder as td
+    from mimic_tpu_torch.models.lvlm import encode_images
+    from mimic_tpu_torch.ops import quant as tq
+
+    with torch.no_grad():
+        feats = encode_images(runner.params, cfg, batch.pixel_values, batch.patch_mask,
+                              attn_impl="flash")
+    text_batch = batch._replace(pixel_values=None, patch_mask=None)
+    kinds = {(4096, 6144): "qkv", (4096, 4096): "o", (4096, 28672): "gate/up", (14336, 4096): "down"}
+    stats = {k: [] for k in kinds.values()}
+    orig_qdot = td.qdot
+
+    def spy_qdot(x, w, preferred_element_type=None):
+        out = orig_qdot(x, w, preferred_element_type)
+        xm = x.reshape(-1, x.shape[-1])
+        if tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.KERNEL_MAX_M:
+            ref = (xm @ tq.dequantize(w).to(x.dtype)).float()
+            got = out.reshape(ref.shape).float()
+            xf = xm.float()
+            # rounding a row to steps of amax / 127 adds noise of variance step^2 / 12
+            # to each element: relative to the row's mean square, (peak / rms)^2 / (12 * 127^2)
+            noise = ((xf.abs().amax(-1) / 127) ** 2 / 12 / xf.pow(2).mean(-1).clamp_min(1e-30))
+            crest = xf.abs().amax(-1) / xf.pow(2).mean(-1).clamp_min(1e-30).sqrt()
+            stats[kinds[(xm.shape[1], ref.shape[1])]].append(
+                (((got - ref).norm() / ref.norm()).item(), noise.mean().sqrt().item(),
+                 crest.mean().item()))
+        return out
+
+    def prefill_with(qdot_fn):
+        td.qdot = qdot_fn
+        try:
+            return lvlm_prefill(runner.params, cfg, text_batch, feats, bucket, runner)
+        finally:
+            td.qdot = orig_qdot
+
+    before = tq.LAUNCHES["w8a8_matmul"]
+    through_kernel = prefill_with(spy_qdot)
+    launched = tq.LAUNCHES["w8a8_matmul"] - before
+    through_plain = prefill_with(qdot_w8a8_plain)
+    torch.cuda.synchronize()
+    equal = torch.equal(through_kernel, through_plain) and tq.LAUNCHES["w8a8_matmul"] == before + launched
+    log("[eval] call A prefill, every W8A8 product against the weight-only product of the same "
+        "rows, mean over 32 layers of |diff| / |ref| (and what rounding the rows alone predicts, "
+        "from their peak / rms): " + "; ".join(
+            f"{k} {np.mean([r[0] for r in v]):.4f} (predicted {np.mean([r[1] for r in v]):.4f}, "
+            f"peak/rms {np.mean([r[2] for r in v]):.1f})" for k, v in stats.items())
+        + f". Prefill logits through w8a8_matmul ({launched} launches) equal to those through "
+          f"the plain W8A8 functions on the card, bit for bit: {equal} (max abs diff "
+          f"{(through_kernel.float() - through_plain.float()).abs().max().item()})")
+    if not equal or launched != 4 * L or any(len(v) != L for v in stats.values()):
+        raise AssertionError("8B int8-w8a8 prefill: the kernel path differs from the plain W8A8 path")
+
+    # the prefill in "int8-w8a8" beside "int8-memory" (the same tree without its
+    # a8 markers) on call A, by CUDA events, in turns
+    from mimic_tpu_torch.ops.quant import is_quantized
+
+    def strip(tree):
+        if is_quantized(tree):
+            return {k: v for k, v in tree.items() if k != "a8"}
+        return {k: strip(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
+
+    trees = {"int8-w8a8": runner.params, "int8-memory": strip(runner.params)}
+
+    def prefill_ms(mode, feats):
+        b2 = batch if feats is None else batch._replace(pixel_values=None, patch_mask=None)
+        fn = lambda: lvlm_prefill(trees[mode], cfg, b2, feats, bucket, runner)
+        return cuda_ms(fn, 2)
+
+    order = ("int8-memory", "int8-w8a8", "int8-w8a8", "int8-memory")
+    whole = {m: [] for m in trees}
+    text = {m: [] for m in trees}
+    for mode in order:
+        whole[mode].append(prefill_ms(mode, None))
+    for mode in order:
+        text[mode].append(prefill_ms(mode, feats))
+    log("[eval] call A prefill (M = 2048 rows) by CUDA events, ms: whole prefill "
+        + ", ".join(f"{m} {', '.join(f'{t:.1f}' for t in ts)}" for m, ts in whole.items())
+        + "; text tower alone (image features given) "
+        + ", ".join(f"{m} {', '.join(f'{t:.1f}' for t in ts)}" for m, ts in text.items()))
+    profile_run("int8-w8a8 call A", lambda: timed_generate(runner, calls, "A")[1])
+    return launches
+
+
+def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
+    """One cache-empty prefill of ``batch`` (the generation's first forward)."""
+    from mimic_tpu_torch.models.decoder import init_kv_cache
+    from mimic_tpu_torch.models.lvlm import encode_images, lvlm_forward
+
+    with torch.no_grad():
+        if feats is None:
+            feats = encode_images(params, cfg, batch.pixel_values, batch.patch_mask,
+                                  attn_impl="flash")
+        total = bucket + MAX_NEW_TOKENS
+        cache = init_kv_cache(cfg.text, batch.input_ids.shape[0], total, batch.input_ids.device,
+                              torch.bfloat16)
+        return lvlm_forward(params, cfg, batch, image_feats=feats, kv_total_len=total,
+                            kv_cache=cache, cache_empty=True, shift=runner.shift,
+                            logz2=runner.logz2, attn_impl="flash", last_logit_only=True).logits
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available (torch.cuda.is_available() is False)",
@@ -1278,28 +1876,50 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s in all; library {os.path.relpath(info['path'], ROOT)}")
     _build.load_library()
 
+    if sys.argv[1:] == ["--eval-only"]:
+        from mimic_tpu_torch.models.factory import build_model
+
+        runner = build_model("idefics2-8b-base", dtype=torch.bfloat16)
+        with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
+            ckpt, trained_shift = phase_train_for_eval(runner, result_dir)
+            del runner
+            phase_eval_w8a8(ckpt, trained_shift, result_dir)
+        log("[card] partial run (--eval-only): phase 11 passed; no result line")
+        return 3
+
     summary = phase_kernels()
     summary.update(phase_backward_kernels())
     summary.update(phase_int8_kernels())
+    summary.update(phase_w8a8_kernels())
     phase_tiny_reference()
     phase_tiny_train()
     phase_tiny_int8()
+    phase_tiny_w8a8()
     runner, serve_launches = phase_main()
     train_launches = phase_train_8b(runner)
-    int8_launches = phase_int8_8b(runner)
+    with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
+        ckpt, trained_shift = phase_train_for_eval(runner, result_dir)
+        int8_launches = phase_int8_8b(runner)
+        del runner  # the eval entry builds its own model
+        eval_launches = phase_eval_w8a8(ckpt, trained_shift, result_dir)
 
-    # launches: each path's counted runs (serving, training, int8 serving), summed
-    launches = {name: sum(d.get(name, 0) for d in (serve_launches, train_launches, int8_launches))
-                for name in KERNEL_META}
-    log(f"[card] kernel launches: serving {serve_launches}, training {train_launches}, "
-        f"int8 serving {int8_launches}")
+    # launches: each path's counted run (serving, training, int8 serving, the
+    # W8A8 eval), each driven with the counts at 0 and read just after, summed
+    paths = {"serving": serve_launches, "training": train_launches,
+             "int8 serving": int8_launches, "W8A8 eval": eval_launches}
+    launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
+    log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched on its main path: {launches}")
     kernels = [
         {"name": name, **KERNEL_META[name], "launches": launches[name], **summary[name]}
         for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "int8_matmul", "fused_mlp_int8", "prompt_attn_int8")
+                     "int8_matmul", "fused_mlp_int8", "prompt_attn_int8", "w8a8_matmul")
     ]
+    for k in kernels:
+        missing = [key for key in ("max_abs_err", *TIMING_KEYS) if key not in k]
+        if missing:
+            raise AssertionError(f"kernel {k['name']} lacks {missing} in the result line")
     log(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

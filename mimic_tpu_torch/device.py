@@ -1,28 +1,27 @@
 """Device resolution that raises rather than falls back.
 
-Every entry point of the port takes its device explicitly; nothing guesses
-one.  Asking for ``cuda`` on a machine without a usable GPU is an error, not a
-silent move to the CPU.
+The port's entry points run on the card unless the caller asks for the CPU:
+``None`` means ``"cuda"``.  Asking for ``cuda``, by name or by default, on a
+machine without a usable GPU is an error, not a silent move to the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
 DeviceLike = Union[str, torch.device]
 
 
-def resolve_device(device: DeviceLike) -> torch.device:
-    """``"cpu"`` / ``"cuda"`` / ``"cuda:N"`` / ``torch.device`` → ``torch.device``.
+def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
+    """``None`` (the card) / ``"cpu"`` / ``"cuda"`` / ``"cuda:N"`` /
+    ``torch.device`` → ``torch.device``.
 
     Raises ``RuntimeError`` for a CUDA device when CUDA is unavailable or the
     index is out of range, and ``ValueError`` for any other device type.
     """
-    if device is None:
-        raise ValueError("a device must be given explicitly ('cpu' or 'cuda')")
-    dev = torch.device(device)
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
         return dev
     if dev.type != "cuda":

@@ -32,7 +32,7 @@ import torch
 from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
 from ..ops.quant import fused_mlp, qdot
-from ..shared import TextConfig
+from .config import TextConfig
 from ..shift.functional import apply_attn_shift, apply_output_shift
 from .layers import (
     apply_rope,

@@ -8,21 +8,26 @@ checkpoints waits until weights are in the repository.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..shared import SimpleTokenizer, get_model_config
+from .config import get_model_config
 from .lvlm import init_lvlm_params
 from .runner import LVLMRunner
+from .tokenizer import SimpleTokenizer
 
 
 def build_model(
     model_name: str,
-    device: DeviceLike,
+    device: Optional[DeviceLike] = None,
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
     **runner_kwargs,
 ) -> LVLMRunner:
+    """``device=None`` is the card (``resolve_device``); ``runner_kwargs`` go
+    to ``LVLMRunner`` (``quant=``, ``pad_multiple=``, ...)."""
     dev = resolve_device(device)
     cfg = get_model_config(model_name)
     tokenizer = SimpleTokenizer()

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from ..bridge import tree_leaves
 from ..ops.decode_attention import quantize_prompt_kv
-from ..shared import ModelConfig
+from .config import ModelConfig
 from .decoder import init_kv_cache
 from .lvlm import LVLMBatch, encode_images, lvlm_forward
 

@@ -8,7 +8,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..ops.quant import qdot
-from ..shared import TextConfig
+from .config import TextConfig
 from .decoder import DecoderOutput, decoder_forward, dense_init, init_decoder_params
 
 Params = Dict[str, Any]

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.decode_attention import prompt_kv_len
-from ..shared import ModelConfig
+from .config import ModelConfig
 from .decoder import make_causal_mask, positions_from_mask
 from .lm import LMOutput, embed_tokens, init_lm_params, lm_forward
 from .vision import init_perceiver_params, init_vit_params, perceiver_forward, vit_forward

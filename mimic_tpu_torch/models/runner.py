@@ -6,8 +6,8 @@ parameters, tokenizer/processor and prompt template, and exposes
 ``process_input`` / ``generate``, the surface the shared eval adapters drive.
 The parameters live in a ``ParamModule`` on the runner's device.
 
-Not ported yet: sampling, the vision feature cache, the ``"int8-w8a8"``
-serving mode, LoRA adapters and prefix tuning.
+Not ported yet: sampling, the vision feature cache, LoRA adapters and prefix
+tuning.
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ import torch
 from ..bridge import ParamModule
 from ..device import DeviceLike, resolve_device
 from ..ops.quant import is_quantized, quantize_lm_params
-from ..shared import LVLMProcessor, ModelConfig
-from ..shared import apply_prompt_template as render_template
+from ..data.templates import apply_prompt_template as render_template
+from .config import ModelConfig
 from .generate import beam_generate, greedy_generate
 from .lvlm import LVLMBatch
+from .processor import LVLMProcessor
 
 
 def _round_up(n: int, m: int) -> int:
@@ -42,7 +43,7 @@ class LVLMRunner:
         cfg: ModelConfig,
         params: Dict[str, Any],
         tokenizer,
-        device: DeviceLike,
+        device: Optional[DeviceLike] = None,
         logz2: str = "unmasked",
         pad_multiple: int = 128,
         length_buckets: tuple = (),
@@ -60,6 +61,7 @@ class LVLMRunner:
         self.template = "idefics2"
         self.processor = LVLMProcessor(cfg, tokenizer)
         self.shift = None
+        self.adapters = None  # LoRA adapters: not ported, always None
         self.logz2 = logz2
         self.pad_multiple = pad_multiple
         self.length_buckets = tuple(length_buckets)
@@ -81,7 +83,7 @@ class LVLMRunner:
         )
 
     def set_quant(self, quant: Optional[str]) -> None:
-        """(Re)build the weight-only int8 serving tree from the current params.
+        """(Re)build the int8 serving tree from the current params.
 
         - ``"int8"``: dual copy; the prefill reads the full-precision tree,
           every decode step the int8 copy (``decode_params``), whose tensors
@@ -90,35 +92,38 @@ class LVLMRunner:
           replaced by their int8 form everywhere (prefill included) and the
           ``ParamModule`` is rebuilt, so the bf16 stacks are freed once
           nothing else holds them.  Applying it again changes nothing.
+        - ``"int8-w8a8"``: the single copy with the self-attention layer
+          stacks marked for W8A8 (``act_quant``): on CUDA the text prefill's
+          matmuls (M >= 256) quantize their rows per token and run int8 × int8
+          (``ops/quant.py::w8a8_matmul``); decode is that of
+          ``"int8-memory"``.  The least bit-parity of the modes (activations
+          round too).  On a tree that is already int8 nothing is re-marked,
+          as in the JAX package.
         - ``None``: drop the int8 copy.
 
         ``"int8"`` on an already-quantized tree and an unknown mode raise
-        ``ValueError``; ``"int8-w8a8"`` raises ``NotImplementedError``.
+        ``ValueError``.
         Quantization runs one layer at a time on the runner's device; the
         scales stay fp32 (never cast a tree that holds quantized handles).
         """
         if quant is None:
             self.decode_params = None
             return
-        if quant == "int8-w8a8":
-            raise NotImplementedError(
-                "the int8-w8a8 mode (W8A8 prefill matmuls) is not ported yet: it is the next slice")
         already = _has_quantized(self.params)
         if quant == "int8":
             if already:
                 raise ValueError("params already int8-quantized (int8-memory mode)")
             with torch.no_grad():
                 self.decode_params = quantize_lm_params(self.params)
-        elif quant == "int8-memory":
+        elif quant in ("int8-memory", "int8-w8a8"):
             self.decode_params = None
             if not already:
                 with torch.no_grad():
-                    quantized = quantize_lm_params(self.params)
+                    quantized = quantize_lm_params(self.params, act_quant=quant == "int8-w8a8")
                 self.module = ParamModule(quantized)
         else:
             raise ValueError(
-                f"unknown quant mode {quant!r} (supported: 'int8', 'int8-memory'; "
-                "'int8-w8a8' is not ported yet)"
+                f"unknown quant mode {quant!r} (supported: 'int8', 'int8-memory', 'int8-w8a8')"
             )
 
     def apply_prompt_template(self, conversation, add_generation_prompt: bool = False):

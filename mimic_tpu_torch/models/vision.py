@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import ONEPASS_MAX_S_NONCAUSAL, flash_attention
-from ..shared import PerceiverConfig, VisionConfig
+from .config import PerceiverConfig, VisionConfig
 from .decoder import dense_init
 from .layers import gelu_act, layer_norm, repeat_kv, rms_norm, sdpa_with_lse
 

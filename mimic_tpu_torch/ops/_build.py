@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
-    "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu",
+    "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
 )
 HEADERS = ("attn_common.cuh", "int8_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -133,6 +133,9 @@ def load_library() -> ctypes.CDLL:
     # q, k8, ks, v8, vs, mask, work, o, m, l, B0, Hkv, M, Sp, dtype, stream
     lib.mimic_prompt_attn_int8.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.mimic_prompt_attn_int8.restype = i
+    # x8, xs, w, sw, out, M, K, N, out_dtype, stream
+    lib.mimic_w8a8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
+    lib.mimic_w8a8_matmul.restype = i
     lib.mimic_cuda_error_string.argtypes = [i]
     lib.mimic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,6 +1,6 @@
-"""Weight-only int8 quantization: the transform, the matmul kernels and ``qdot``.
+"""Int8 quantization: the transform, the matmul kernels and ``qdot``.
 
-Counterpart of ``mimic_tpu/ops/quant.py`` (weight-only half).  A quantized
+Counterpart of ``mimic_tpu/ops/quant.py``.  A quantized
 weight is a dict handle ``{"q8": int8 [..., K', N'], "scale": f32 [..., N]}``:
 per-output-channel symmetric scales, ``q8`` zero-padded on N (and on K with
 ``pad_k``) to a multiple of 128, ``scale`` keeping the original N.  A
@@ -9,20 +9,23 @@ decoder's layer loop a stacked handle also carries ``"layer": l`` and the
 kernels read ``W[l]`` straight out of the ``[L, K, N]`` stack (a pointer
 offset), so no per-layer copy is made.
 
-Two hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
+Three hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
 
 - ``int8_matmul`` (``csrc/int8_matmul.cu``, replaces Pallas ``_kernel`` and
   ``_kernel_stacked``): ``(x @ W8) · scale`` with the int8 weights converted
   in registers, fp32 accumulation, split-K with a deterministic second pass;
 - ``fused_mlp_int8`` (``csrc/fused_mlp_int8.cu``, replaces Pallas
   ``_mlp_kernel``): a layer's whole SwiGLU MLP at decode M, the ``[M, 2F]``
-  intermediate kept on chip.
+  intermediate kept on chip;
+- ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, replaces Pallas ``_w8a8_kernel``
+  and ``_w8a8_kernel_stacked``): per-row int8 activations (``quantize_rows``)
+  times int8 weights on the integer tensor cores, an exact int32 sum and the
+  two-scale epilogue ``(acc · s_x[m]) · s_w[n]``; ``qdot`` sends an ``a8``
+  handle there at prefill M (>= 256) on CUDA.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
 plain PyTorch version only for CPU tensors; ``LAUNCHES`` counts launches by
-kernel name and nothing else touches it.  The W8A8 kernels (Pallas
-``_w8a8_kernel``/``_w8a8_kernel_stacked``) are not ported yet: on CUDA an
-``a8`` handle at M >= 256 raises ``NotImplementedError``.
+kernel name and nothing else touches it.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ MLP_BLOCK_F = 64
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "fused_mlp_int8": 0}
+LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "fused_mlp_int8": 0, "w8a8_matmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -229,6 +232,32 @@ def fused_mlp_plain(xn, gu_q8, gu_scale, down_q8, down_scale, out_dtype=None) ->
     return ((a.float() @ down_q8.float()) * down_scale.float()).to(out_dtype)
 
 
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8: [..., K] float → (int8 [..., K], f32 [...] scales).
+
+    ``s = max(amax, 1e-8) / 127`` and ``x8 = clip(round(x / s), ±127)``, half
+    to even, bit-identical to JAX's ``quantize_rows`` under ``jit`` (how the
+    TPU forward always runs it): there XLA turns ``/ 127.0`` into a
+    multiplication by the fp32 constant 1/127 (``INV_127``), which moves the
+    scale by one ulp in about 5 % of rows against the op-by-op division.  The
+    second division is a true one (a tensor divisor, on the card too)."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    s = amax.clamp_min(1e-8) * INV_127
+    x8 = torch.round(xf / s).clamp_(-127, 127).to(torch.int8)
+    return x8, s[..., 0]
+
+
+def w8a8_matmul_plain(x8, xs, wq, scale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``(float(x8 @ wq) · xs[m]) · scale[n]`` with the integer sum taken in
+    float64, where it is exact (|sum| ≤ 127·127·K < 2⁵³; a float32 product is
+    exact only below 2²⁴ and an int8 ``torch.matmul`` wraps around).  The sum
+    rounds to fp32 once, as an int32 does, and the scales multiply it in the
+    kernel's order, so kernel and plain version agree bit for bit."""
+    acc = (x8.double() @ wq.double()).float()
+    return ((acc * xs.float()[:, None]) * scale.float()[None, :]).to(out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -314,6 +343,70 @@ def int8_matmul_stacked(x, wq, scale, layer: int, out_dtype=None) -> torch.Tenso
     if x.device.type == "cpu":
         return int8_matmul_plain(x, wq[layer], scale[layer], out_dtype)
     raise _no_device("int8_matmul_stacked", x)
+
+
+def _launch_w8a8_matmul(x8, xs, wq, scale, layer, out_dtype) -> torch.Tensor:
+    from . import _build
+
+    name = "w8a8_matmul"
+    M, K = x8.shape
+    stacked = wq.dim() == 3
+    N = wq.shape[-1]
+    for t in (x8, xs, wq, scale):
+        if t.device != x8.device:
+            raise ValueError(f"{name}: all inputs must be on {x8.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    if x8.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise TypeError(f"{name}: activations and weights must be int8, got {x8.dtype}/{wq.dtype}")
+    if xs.dtype != torch.float32 or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: scales must be fp32, got {xs.dtype}/{scale.dtype}")
+    if (wq.shape[-2] != K or xs.shape != (M,) or scale.shape[-1] != N
+            or scale.dim() != wq.dim() - 1 or (stacked and scale.shape[0] != wq.shape[0])):
+        raise ValueError(f"{name}: bad shapes x8 {tuple(x8.shape)} xs {tuple(xs.shape)} "
+                         f"w {tuple(wq.shape)} scale {tuple(scale.shape)}")
+    if K % 16 or N % 16 or M == 0 or K == 0 or N == 0:
+        raise ValueError(f"{name}: K and N must be non-zero multiples of 16 and M non-zero "
+                         f"(M {M}, K {K}, N {N})")
+    if out_dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: out_dtype must be one of {list(_KERNEL_DTYPES)}")
+    w_ptr, s_ptr = wq.data_ptr(), scale.data_ptr()
+    if stacked:
+        if not 0 <= layer < wq.shape[0]:
+            raise ValueError(f"{name}: layer {layer} outside [0, {wq.shape[0]})")
+        w_ptr += layer * K * N          # int8: one byte per element
+        s_ptr += layer * N * 4          # fp32
+    lib = _build.load_library()
+    out = torch.empty(M, N, dtype=out_dtype, device=x8.device)
+    with torch.cuda.device(x8.device):
+        err = lib.mimic_w8a8_matmul(
+            x8.data_ptr(), xs.data_ptr(), w_ptr, s_ptr, out.data_ptr(), M, K, N,
+            _KERNEL_DTYPES[out_dtype], torch.cuda.current_stream(x8.device).cuda_stream,
+        )
+    _raise_on_error(lib, err, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def w8a8_matmul(x8, xs, wq, scale, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``(x8 [M,K] int8 @ wq [K,N] int8) · xs [M] · scale [N]`` → [M, N], the
+    sum exact in int32 (kernel on CUDA)."""
+    if x8.device.type == "cuda":
+        return _launch_w8a8_matmul(x8, xs, wq, scale, None, out_dtype)
+    if x8.device.type == "cpu":
+        return w8a8_matmul_plain(x8, xs, wq, scale, out_dtype)
+    raise _no_device("w8a8_matmul", x8)
+
+
+def w8a8_matmul_stacked(x8, xs, wq, scale, layer: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``w8a8_matmul`` on layer ``layer`` of a stacked ``[L,K,N]`` weight and
+    ``[L,N]`` scale, read in place (kernel on CUDA)."""
+    layer = int(layer)
+    if x8.device.type == "cuda":
+        return _launch_w8a8_matmul(x8, xs, wq, scale, layer, out_dtype)
+    if x8.device.type == "cpu":
+        return w8a8_matmul_plain(x8, xs, wq[layer], scale[layer], out_dtype)
+    raise _no_device("w8a8_matmul_stacked", x8)
 
 
 def _launch_fused_mlp(xn, gu_q8, gu_scale, down_q8, down_scale, layer, out_dtype):
@@ -436,9 +529,34 @@ class Int8MatmulDiff(torch.autograd.Function):
         return (dy.float() @ deq.t()).to(dy.dtype), None, None, None, None
 
 
+class W8A8MatmulDiff(Int8MatmulDiff):
+    """The W8A8 matmul differentiable in its activations.
+
+    Forward: ``quantize_rows`` then ``w8a8_matmul`` / ``w8a8_matmul_stacked``.
+    Backward: ``Int8MatmulDiff``'s ``dY @ deq(W)ᵀ``, a straight-through
+    estimate that treats the per-row activation rounding as the identity (JAX
+    ``_input_vjp`` around ``run_w8a8``).
+    """
+
+    @staticmethod
+    def forward(ctx, xm, wq, scale, layer, out_dtype):
+        ctx.save_for_backward(wq, scale)
+        ctx.layer = layer
+        x8, xs = quantize_rows(xm)
+        if layer is None:
+            return w8a8_matmul(x8, xs, wq, scale, out_dtype=out_dtype)
+        return w8a8_matmul_stacked(x8, xs, wq, scale, layer, out_dtype=out_dtype)
+
+
 def int8_matmul_diff(xm, wq, scale, layer=None, out_dtype=None) -> torch.Tensor:
     """``Int8MatmulDiff``: the int8 matmul with a gradient for ``xm``."""
     return Int8MatmulDiff.apply(xm, wq, scale, layer, out_dtype or xm.dtype)
+
+
+def w8a8_matmul_diff(xm, wq, scale, layer=None, out_dtype=None) -> torch.Tensor:
+    """``W8A8MatmulDiff``: row-quantize ``xm`` and multiply int8 × int8, with
+    a straight-through gradient for ``xm``."""
+    return W8A8MatmulDiff.apply(xm, wq, scale, layer, out_dtype or xm.dtype)
 
 
 def qdot(x: torch.Tensor, w: Any, preferred_element_type=None) -> torch.Tensor:
@@ -446,9 +564,14 @@ def qdot(x: torch.Tensor, w: Any, preferred_element_type=None) -> torch.Tensor:
 
     Plain tensors: ``x @ w`` (cast to ``preferred_element_type`` if given).
     Quantized, on the CPU: the dequantized fp32 product, as JAX off the TPU.
+    The ``a8`` marker is inert there, again as in JAX.
     On CUDA: M < 256 launches ``int8_matmul`` through ``Int8MatmulDiff``
-    (differentiable in ``x``); M >= 256 takes a dequantized
-    ``torch.matmul``, or raises for an ``a8`` handle (W8A8 is the next slice).
+    (differentiable in ``x``; the marker is inert here too); M >= 256 takes
+    ``w8a8_matmul`` through ``W8A8MatmulDiff`` for an ``a8`` handle (rows
+    quantized per token, not bit-parity with the weight-only product) and a
+    dequantized ``torch.matmul`` otherwise.  The kernel masks a ragged last
+    row tile itself, so the TPU path's padding of M to 128 is not carried
+    over.
     """
     if not is_quantized(w):
         out = x @ w
@@ -466,14 +589,11 @@ def qdot(x: torch.Tensor, w: Any, preferred_element_type=None) -> torch.Tensor:
         out = (xm.float() @ dequantize(w)).to(out_dtype)
     elif x.device.type != "cuda":
         raise _no_device("qdot", x)
-    elif xm.shape[0] >= KERNEL_MAX_M:
-        if "a8" in w:
-            raise NotImplementedError(
-                "W8A8 (int8 x int8) matmuls at M >= 256 are not ported yet: "
-                "the int8-w8a8 mode is the next slice")
+    elif xm.shape[0] >= KERNEL_MAX_M and "a8" not in w:
         out = (xm @ dequantize(w).to(x.dtype)).to(out_dtype)
     else:
         if n != n_stored:
             scale = F.pad(scale, (0, n_stored - n))
-        out = int8_matmul_diff(xm, wq, scale, layer, out_dtype)[:, :n]
+        diff = w8a8_matmul_diff if xm.shape[0] >= KERNEL_MAX_M else int8_matmul_diff
+        out = diff(xm, wq, scale, layer, out_dtype)[:, :n]
     return out.reshape(*lead, n)

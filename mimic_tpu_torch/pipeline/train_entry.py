@@ -16,10 +16,13 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..config import TrainConfig
+from ..data.adapters import build_adapter
+from ..data.prefetch import prefetch
 from ..device import DeviceLike, resolve_device
 from ..models.factory import build_model
-from ..shared import TrainCollator, TrainConfig, build_adapter, prefetch
 from ..shift.params import init_shift_params
+from ..train.collate import TrainCollator
 from ..train.optim import build_optimizer, cosine_warmup_schedule
 from ..train.step import TrainState, make_train_step
 from ..train.trainer import get_max_epochs, train_loop
@@ -47,10 +50,9 @@ def run_train(
     device: Optional[DeviceLike] = None,
 ) -> TrainState:
     """Train ``cfg``'s shift on ``runner`` (built from ``cfg.model_name`` on
-    ``device`` when not given) and write ``<result_dir>/ckpt/<runname>/``."""
+    ``device`` when not given; ``None`` is the card) and write
+    ``<result_dir>/ckpt/<runname>/``."""
     if runner is None:
-        if device is None:
-            raise ValueError("run_train needs a runner or an explicit device")
         runner = build_model(cfg.model_name, device=device, dtype=getattr(torch, cfg.dtype),
                              seed=cfg.seed)
     dev = runner.device

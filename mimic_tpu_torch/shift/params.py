@@ -11,7 +11,8 @@ from typing import Dict
 
 import torch
 
-from ..shared import EncoderConfig, ShiftStrategy, TextConfig
+from ..config import EncoderConfig, ShiftStrategy
+from ..models.config import TextConfig
 
 ShiftParams = Dict[str, torch.Tensor]
 

@@ -20,8 +20,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..config import EncoderConfig, Strategy
+from ..models.config import ModelConfig
 from ..models.lvlm import LVLMBatch, lvlm_forward
-from ..shared import EncoderConfig, ModelConfig, Strategy
 from ..shift.params import multi_head, needs_attn_capture, needs_ffn_capture
 from .losses import layer_wise_cos, layer_wise_mse, lm_cross_entropy, logits_kl
 from .optim import Optimizer, apply_updates, flatten, global_norm, unflatten

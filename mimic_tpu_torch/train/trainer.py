@@ -14,7 +14,8 @@ import os
 import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
-from ..shared import TrainConfig, config_to_dict, get_expand_runname
+from ..config import TrainConfig, config_to_dict
+from ..utils import get_expand_runname
 from .checkpoints import all_checkpoints_exist, save_run_config, save_trainable
 from .optim import flatten
 from .step import TrainState, to_device_batch

@@ -84,13 +84,14 @@ def test_param_module_rebuilds_tree_and_moves_dtype():
 def test_resolve_device_raises_instead_of_falling_back():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
-        resolve_device(None)
-    with pytest.raises(ValueError):
         resolve_device("meta")
+    # None is the card: the default never moves to the CPU
     if torch.cuda.is_available():
-        assert resolve_device("cuda").type == "cuda"
+        assert resolve_device("cuda").type == "cuda" and resolve_device(None).type == "cuda"
+        assert resolve_device().type == "cuda"
         with pytest.raises(RuntimeError):
             resolve_device(f"cuda:{torch.cuda.device_count()}")
     else:
-        with pytest.raises(RuntimeError):
-            resolve_device("cuda")
+        for device in ("cuda", None):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                resolve_device(device)

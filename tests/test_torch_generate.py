@@ -146,7 +146,7 @@ def test_slice_runs_without_jax():
         import sys
         sys.modules["jax"] = None  # any import of jax now raises
         import numpy as np, torch
-        from mimic_tpu_torch.shared import get_preset
+        from mimic_tpu_torch.config import get_preset
         from mimic_tpu_torch.models.factory import build_model
         from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
         from mimic_tpu_torch.shift.params import init_shift_params

@@ -288,7 +288,7 @@ def test_int8_cpu_paths_never_launch_or_build(monkeypatch):
                                       for _ in range(2)))
     q = _t(rng.normal(size=(2, 1, 2, 2, 128)).astype(np.float32))
     tda.prompt_attention_int8(q, dict(pk, layer=1), dict(pv, layer=1), torch.ones(1, 128))
-    assert tq.LAUNCHES == {"int8_matmul": 0, "fused_mlp_int8": 0}
+    assert tq.LAUNCHES == {"int8_matmul": 0, "fused_mlp_int8": 0, "w8a8_matmul": 0}
     assert tda.LAUNCHES == {"prompt_attn_int8": 0}
 
 
@@ -394,13 +394,156 @@ def test_qdot_gradient_through_kernel_on_card(cuda_device, dtype, stacked):
 
 
 @pytest.mark.cuda
-def test_w8a8_prefill_raises_on_card(cuda_device):
-    from mimic_tpu_torch.ops.quant import qdot, quantize_weight
+def test_w8a8_prefill_launches_on_card(cuda_device):
+    """An ``a8`` handle: decode M takes the weight-only kernel (the marker is
+    inert), M >= 256 quantizes the rows and launches ``w8a8_matmul``; without
+    the marker M >= 256 launches nothing."""
+    from mimic_tpu_torch.ops import quant as tq
 
-    w = quantize_weight(torch.randn(64, 128, device=cuda_device), act_quant=True)
-    qdot(torch.randn(8, 64, device=cuda_device), w)  # decode M: the weight-only kernel
-    with pytest.raises(NotImplementedError):
-        qdot(torch.randn(256, 64, device=cuda_device), w)
+    wf = torch.randn(64, 200, device=cuda_device)
+    w = tq.quantize_weight(wf, act_quant=True)
+    tq.reset_launch_counts()
+    tq.qdot(torch.randn(8, 64, device=cuda_device), w)
+    assert tq.LAUNCHES == {"int8_matmul": 1, "fused_mlp_int8": 0, "w8a8_matmul": 0}
+    x = torch.randn(256, 64, device=cuda_device)
+    out = tq.qdot(x, w)
+    assert tq.LAUNCHES == {"int8_matmul": 1, "fused_mlp_int8": 0, "w8a8_matmul": 1}
+    x8, xs = tq.quantize_rows(x)
+    want = tq.w8a8_matmul_plain(x8, xs, w["q8"][:, :200], w["scale"], torch.float32)
+    assert out.shape == (256, 200) and torch.equal(out, want)
+    # not bit-parity with the weight-only product, but close: rows round to 1/254
+    assert (out - x @ tq.dequantize(w)).abs().max() <= 0.05 * (x @ wf).abs().max()
+    tq.qdot(x, {k: v for k, v in w.items() if k != "a8"})
+    assert tq.LAUNCHES["w8a8_matmul"] == 1
+
+
+W8A8_SHAPES = [
+    # M, K, N, layers, layer
+    (128, 64, 128, 0, 0),        # one tile
+    (256, 256, 384, 0, 0),       # the JAX test's shape
+    (1000, 512, 640, 3, 2),      # ragged last row tile, stacked
+    (257, 80, 144, 0, 0),        # K and N below a tile, one row into the third row tile
+    (300, 1024, 4096, 2, 1),     # many K tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,layers,layer", W8A8_SHAPES)
+def test_w8a8_matmul_equals_plain_on_card(cuda_device, M, K, N, layers, layer, out_dtype):
+    """The int32 sum is exact in any order and the epilogue has no addition, so
+    kernel and plain version agree bit for bit in fp32 and in bf16."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(40)
+    dt = getattr(torch, out_dtype)
+    shape = (layers, K, N) if layers else (K, N)
+    wq = _t(rng.integers(-127, 128, size=shape, dtype=np.int8)).to(cuda_device)
+    scale = _t(rng.uniform(1e-4, 1e-2, size=shape[:-2] + (N,)).astype(np.float32)).to(cuda_device)
+    x = _t((rng.normal(size=(M, K)) * rng.uniform(0.1, 5, size=(M, 1))).astype(np.float32))
+    x8, xs = tq.quantize_rows(x.to(cuda_device))
+    before = tq.LAUNCHES["w8a8_matmul"]
+    if layers:
+        got = tq.w8a8_matmul_stacked(x8, xs, wq, scale, layer, out_dtype=dt)
+        want = tq.w8a8_matmul_plain(x8, xs, wq[layer], scale[layer], dt)
+    else:
+        got = tq.w8a8_matmul(x8, xs, wq, scale, out_dtype=dt)
+        want = tq.w8a8_matmul_plain(x8, xs, wq, scale, dt)
+    torch.cuda.synchronize()
+    assert tq.LAUNCHES["w8a8_matmul"] == before + 1
+    assert got.dtype == dt and got.shape == (M, N) and torch.equal(got, want)
+    # extreme values: every product at +-127 * 127, the largest sums K allows
+    x8.fill_(127)
+    wq.fill_(-127)
+    w2, s2 = (wq[layer], scale[layer]) if layers else (wq, scale)
+    got = tq.w8a8_matmul(x8, xs, w2.contiguous(), s2.contiguous(), out_dtype=dt)
+    assert torch.equal(got, tq.w8a8_matmul_plain(x8, xs, w2, s2, dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_on_card_matches_cpu(cuda_device, dtype):
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(41)
+    x = _t((rng.normal(size=(512, 4096)) * rng.uniform(0.01, 30, size=(512, 1))).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    x[7] = 0
+    x8, xs = tq.quantize_rows(x.to(cuda_device))
+    c8, cs = tq.quantize_rows(x)
+    assert torch.equal(x8.cpu(), c8) and torch.equal(xs.cpu(), cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stacked", [False, True], ids=["2d", "stacked"])
+def test_w8a8_qdot_gradient_on_card(cuda_device, stacked):
+    """The W8A8 forward carries a grad_fn and the straight-through backward
+    ``dY @ deq(W)T``; a pad_k handle pads the activations first."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(42)
+    shape = (2, 96, 200) if stacked else (96, 200)
+    w = tq.quantize_weight(_t(rng.normal(size=shape).astype(np.float32)).to(cuda_device),
+                           act_quant=True, pad_k=True)
+    if stacked:
+        w["layer"] = 1
+    x = _t(rng.normal(size=(2, 150, 96)).astype(np.float32)).to(cuda_device).requires_grad_(True)
+    g = _t(rng.normal(size=(2, 150, 200)).astype(np.float32)).to(cuda_device)
+    before = tq.LAUNCHES["w8a8_matmul"]
+    out = tq.qdot(x, w)
+    assert tq.LAUNCHES["w8a8_matmul"] == before + 1 and out.shape == (2, 150, 200)
+    assert out.grad_fn is not None
+    (out * g).sum().backward()
+    want = (g.reshape(-1, 200) @ tq.dequantize(w).t())[:, :96].reshape(x.shape)
+    assert (x.grad - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+@pytest.mark.cuda
+def test_w8a8_wrapper_raises_on_bad_cuda_inputs(cuda_device):
+    from mimic_tpu_torch.ops import quant as tq
+
+    x8 = torch.zeros(32, 64, dtype=torch.int8, device=cuda_device)
+    xs = torch.ones(32, device=cuda_device)
+    wq = torch.zeros(64, 128, dtype=torch.int8, device=cuda_device)
+    sw = torch.ones(128, device=cuda_device)
+    tq.w8a8_matmul(x8, xs, wq, sw)
+    with pytest.raises(TypeError):
+        tq.w8a8_matmul(x8.float(), xs, wq, sw)
+    with pytest.raises(ValueError):
+        tq.w8a8_matmul(x8, xs, wq[:, :100].contiguous(), sw[:100].contiguous())  # N % 16
+    with pytest.raises(ValueError):
+        tq.w8a8_matmul(x8, xs, wq.t(), sw)  # not contiguous, wrong K
+    with pytest.raises(ValueError):
+        tq.w8a8_matmul(x8, xs, wq.cpu(), sw)
+    with pytest.raises(ValueError):
+        tq.w8a8_matmul_stacked(x8, xs, wq[None].contiguous(), sw[None].contiguous(), 1)
+    with pytest.raises(TypeError):
+        tq.w8a8_matmul(x8, xs, wq, sw, out_dtype=torch.float16)
+
+
+def test_w8a8_cpu_path_never_launches_or_builds(monkeypatch):
+    from mimic_tpu_torch.ops import _build
+    from mimic_tpu_torch.ops import quant as tq
+
+    def no_build():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    # earlier cuda-marked tests may have loaded the library: fail on any use of it
+    monkeypatch.setattr(_build, "load_library", no_build)
+    monkeypatch.setattr(_build, "build", no_build)
+    rng = np.random.default_rng(43)
+    x8, xs = tq.quantize_rows(_t(rng.normal(size=(300, 64)).astype(np.float32)))
+    wq = _t(rng.integers(-127, 128, size=(2, 64, 128), dtype=np.int8))
+    sw = _t(rng.uniform(1e-3, 1e-2, size=(2, 128)).astype(np.float32))
+    before = dict(tq.LAUNCHES)
+    a = tq.w8a8_matmul(x8, xs, wq[1], sw[1], out_dtype=torch.float32)
+    b = tq.w8a8_matmul_stacked(x8, xs, wq, sw, 1, out_dtype=torch.float32)
+    assert torch.equal(a, b) and tq.LAUNCHES == before
+    # the exact integer sum, scaled in the kernel's order
+    acc = x8.to(torch.int64) @ wq[1].to(torch.int64)
+    assert torch.equal(a, (acc.float() * xs[:, None]) * sw[1][None, :])
+    with pytest.raises(ValueError):
+        tq.w8a8_matmul(x8.to("meta"), xs, wq[1], sw[1])
 
 
 @pytest.mark.cuda

@@ -286,7 +286,7 @@ def test_qdot_matches_jax_on_the_cpu(case):
     want = jq.qdot(x, w, preferred_element_type=jpref)
     tq.reset_launch_counts()
     got = tq.qdot(xt, wt, preferred_element_type=tpref)
-    assert tq.LAUNCHES == {"int8_matmul": 0, "fused_mlp_int8": 0}
+    assert tq.LAUNCHES == {"int8_matmul": 0, "fused_mlp_int8": 0, "w8a8_matmul": 0}
     assert got.shape == want.shape
     assert str(got.dtype).split(".")[-1] == str(want.dtype)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
@@ -442,8 +442,10 @@ def test_runner_memory_mode_is_idempotent_and_rejects_bad_modes():
         r.set_quant("int8")
     with pytest.raises(ValueError):
         r.set_quant("fp4")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        r.set_quant("int8-w8a8")
+    # on a tree that is already int8 "int8-w8a8" re-marks nothing (as in JAX)
+    r.set_quant("int8-w8a8")
+    assert all(v is before[k] for k, v in r.module.named_buffers())
+    assert "a8" not in r.params["lm"]["decoder"]["layers"]["qkv_proj"]
     with pytest.raises(ValueError):
         _runner("fp4")
 

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from mimic_tpu.config import EncoderConfig, get_preset
+from mimic_tpu.config import EncoderConfig, config_to_dict, get_preset
 from mimic_tpu.models.config import get_model_config, tiny_text
 from mimic_tpu.models.lvlm import init_lvlm_params
 from mimic_tpu.models.processor import LVLMProcessor
@@ -35,6 +35,7 @@ from mimic_tpu.shift.params import init_shift_params
 from mimic_tpu.train import TrainCollator, TrainState, build_optimizer, make_train_step
 from mimic_tpu.train.step import _to_device_batch
 from mimic_tpu.train.step import compute_loss as jax_compute_loss
+from mimic_tpu_torch import config as tconfig
 from mimic_tpu_torch.bridge import to_torch
 from mimic_tpu_torch.models import decoder as td
 from mimic_tpu_torch.shift import params as tsp
@@ -53,6 +54,12 @@ def _preset(name):
         _, peft = get_preset("mimic")
         return enc, peft
     return get_preset(name)
+
+
+def port_enc(enc):
+    """The port's own ``EncoderConfig`` with ``enc``'s fields (the two packages
+    keep separate flag classes, so each side gets its own)."""
+    return tconfig.config_from_dict(tconfig.EncoderConfig, config_to_dict(enc))
 
 
 def _cfg(flash: bool, tk):
@@ -113,15 +120,17 @@ IDS = ["mimic", "mimic-flash", "mimic_attn_mse", "lm_only", "licv-kl"]
 def test_compute_loss_matches_jax(preset, flash):
     cfg, enc, peft, frozen, trainable, tb = setup(preset, flash)
     attn_impl = "flash" if flash else "xla"
-    kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=tsp.needs_attn_capture(enc),
-              rec_ffn=tsp.needs_ffn_capture(enc), mh=tsp.multi_head(enc),
+    enc_t = port_enc(enc)
+    kw = dict(cfg=cfg, rec_attn=tsp.needs_attn_capture(enc_t),
+              rec_ffn=tsp.needs_ffn_capture(enc_t), mh=tsp.multi_head(enc_t),
               ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
               logz2="unmasked", attn_impl=attn_impl)
     loss_j, metrics_j = jax_compute_loss(trainable, frozen, _to_device_batch(tb),
-                                         lora_scaling=1.0, **kw)
+                                         lora_scaling=1.0, strategy=enc.strategy(), **kw)
     td.ATTN_PATH_LOG.clear()
     loss_t, metrics_t = ts.compute_loss(to_torch(trainable, "cpu"), to_torch(frozen, "cpu"),
-                                        ts.to_device_batch(tb, "cpu"), **kw)
+                                        ts.to_device_batch(tb, "cpu"),
+                                        strategy=enc_t.strategy(), **kw)
     n_passes = 1 if preset == "lm_only" else 2
     assert td.ATTN_PATH_LOG == [attn_impl] * n_passes
     assert abs(float(loss_t) - float(loss_j)) <= RTOL * abs(float(loss_j))
@@ -139,7 +148,7 @@ def test_train_steps_match_jax(preset, flash):
     state_j = TrainState(trainable, tx_j.init(trainable), jnp.zeros((), jnp.int32))
     tree = to_torch(trainable, "cpu")
     tx_t = to.build_optimizer(tree, **_opt_kwargs(peft))
-    step_t = ts.make_train_step(cfg, enc, tx_t, **common)
+    step_t = ts.make_train_step(cfg, port_enc(enc), tx_t, **common)
     state_t = ts.TrainState(tree, tx_t.init(tree), 0)
     frozen_t = to_torch(frozen, "cpu")
     batch_j, batch_t = _to_device_batch(tb), ts.to_device_batch(tb, "cpu")
@@ -160,7 +169,7 @@ def test_gradient_accumulation_matches_jax():
     state_j = TrainState(trainable, tx_j.init(trainable), jnp.zeros((), jnp.int32))
     tree = to_torch(trainable, "cpu")
     tx_t = to.build_optimizer(tree, **kw)
-    step_t = ts.make_train_step(cfg, enc, tx_t, **common)
+    step_t = ts.make_train_step(cfg, port_enc(enc), tx_t, **common)
     state_t = ts.TrainState(tree, tx_t.init(tree), 0)
     frozen_t = to_torch(frozen, "cpu")
     batch_j, batch_t = _to_device_batch(tb), ts.to_device_batch(tb, "cpu")
@@ -177,7 +186,7 @@ def test_frozen_weights_stay_frozen_and_shift_moves():
     before = {k: v.clone() for k, v in frozen_t["lm"]["decoder"]["layers"].items()}
     tree = to_torch(trainable, "cpu")
     tx = to.build_optimizer(tree, **dict(_opt_kwargs(peft), warmup_steps=0))
-    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=0.5, align_loss_weight=1.0,
+    step = ts.make_train_step(cfg, port_enc(enc), tx, ce_loss_weight=0.5, align_loss_weight=1.0,
                               attn_impl="flash")
     state = ts.TrainState(tree, tx.init(tree), 0)
     state, m = step(state, frozen_t, ts.to_device_batch(tb, "cpu"))
@@ -194,4 +203,4 @@ def test_unported_options_raise(kwargs):
     cfg, enc, peft, _, trainable, _ = setup("mimic", False)
     tx = to.build_optimizer(to_torch(trainable, "cpu"), **_opt_kwargs(peft))
     with pytest.raises(NotImplementedError):
-        ts.make_train_step(cfg, enc, tx, ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
+        ts.make_train_step(cfg, port_enc(enc), tx, ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
