@@ -5,7 +5,7 @@ one shared library with a plain C interface, for ``sm_90a``.  Each source is
 compiled to an object by its own ``nvcc``, all started together, then linked:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \\
-         -lineinfo -c -o build/<hash>/<name>.o csrc/<name>.cu      # one per source
+         -lineinfo -Xptxas=-v -c -o build/<hash>/<name>.o csrc/<name>.cu   # one per source
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
          -o build/libmimic_kernels-<hash>.so build/<hash>/*.o
 
@@ -31,9 +31,9 @@ SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
     "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
 )
-HEADERS = ("attn_common.cuh", "int8_common.cuh")
+HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "int8_common.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -71,18 +71,20 @@ def _check(proc: subprocess.CompletedProcess, cmd) -> None:
 def build() -> Dict[str, object]:
     """Compile the kernels unless an up-to-date library exists.
 
-    Returns a dict with the library ``path``, the ``seconds`` spent compiling
-    and the nvcc ``command`` lines (0 and "" when the library was up to date).
+    Returns a dict with the library ``path``, the ``seconds`` spent compiling,
+    the nvcc ``command`` lines and ``ptxas``, what ``-Xptxas=-v`` said of each
+    kernel's registers, spills and shared memory (0 and "" when the library
+    was up to date).
     """
     digest = _digest()
     path = BUILD_DIR / f"libmimic_kernels-{digest}.so"
     if path.exists():
-        return {"path": str(path), "seconds": 0.0, "command": ""}
+        return {"path": str(path), "seconds": 0.0, "command": "", "ptxas": ""}
     obj_dir = BUILD_DIR / f"{digest}.{os.getpid()}"
     obj_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    compiles = []
+    compiles, ptxas = [], []
     for src in SOURCES:
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o",
                str(obj_dir / (Path(src).stem + ".o")), str(CSRC / src)]
@@ -91,6 +93,7 @@ def build() -> Dict[str, object]:
     for cmd, p in compiles:
         out, err = p.communicate()
         _check(subprocess.CompletedProcess(cmd, p.returncode, out, err), cmd)
+        ptxas.append(err)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
             *(str(obj_dir / (Path(s).stem + ".o")) for s in SOURCES)]
@@ -99,7 +102,7 @@ def build() -> Dict[str, object]:
     os.replace(tmp, path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     command = "\n".join(" ".join(c) for c in [*(c for c, _ in compiles), link])
-    return {"path": str(path), "seconds": seconds, "command": command}
+    return {"path": str(path), "seconds": seconds, "command": command, "ptxas": "".join(ptxas)}
 
 
 def load_library() -> ctypes.CDLL:
@@ -115,6 +118,9 @@ def load_library() -> ctypes.CDLL:
         # causal, need_unmasked, stream
         fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
         fn.restype = i
+    # D, then out: query rows per CTA, rows per warpgroup, keys per tile
+    lib.mimic_attn_fwd_tiling.argtypes = [i] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mimic_attn_fwd_tiling.restype = i
     # q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse, g_lse_u, dq,
     # B, T, S, H, Hkv, D, dtype, scale, causal, need_unmasked, stream
     lib.mimic_flash_bwd_dq.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]

@@ -1,6 +1,10 @@
-// Shared pieces of the two attention forward kernels (flash_fwd.cu, onepass_fwd.cu).
+// Shared pieces of the attention kernels: the contract and argument block of
+// the two forward kernels (flash_fwd.cu, onepass_fwd.cu), and the scalar fp32
+// tiles that their fp32 instantiations and the backward pair (flash_bwd.cu)
+// are built from.  bf16 forward inputs take the tensor-core kernel of
+// attn_mma.cuh instead.
 //
-// Contract (both kernels), in the JAX package's layout:
+// Contract (both forward kernels), in the JAX package's layout:
 //   q [B,T,H,D], k/v [B,S,Hkv,D] (fp32 or bf16, contiguous), key_mask [B,S] int32
 //   (nonzero = attend), out [B,T,H,D] in the input dtype, lse / lse_u [B,T,H] fp32.
 //   GQA: kv_head = h / (H / Hkv).  Causal masking compares absolute indices
@@ -13,10 +17,10 @@
 // attendable key comes out finite, as the mean of v over the keys the kernel
 // visited, exactly as in the JAX kernels.
 //
-// Tiling: one CTA of 256 threads owns BQ = 64 query rows of one (batch, head)
-// and walks the key axis in tiles of BK = 64 held in shared memory as fp32.
-// Scores of a tile are computed by a 16x16 thread grid, each thread a 4x4
-// register block, with scalar fp32 FMAs (no tensor cores yet).  The softmax
+// Tiling of the scalar kernels: one CTA of 256 threads owns BQ = 64 query rows
+// of one (batch, head) and walks the key axis in tiles of BK = 64 held in shared
+// memory as fp32.  Scores of a tile are computed by a 16x16 thread grid, each
+// thread a 4x4 register block, with scalar fp32 FMAs.  The softmax
 // bookkeeping and the P.V product use a second mapping, four threads per
 // query row, so each row's running (max, sum) pair lives in the registers of
 // the four threads that also own that row's output accumulator.
@@ -250,23 +254,6 @@ __device__ __forceinline__ void store_row(const AttnArgs& a, const RowState& st,
     a.lse[row] = lse;
     a.lse_u[row] = a.need_unmasked ? st.mu + logf(fmaxf(st.lu, 1e-30f)) : lse;
   }
-}
-
-// Instantiate launcher<T, D> for the supported (dtype, head dim) pairs.
-// dtype: 0 = float32, 1 = bfloat16.  Unsupported pairs → cudaErrorInvalidValue.
-template <template <typename, int> class Launcher>
-cudaError_t dispatch(int dtype, int D, const AttnArgs& a, cudaStream_t stream) {
-#define MIMIC_CASE(TT, DD) \
-  if (D == DD) return Launcher<TT, DD>::run(a, stream);
-  if (dtype == 0) {
-    MIMIC_CASE(float, 72)
-    MIMIC_CASE(float, 128)
-  } else if (dtype == 1) {
-    MIMIC_CASE(__nv_bfloat16, 72)
-    MIMIC_CASE(__nv_bfloat16, 128)
-  }
-#undef MIMIC_CASE
-  return cudaErrorInvalidValue;
 }
 
 template <typename Kernel>

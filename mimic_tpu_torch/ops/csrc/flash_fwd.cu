@@ -4,32 +4,34 @@
 // through flash_attention, its pallas_call at flash_attention.py:270).  Same
 // contract; see attn_common.cuh.
 //
-// Design.  On the TPU the key axis is the innermost, sequential grid axis and
-// the running (max, sum, accumulator) live in VMEM scratch between grid steps.
-// CUDA blocks run in no order, so here one CTA per (batch, head, 64-row query
-// tile) loops over 64-key tiles itself and keeps the running state in
-// registers.  Two running pairs are kept: the masked pair feeds out and lse;
-// the unmasked pair, over every key, feeds lse_u (MimIC's log Z2).
+// On the TPU the key axis is the innermost, sequential grid axis and the
+// running (max, sum, accumulator) live in VMEM scratch between grid steps.
+// CUDA blocks run in no order, so here one CTA per (batch, head, query tile)
+// loops over the key tiles itself and keeps the running state in registers.
+// Two running pairs are kept: the masked pair feeds out and lse; the unmasked
+// pair, over every key < S, feeds lse_u (MimIC's log Z2).
 //
-// Which tiles are visited.  With need_unmasked, every tile is visited: a tile
-// above the causal diagonal or fully padded still carries lse_u's terms, and
-// skipping it would give a wrong mu with no error.  Then a row with no
-// attendable key (a left-padded prompt row) comes out as the mean of v over all
-// S keys, identical to onepass_fwd and to the plain version.  Without
-// need_unmasked, tiles wholly above the causal diagonal of the CTA's query tile
-// and tiles whose keys are all masked are skipped; rows with at least one
-// attendable key are unchanged by that, while a row with none gets the mean of
-// v over the keys of the tiles that were visited (as the JAX _kernel does).
+// bf16 inputs: the tensor-core kernel of attn_mma.cuh (wgmma for both products,
+// a TMA-fed ring of K/V tiles handed over through mbarriers, 128 query rows per
+// CTA, softmax in registers in the log2 domain; its header says what bounds it
+// and what the design does about it).  With need_unmasked every key tile is
+// scored, because a tile above the causal diagonal or fully padded still
+// carries lse_u's terms, but its P.V is done only where a row of the warpgroup
+// still has no attendable key (such a row comes out as the mean of v over all
+// S keys, as in onepass_fwd and the plain version).  Without need_unmasked the
+// sweep ends at the CTA's causal diagonal and wholly masked tiles are passed
+// over; rows with an attendable key are unchanged by that, a row with none gets
+// the mean of v over the keys of the tiles its warpgroup visited (as the JAX
+// _kernel does).
 //
-// What bounds it on the H100.  The score and P.V products run as scalar fp32
-// FMAs from shared memory, 4 FMAs per shared load in the score tile and 1 in
-// P.V, so the kernel is bound by shared-memory bandwidth and FMA issue, far
-// below the tensor cores' bf16 rate.  K/V tiles are re-read from device memory
-// once per query tile (T/64 times in all), which the 50 MB L2 absorbs at the
-// slice's shapes.  Moving the two products to wgmma with TMA-fed tiles is the
-// next step; the contract and the bookkeeping stay as they are.
+// fp32 inputs: the scalar kernel below (64 x 64 tiles in fp32 shared memory,
+// fp32 FMAs), kept because the fp32 slice is held to the CPU's plain path at
+// 1e-4 and to identical beam tokens, which bf16 or TF32 products would break.
+// It is bound by shared-memory bandwidth and FMA issue; fp32 is not on the
+// main path.
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace mimic {
 
@@ -93,8 +95,27 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
                                int need_unmasked, void* stream) {
   mimic::AttnArgs a = mimic::make_args(q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv,
                                        scale, causal, need_unmasked);
-  return static_cast<int>(mimic::dispatch<mimic::FlashLauncher>(
-      dtype, D, a, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 1) {
+    e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/need_unmasked ? 0 : 1, st);
+  } else if (dtype == 0 && D == 72) {
+    e = mimic::FlashLauncher<float, 72>::run(a, st);
+  } else if (dtype == 0 && D == 128) {
+    e = mimic::FlashLauncher<float, 128>::run(a, st);
+  }
+  return static_cast<int>(e);
+}
+
+// The tiling of the bf16 forward for head dim D: query rows per CTA, rows per
+// warpgroup and keys per tile.  ops/flash_attention.py::attention_tiled_plain
+// walks the same tiles on the CPU; a test on the card holds the two together.
+extern "C" int mimic_attn_fwd_tiling(int D, int* block_m, int* group_rows, int* block_n) {
+  if (D != 72 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  *block_m = D == 72 ? mimic::mma::Cfg<72>::BM : mimic::mma::Cfg<128>::BM;
+  *group_rows = 64;
+  *block_n = D == 72 ? mimic::mma::Cfg<72>::BN : mimic::mma::Cfg<128>::BN;
+  return 0;
 }
 
 extern "C" const char* mimic_cuda_error_string(int code) {

@@ -4,28 +4,27 @@
 // (called through onepass_attention, its pallas_call at flash_attention.py:532).
 // Same contract as flash_fwd; see attn_common.cuh.
 //
-// Design.  The TPU kernel holds a whole [bq, S] fp32 score row block in VMEM
-// and finishes the row's max and sum before the P.V product.  On the H100 a
-// single 4992-key fp32 row block does not fit the 227 KB of shared memory a
-// CTA can have, so the full-row semantics are realised as two sweeps over the
-// key axis inside one kernel:
-//   1. Q.K^T per 64-key tile, folded into the row's masked and unmasked
-//      (max, sum) pairs — final once the sweep ends;
-//   2. Q.K^T again, p = exp(s - m) with the final m (rounded through the input
-//      dtype), accumulated into P.V, divided by the final sum at the end.
-// Every tile is visited in both sweeps, so a row with no attendable key (a
-// padded ViT slot, a left-padded prompt row) is the mean of v over all S keys,
-// bit-for-semantics what the plain version computes.
+// The TPU kernel holds a whole [bq, S] fp32 score row block in VMEM and
+// finishes the row's max and sum before the P.V product.  A 4992-key fp32 row
+// block does not fit the 227 KB of shared memory a CTA can have on the H100.
 //
-// What bounds it on the H100.  Sweep 2 repeats sweep 1's Q.K^T, so it does
-// 1.5x the FLOPs of flash_fwd, all as scalar fp32 FMAs from shared memory
-// (shared-memory bandwidth and FMA issue bound).  What it buys is an
-// accumulator that is never rescaled.  K is streamed from device memory twice
-// and V once per query tile; at the ViT shape (S = 4992, D = 72, 16 heads)
-// one head's K/V is 1.4 MB in bf16 and stays in L2 across its 78 query tiles.
-// Tensor-core products (wgmma) are the next step.
+// bf16 inputs: the tensor-core kernel of attn_mma.cuh, ONE sweep over the key
+// axis with an online softmax (Q.K^T once per tile), entered with skip_tiles =
+// 0: every key tile is looked at, so a row with no attendable key (a padded
+// ViT slot, a left-padded prompt row) is the mean of v over all S keys, what
+// the plain version computes.  What bounds it and what the design does about
+// it is in that header.  The online rescaling of the accumulator that the
+// full-row form avoided costs D/8 multiplies per row and tile, nothing beside
+// the second Q.K^T sweep it replaces.
+//
+// fp32 inputs: the scalar two-sweep kernel below (sweep 1 the row's final max
+// and sum, sweep 2 Q.K^T again and P.V with the final max), kept because the
+// fp32 slice is held to the CPU's plain path at 1e-4 and to identical beam
+// tokens.  It does 1.5x the operations as fp32 FMAs from shared memory; fp32
+// is not on the main path.
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace mimic {
 
@@ -95,6 +94,14 @@ extern "C" int mimic_onepass_fwd(const void* q, const void* k, const void* v,
                                  int causal, int need_unmasked, void* stream) {
   mimic::AttnArgs a = mimic::make_args(q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv,
                                        scale, causal, need_unmasked);
-  return static_cast<int>(mimic::dispatch<mimic::OnepassLauncher>(
-      dtype, D, a, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (dtype == 1) {
+    e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/0, st);
+  } else if (dtype == 0 && D == 72) {
+    e = mimic::OnepassLauncher<float, 72>::run(a, st);
+  } else if (dtype == 0 && D == 128) {
+    e = mimic::OnepassLauncher<float, 128>::run(a, st);
+  }
+  return static_cast<int>(e);
 }

@@ -16,8 +16,13 @@ lse [B,T,H] fp32, lse_unmasked [B,T,H] fp32)``.
 Two hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
 
 - ``flash_fwd`` (replaces Pallas ``_kernel``): online softmax over key tiles;
-- ``onepass_fwd`` (replaces Pallas ``_onepass_kernel``): full-row softmax,
-  the row's max and sum final before P·V.
+- ``onepass_fwd`` (replaces Pallas ``_onepass_kernel``): the full-row contract
+  (every key tile is looked at).
+
+For bf16 inputs both are one tensor-core kernel (``csrc/attn_mma.cuh``: wgmma
+products, TMA-fed K/V ring, one sweep with an online softmax) entered with two
+tile-visiting rules; ``attention_tiled_plain`` is its algorithm, tile by tile,
+in plain PyTorch for the CPU tests.  fp32 inputs keep scalar fp32 kernels.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version, ``attention_plain``, only for CPU tensors.  ``LAUNCHES`` counts
@@ -54,6 +59,16 @@ ONEPASS_MAX_S_NONCAUSAL = 8192
 # instantiated for
 KERNEL_HEAD_DIMS = (72, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# the bf16 kernel's tiling: query rows per CTA and per warpgroup; keys per tile
+# by head dim (the library's mimic_attn_fwd_tiling reports the compiled values;
+# tests/test_torch_kernels.py holds the two together on the card)
+TILE_BLOCK_M = 128
+TILE_GROUP_ROWS = 64
+TILE_BLOCK_N = {72: 64, 128: 128}
+
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "onepass_fwd": 0}
 
@@ -106,6 +121,101 @@ def attention_plain(
     return out, lse.contiguous(), lse_u.contiguous()
 
 
+def attention_tiled_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: Optional[torch.Tensor],
+    causal: bool = True,
+    scale: Optional[float] = None,
+    need_unmasked: bool = True,
+    skip_tiles: bool = False,
+) -> Out3:
+    """The bf16 kernel's algorithm, tile by tile, in plain PyTorch (tests only).
+
+    What ``csrc/attn_mma.cuh`` does, at its granularity: a CTA of
+    ``TILE_BLOCK_M`` query rows, warpgroups of ``TILE_GROUP_ROWS`` rows that
+    decide together, key tiles of ``TILE_BLOCK_N[D]`` (64 for other head
+    dims); fp32 scores scaled AFTER the product, an online
+    softmax in the log2 domain, p rounded to v's dtype for P·V with fp32 row
+    sums, ``lse_unmasked`` from the attendable p rescaled plus the masked
+    pairs' own exponentials.  The rules it shares with the kernel:
+
+    - a tile wholly masked or wholly above the warpgroup's causal diagonal is
+      *dead*: its P·V (and, without ``need_unmasked``, its scores) is dropped
+      unless a row of the warpgroup still has no attendable key, where
+      p = exp(NEG - NEG) = 1 on masked keys (such a row stays the mean of v
+      over every key, as in ``attention_plain``);
+    - ``skip_tiles`` (``flash_fwd`` without ``need_unmasked``) ends the sweep
+      at the CTA's causal diagonal and passes over dead tiles unseen: a row
+      with no attendable key then averages the visited tiles only.
+
+    ``onepass_fwd`` is ``skip_tiles=False``; ``flash_fwd`` is
+    ``skip_tiles=not need_unmasked``.
+    """
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    sc = scale if scale is not None else 1.0 / (D**0.5)
+    c = sc * _LOG2E
+    half_neg = 0.5 * NEG
+    block_m, group_rows, block_n = TILE_BLOCK_M, TILE_GROUP_ROWS, TILE_BLOCK_N.get(D, 64)
+    qf = q.float()
+    kf = repeat_kv(k, H // Hkv).float()
+    vf = repeat_kv(v, H // Hkv).float()
+    km = torch.ones(B, S, dtype=torch.bool) if key_mask is None else key_mask != 0
+    out = torch.empty(B, T, H, D, dtype=torch.float32)
+    lse = torch.empty(B, T, H, dtype=torch.float32)
+    lse_u = torch.empty(B, T, H, dtype=torch.float32)
+    for b, h, q0 in ((b, h, q0) for b in range(B) for h in range(H) for q0 in range(0, T, block_m)):
+        ntiles = -(-S // block_n)
+        if skip_tiles and causal:
+            ntiles = min(ntiles, (q0 + block_m - 1) // block_n + 1)
+        for g0 in range(q0, min(q0 + block_m, T), group_rows):
+            rows = torch.arange(g0, min(g0 + group_rows, T))
+            R = rows.numel()
+            m = torch.full((R,), NEG)
+            mu = torch.full((R,), NEG)
+            l, lu, o = torch.zeros(R), torch.zeros(R), torch.zeros(R, D)
+            for k0 in range(0, ntiles * block_n, block_n):
+                cols = torch.arange(k0, min(k0 + block_n, S))  # keys >= S never count
+                dead = (causal and k0 > g0 + group_rows - 1) or not bool(km[b, cols].any())
+                do_pv = True
+                if dead:
+                    if skip_tiles:
+                        continue
+                    do_pv = not bool((m > half_neg).all())
+                    if not need_unmasked and not do_pv:
+                        continue
+                x = (qf[b, rows, h] @ kf[b, cols, h].T) * c  # raw scores, log2 domain
+                mu_new = torch.maximum(mu, x.amax(-1))
+                if not do_pv:  # only lse_u wants this tile
+                    lu = lu * torch.exp2(mu - mu_new) + torch.exp2(x - mu_new[:, None]).sum(-1)
+                    mu = mu_new
+                    continue
+                att = km[b, cols][None, :].expand(R, -1)
+                if causal:
+                    att = att & (cols[None, :] <= rows[:, None])
+                m_new = torch.maximum(m, torch.where(att, x, NEG).amax(-1))
+                p = torch.exp2(torch.where(att, x, NEG) - m_new[:, None])  # masked: 0, or 1
+                alpha = torch.exp2(m - m_new)
+                l = l * alpha + p.sum(-1)
+                if need_unmasked:
+                    own = torch.where(att, 0.0, torch.exp2(x - mu_new[:, None])).sum(-1)
+                    shared = torch.where(att, p, 0.0).sum(-1) * torch.exp2(m_new - mu_new)
+                    lu = lu * torch.exp2(mu - mu_new) + shared + own
+                    mu = mu_new
+                o = o * alpha[:, None] + p.to(v.dtype).float() @ vf[b, cols, h]
+                m = m_new
+            l_safe = l.clamp_min(1e-30)
+            out[b, rows, h] = o / l_safe[:, None]
+            row_lse = torch.where(m > half_neg, (m + torch.log2(l_safe)) * _LN2,
+                                  torch.full_like(m, NEG))
+            lse[b, rows, h] = row_lse
+            lse_u[b, rows, h] = ((mu + torch.log2(lu.clamp_min(1e-30))) * _LN2
+                                 if need_unmasked else row_lse)
+    return out.to(q.dtype), lse, lse_u
+
+
 def _launch(
     name: str,
     q: torch.Tensor,
@@ -141,8 +251,12 @@ def _launch(
         if tuple(key_mask.shape) != (B, S):
             raise ValueError(f"{name}: key_mask shape {tuple(key_mask.shape)} != {(B, S)}")
         km = (key_mask != 0).to(torch.int32).contiguous()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # contiguous and 16-byte aligned: the bf16 kernel reads through TMA descriptors
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.contiguous().clone()
+               for x in (q, k, v))
     sc = scale if scale is not None else 1.0 / (D**0.5)
+    if not sc > 0:  # the kernels order scores before scaling them
+        raise ValueError(f"{name}: scale must be positive, got {sc}")
     out = torch.empty_like(q)
     lse = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     lse_u = torch.empty(B, T, H, dtype=torch.float32, device=dev)

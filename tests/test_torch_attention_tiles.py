@@ -1,0 +1,139 @@
+"""The bf16 attention forward kernel's algorithm, tile by tile, on the CPU.
+
+``attention_tiled_plain`` (mimic_tpu_torch/ops/flash_attention.py) is what
+``csrc/attn_mma.cuh`` computes at its own granularity: CTAs of 128 query rows,
+warpgroups of 64 rows that decide together, key tiles of 64 (head dim 72) or
+128 (head dim 128), scores scaled
+after the product, an online softmax in the log2 domain, bf16-rounded p with
+fp32 row sums, and the two tile-visiting rules (``onepass_fwd``: every tile is
+looked at; ``flash_fwd`` without ``need_unmasked``: the sweep ends at the
+causal diagonal and wholly masked tiles are passed over).  The kernel itself
+runs only on a card (tests/test_torch_kernels.py); here its algorithm is held,
+in fp32, to
+
+- ``attention_plain``, 1e-5, and
+- the JAX package's ``_sdpa_fallback`` (what ``flash_attention`` takes on the
+  CPU for these shapes) and, at aligned shapes, its two Pallas kernels in
+  interpret mode, as tests/test_flash_attention.py runs them:
+
+``lse_unmasked`` on every row whatever is skipped, ``out`` and ``lse`` on rows
+with an attendable key, and ``out`` on every row where every key is looked at;
+rows without an attendable key are finite everywhere.
+"""
+
+import functools
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mimic_tpu_torch.ops import flash_attention as tfa
+from test_torch_kernels import _t, _valid_rows
+
+jfa = importlib.import_module("mimic_tpu.ops.flash_attention")
+
+ATOL = 1e-5  # fp32: summation order, and ln against log2 arithmetic
+JAX_OUT_ATOL = 2e-5  # as tests/test_torch_attention.py holds the plain version to JAX
+
+SHAPES = {"aligned": (256, 256), "ragged": (200, 200), "ragged-t100-s200": (100, 200),
+          "t128-s320": (128, 320)}
+MASKS = ("left-padded", "interior-zero-tiles", "all-ones")
+
+
+def _mask(kind, B, S):
+    km = np.ones((B, S), np.int32)
+    if kind == "left-padded":
+        km[0, :70] = 0  # the first whole key tile and a part of the second
+        km[1, :5] = 0
+    elif kind == "interior-zero-tiles":
+        km[:, 64:192] = 0  # two whole key tiles
+        km[0, 10:13] = 0
+    return km
+
+
+@functools.lru_cache(maxsize=None)
+def _inputs(shape, mask, D):
+    T, S = SHAPES[shape]
+    rng = np.random.default_rng(1000 * T + S + D + MASKS.index(mask))
+    q = rng.normal(size=(2, T, 4, D)).astype(np.float32)
+    k, v = (rng.normal(size=(2, S, 2, D)).astype(np.float32) for _ in range(2))
+    return q, k, v, _mask(mask, 2, S)
+
+
+@functools.lru_cache(maxsize=None)
+def _references(shape, mask, D, causal, need_unmasked):
+    q, k, v, km = _inputs(shape, mask, D)
+    plain = tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                need_unmasked=need_unmasked)
+    jax_ref = jfa._sdpa_fallback(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 jnp.asarray(km), causal, None, need_unmasked)
+    return [x.numpy() for x in plain], [np.asarray(x) for x in jax_ref]
+
+
+def _check(got, want, km, causal, need_unmasked, every_key, out_atol):
+    out, lse, lse_u = (x.numpy() for x in got)
+    T = out.shape[1]
+    valid = _valid_rows(km, T, causal)
+    assert np.isfinite(out).all() and np.isfinite(lse).all() and np.isfinite(lse_u).all()
+    rows = np.ones_like(valid) if every_key else valid
+    np.testing.assert_allclose(out[rows], want[0][rows], atol=out_atol, rtol=0)
+    np.testing.assert_allclose(lse[valid], want[1][valid], atol=ATOL, rtol=0)
+    if need_unmasked:  # over every key < S, whatever the masks and the skipping
+        np.testing.assert_allclose(lse_u, want[2], atol=ATOL, rtol=0)
+    else:
+        np.testing.assert_array_equal(lse_u, lse)
+
+
+@pytest.mark.parametrize("D", [72, 128])
+@pytest.mark.parametrize("shape", list(SHAPES))
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_matches_plain_and_jax(kernel, causal, need_unmasked, mask, shape, D):
+    q, k, v, km = _inputs(shape, mask, D)
+    skip_tiles = kernel == "flash_fwd" and not need_unmasked
+    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
+    plain, jax_ref = _references(shape, mask, D, causal, need_unmasked)
+    _check(got, plain, km, causal, need_unmasked, not skip_tiles, ATOL)
+    _check(got, jax_ref, km, causal, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
+
+
+@pytest.mark.parametrize("D", [72, 128])
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_matches_jax_pallas_kernels(kernel, causal, need_unmasked, D):
+    """Against the Pallas kernel each CUDA kernel replaces, in interpret mode."""
+    q, k, v, km = _inputs("aligned", "left-padded", D)
+    args = [jnp.asarray(x) for x in (q, k, v, km)]
+    if kernel == "onepass_fwd":
+        ref = jfa.onepass_attention(*args, causal=causal, need_unmasked=need_unmasked,
+                                    interpret=True)
+    else:
+        ref = jfa.flash_attention(*args, causal=causal, need_unmasked=need_unmasked,
+                                  block_q=64, block_k=64, interpret=True)
+    skip_tiles = kernel == "flash_fwd" and not need_unmasked
+    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
+    # the JAX online kernel averages only the blocks it visited on rows with no
+    # attendable key, under either flag: compare its out on the other rows
+    _check(got, [np.asarray(x) for x in ref], km, causal, need_unmasked,
+           kernel == "onepass_fwd", JAX_OUT_ATOL)
+
+
+def test_rows_without_keys_follow_each_kernels_rule():
+    q, k, v, km = _inputs("aligned", "left-padded", 72)
+    args = [_t(x) for x in (q, k, v, km)]
+    every = tfa.attention_tiled_plain(*args, causal=True, need_unmasked=False)[0]
+    skipping = tfa.attention_tiled_plain(*args, causal=True, need_unmasked=False,
+                                         skip_tiles=True)[0]
+    # batch 0, row 3: its keys 0..3 are padding
+    np.testing.assert_allclose(every[0, 3, 0].numpy(), v[0, :, 0].mean(0), atol=1e-5)
+    assert torch.isfinite(skipping).all()
+    assert (skipping[0, 3] - every[0, 3]).abs().max() > 1e-3  # the visited tiles only
+    valid = torch.from_numpy(_valid_rows(km, 256, True).copy())
+    assert (skipping[valid] - every[valid]).abs().max() <= 1e-6

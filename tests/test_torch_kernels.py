@@ -23,14 +23,19 @@ from mimic_tpu_torch.ops import flash_attention as tfa
 from mimic_tpu_torch.ops import flash_backward as tfb
 
 
-def make_inputs(B=2, T=128, S=128, H=4, Hkv=2, D=32, seed=0, left_pad=0):
+def make_inputs(B=2, T=128, S=128, H=4, Hkv=2, D=32, seed=0, left_pad=0, zero_spans=None):
+    """``zero_spans``: instead of the default mask, all ones but keys [a, b) of
+    every row (whole key tiles without an attendable key), then ``left_pad``."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, T, H, D)).astype(np.float32)
     k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
     v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
     km = np.ones((B, S), np.int32)
-    km[0, S - S // 5:] = 0       # suffix padding
-    km[-1, 40:44] = 0            # interior PAD separator
+    if zero_spans is None:
+        km[0, S - S // 5:] = 0       # suffix padding
+        km[-1, 40:44] = 0            # interior PAD separator
+    for a, b in zero_spans or ():
+        km[:, a:b] = 0
     if left_pad:
         km[0, :left_pad] = 0     # left-padded prompt: causal rows < left_pad see no key
     return q, k, v, km
@@ -141,12 +146,32 @@ def cuda_device():
 
 
 KERNEL_CASES = [
-    # (kernel, B, T, S, H, Hkv, D, causal, need_unmasked, left_pad)
+    # (kernel, B, T, S, H, Hkv, D, causal, need_unmasked, left_pad[, zero key spans])
     ("onepass_fwd", 1, 256, 640, 4, 4, 72, False, False, 0),
     ("onepass_fwd", 2, 256, 256, 8, 2, 128, True, True, 20),
     ("flash_fwd", 1, 640, 640, 8, 2, 128, True, True, 20),
     ("flash_fwd", 2, 1000, 1000, 4, 4, 72, False, True, 0),
     ("flash_fwd", 2, 300, 300, 8, 2, 128, True, False, 10),
+    # the tensor-core kernel's tiles (128 query rows per CTA, 64 per warpgroup, 64 keys):
+    # the first key tiles fully masked (left padding past whole tiles)
+    ("flash_fwd", 2, 512, 512, 8, 2, 128, True, True, 200),
+    ("onepass_fwd", 2, 384, 384, 4, 4, 72, False, False, 130),
+    # interior key tiles fully masked, under each tile-visiting rule
+    ("onepass_fwd", 2, 512, 512, 4, 4, 72, False, False, 0, ((128, 330), (400, 470))),
+    ("flash_fwd", 2, 500, 500, 8, 2, 128, True, False, 0, ((128, 330),)),
+    ("flash_fwd", 2, 500, 500, 8, 2, 128, True, True, 0, ((0, 70), (128, 330))),
+    # T != S
+    ("onepass_fwd", 2, 512, 640, 4, 4, 72, False, False, 0),
+    ("flash_fwd", 1, 200, 333, 8, 2, 128, False, True, 0),
+    ("flash_fwd", 2, 100, 200, 4, 4, 72, True, True, 20),
+    # the train step's record pass
+    ("onepass_fwd", 2, 2048, 2048, 8, 2, 128, True, True, 300),
+    # D72 with S not a multiple of the key tile, and T not of the query tile
+    ("onepass_fwd", 1, 1000, 1000, 4, 4, 72, False, False, 0),
+    ("flash_fwd", 2, 130, 70, 4, 4, 72, False, False, 0),
+    # D72 under the causal mask, with and without lse_u
+    ("onepass_fwd", 2, 500, 500, 4, 4, 72, True, False, 77),
+    ("flash_fwd", 2, 500, 500, 4, 4, 72, True, True, 150),
 ]
 
 
@@ -154,8 +179,9 @@ KERNEL_CASES = [
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", KERNEL_CASES)
 def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
-    name, B, T, S, H, Hkv, D, causal, need_unmasked, left_pad = case
-    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=D, left_pad=left_pad, seed=T)
+    name, B, T, S, H, Hkv, D, causal, need_unmasked, left_pad = case[:10]
+    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=D, left_pad=left_pad, seed=T,
+                              zero_spans=case[10] if len(case) > 10 else None)
     dt = getattr(torch, dtype)
     args = [_t(x).to(cuda_device, dt) for x in (q, k, v)] + [_t(km).to(cuda_device)]
     before = tfa.LAUNCHES[name]
@@ -168,6 +194,18 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
     # lse is fp32 from identical bf16 inputs, differing in summation order
     atol_out, atol_lse = (2e-5, 1e-5) if dtype == "float32" else (3e-2, 2e-3)
     every_key = name == "onepass_fwd" or need_unmasked
+    if dtype == "bfloat16":
+        # |out| depends on the shape (many attendable keys average v down): hold it to
+        # one bf16 rounding step (2^-7) at its own largest reference value, each row to
+        # two steps at the row's largest, and its rms error to 2^-7 of the reference's
+        # rms (a bf16 rounding is 2^-9 / sqrt(3) in rms)
+        sel = (lambda x: x.float()) if every_key else (lambda x: x.float()[valid])
+        ref, diff = sel(want[0]), sel(got[0]) - sel(want[0])
+        atol_out = min(atol_out, 2.0 ** -7 * ref.abs().max().item() + 1e-4)
+        rel_rms = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+        assert rel_rms <= 2.0 ** -7, rel_rms
+        row_ratio = (diff.abs().amax(-1) / (ref.abs().amax(-1) + 1e-4)).max().item()
+        assert row_ratio <= 2.0 ** -6, row_ratio
     checks = [
         (got[0], want[0], None if every_key else valid, atol_out),
         (got[1], want[1], valid, atol_lse),
@@ -178,6 +216,23 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
         diff = (a.float() - b.float()).abs()
         diff = diff if rows is None else diff[rows]
         assert diff.max().item() <= atol, (diff.max().item(), atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [72, 128])
+def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
+    """attention_tiled_plain (the CPU tests' model of the bf16 forward) and the
+    compiled kernel name the same tiling."""
+    import ctypes
+
+    from mimic_tpu_torch.ops import _build
+
+    block_m, group_rows, block_n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _build.load_library().mimic_attn_fwd_tiling(
+        D, ctypes.byref(block_m), ctypes.byref(group_rows), ctypes.byref(block_n))
+    assert rc == 0
+    assert (block_m.value, group_rows.value, block_n.value) == (
+        tfa.TILE_BLOCK_M, tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
 
 
 # (B, T, S, H, Hkv, causal, need_unmasked, left_pad); head dim 128
