@@ -53,7 +53,10 @@ Phases (any failure propagates: non-zero exit, no result line):
 6. int8 kernels — int8_matmul, fused_mlp_int8 and prompt_attn_int8 against their
              plain versions on the card, bf16, at the decode shapes of the int8
              serving path (phase 2's rules: max error against stated tolerances,
-             both times from CUDA events).
+             both times from CUDA events), a second launch bit-identical; beside
+             each int8 product the bf16 torch.matmul it stands in for (a
+             yardstick of the mode, never called by the port); qdot's cut-off:
+             int8_matmul against dequantize + bf16 torch.matmul for M 16-512.
 7. tiny int8 — phase 3's tiny idefics2 (text width 128) with quant="int8" and a
              MimIC shift: beam-3 tokens on the card identical to the CPU's,
              prefill and first-decode-step logits within 1e-4, exact int8 kernel
@@ -98,6 +101,9 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
+    python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, then the HMMA
+                                             # opcodes of the int8 kernels' SASS: exit 3, no result line
+    python3 chip_smoke.py --int8-only DIR    # the same on the kernels of the checkout in DIR (no SASS)
 """
 
 from __future__ import annotations
@@ -247,10 +253,27 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, graph: bool = False) -> float:
+    """ms per call of ``fn`` by CUDA events over ``reps`` calls after a warm-up.
+    ``graph``: the calls are captured once into a CUDA graph and the graph is
+    timed, so the host's time per call (Python, the wrappers' checks, the
+    launch) is left out: the device time of the work alone."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        del g
+        return start.elapsed_time(end) / reps
     start.record()
     for _ in range(reps):
         fn()
@@ -429,9 +452,9 @@ def phase_kernels():
     return summary
 
 
-def sass_counts(library: str) -> None:
-    """HGMMA (wgmma) and UTMALDG (TMA load) opcodes counted in each instantiation
-    of the tensor-core attention forward, from ``cuobjdump -sass``."""
+def sass_counts(library: str, kernels, ops, instantiations: int) -> None:
+    """Opcodes ``ops`` counted in each instantiation of the kernels whose name
+    holds one of ``kernels``, from ``cuobjdump -sass``; each must occur."""
     from mimic_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -441,16 +464,28 @@ def sass_counts(library: str) -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-        elif fn is not None and "attn_fwd_mma_kernel" in fn:
-            c = counts.setdefault(fn, {"HGMMA": 0, "UTMALDG": 0})
+        elif fn is not None and any(k in fn for k in kernels):
+            c = counts.setdefault(fn, dict.fromkeys(ops, 0))
             for op in c:
                 c[op] += f" {op}" in line
-    if len(counts) != 4:
-        raise AssertionError(f"expected 4 instantiations of attn_fwd_mma_kernel: {list(counts)}")
+    if len(counts) != instantiations:
+        raise AssertionError(f"expected {instantiations} instantiations of {kernels}: {list(counts)}")
     for fn, c in sorted(counts.items()):
-        log(f"[sass] {fn}: HGMMA {c['HGMMA']}, UTMALDG {c['UTMALDG']}")
+        log(f"[sass] {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
         if min(c.values()) == 0:
-            raise AssertionError(f"{fn}: no tensor-core or no TMA opcode in its SASS")
+            raise AssertionError(f"{fn}: an opcode of {ops} is missing from its SASS")
+
+
+def ptxas_lines(info: dict, kernels) -> None:
+    """What ``-Xptxas=-v`` said of the registers, spills and shared memory of
+    the kernels whose mangled name holds one of ``kernels``."""
+    lines = info["ptxas"].splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and any(k in line for k in kernels):
+            log("[build] " + " | ".join(x.replace("ptxas info    :", "").strip()
+                                        for x in lines[i:i + 4]))
+        if "Performance Loss" in line:  # e.g. wgmma serialized for want of registers
+            log("[build] " + line)
 
 
 def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked, reps):
@@ -705,37 +740,71 @@ def synthetic_text(seed: int, n_chars: int) -> str:
     return "".join(parts)[:n_chars]
 
 
+# device seconds by kernel group of each profile_run, by its label
+PROFILES = {}
+
+
+def kernel_group(key: str) -> str:
+    k = key.lower()
+    # int8_matmul_kernel / int8_matmul_mma_kernel; fused_mlp_kernel and the
+    # bf16 path's fused_mlp_gateup_kernel / fused_mlp_down_kernel
+    return ("attention backward kernels" if "flash_bwd" in key
+            else "attention forward kernels" if "mimic::" in key
+            else "int8_matmul" if "int8_matmul" in key
+            else "fused_mlp" if "fused_mlp" in key
+            else "prompt_attn" if "prompt_attn" in key
+            else "int8 split-K reduce" if "splitk_reduce" in key
+            else "matmuls" if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass"))
+            else "other")
+
+
+def covered_us(spans) -> float:
+    """Length of the union of (start, end) spans: device time during which at
+    least one of the kernels ran.  A sum of kernel durations counts twice what
+    overlaps (a programmatic dependent launch starts before its predecessor
+    ends)."""
+    total, cur = 0.0, None
+    for start, end in sorted(spans):
+        if cur is None or start > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
 def profile_run(label, run):
-    """One run under torch.profiler: device time by kernel group, the device's
-    busy share of the wall time, and the top kernels.  ``run()`` returns its
-    synchronised wall seconds."""
+    """One run under torch.profiler: device time by kernel group (sums of
+    kernel durations), the device's busy time (the union of the kernels'
+    spans) and share of the wall time, and the top kernels; kept in PROFILES,
+    with the union of each group's spans under "covered".  ``run()`` returns
+    its synchronised wall seconds."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs = run()
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     us = {e.key: e.self_device_time_total for e in kernels}
-    total = sum(us.values())
-    if total == 0:
+    if sum(us.values()) == 0:
         log(f"[profile] {label}: the profiler recorded no device time")
         return
-    groups = {"attention forward kernels": 0.0, "attention backward kernels": 0.0,
-              "int8_matmul": 0.0, "fused_mlp": 0.0, "prompt_attn": 0.0,
-              "int8 split-K reduce": 0.0, "matmuls": 0.0, "other": 0.0}
+    groups = dict.fromkeys(("attention forward kernels", "attention backward kernels",
+                            "int8_matmul", "fused_mlp", "prompt_attn", "int8 split-K reduce",
+                            "matmuls", "other"), 0.0)
     for key, t in us.items():
-        k = key.lower()
-        group = ("attention backward kernels" if "flash_bwd" in key
-                 else "attention forward kernels" if "mimic::" in key
-                 else "int8_matmul" if "int8_matmul_kernel" in key
-                 else "fused_mlp" if "fused_mlp_kernel" in key
-                 else "prompt_attn" if "prompt_attn" in key
-                 else "int8 split-K reduce" if "splitk_reduce" in key
-                 else "matmuls" if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass"))
-                 else "other")
-        groups[group] += t
+        groups[kernel_group(key)] += t
+    spans = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            spans.setdefault(kernel_group(e.name), []).append((e.time_range.start,
+                                                               e.time_range.end))
+    busy = covered_us([x for v in spans.values() for x in v])
+    PROFILES[label] = {**{g: t / 1e6 for g, t in groups.items()},
+                       "covered": {g: covered_us(v) / 1e6 for g, v in spans.items()}}
     log(f"[profile] {label}: {secs:.3f} s wall under the profiler, device busy "
-        f"{total / 1e6:.3f} s ({total / 1e6 / secs:.1%}); "
-        + ", ".join(f"{g} {t / 1e6:.3f} s" for g, t in groups.items()))
+        f"{busy / 1e6:.3f} s ({busy / 1e6 / secs:.1%}; kernel durations sum to "
+        f"{sum(us.values()) / 1e6:.3f} s); " + ", ".join(f"{g} {t / 1e6:.3f} s"
+                                                        for g, t in groups.items()))
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x {e.key[:110]}")
 
@@ -1062,22 +1131,27 @@ def _int8_weight(gen, shape, scale_base):
     return wq, scale
 
 
-def cold_ms(fn, layers, reps):
+def cold_ms(fn, layers, reps, graph=False):
     """``cuda_ms`` of ``fn(layer)`` with the layer cycling through a stack larger
     than the card's 50 MB L2 cache, so every launch reads its weights from HBM
     as a decode step does (one layer's weights fit in L2)."""
     order = itertools.cycle(range(layers))
-    return cuda_ms(lambda: fn(next(order)), reps)
+    return cuda_ms(lambda: fn(next(order)), reps, graph)
 
 
 def check_int8(label, kernel, plain, layers, layer, reps, fields=None):
     """``kernel(layer)`` against ``plain(layer)``: every output within
     TOL_INT8_REL of its max |reference| (``fields`` named "m": TOL_INT8_M
-    absolute); then both timed cold.  Returns (per-field max abs err, ms, plain ms)."""
-    got, want = kernel(layer), plain(layer)
+    absolute), a second launch bit-identical; then both timed cold, as device
+    time (CUDA graphs: at decode sizes a launch from Python takes longer than
+    the kernel).  Returns (per-field max abs err, ms, plain ms)."""
+    got, want, again = kernel(layer), plain(layer), kernel(layer)
     torch.cuda.synchronize()
     if isinstance(got, torch.Tensor):
-        got, want = (got,), (want,)
+        got, want, again = (got,), (want,), (again,)
+    if not all(torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+               for a, b in zip(got, again)):
+        raise AssertionError(f"{label}: two launches on the same inputs gave different bits")
     errs = {}
     for field, a, b in zip(fields or ("out",), got, want):
         if a.shape != b.shape or a.dtype != b.dtype or not torch.isfinite(a).all():
@@ -1086,7 +1160,7 @@ def check_int8(label, kernel, plain, layers, layer, reps, fields=None):
         tol = TOL_INT8_M if field == "m" else TOL_INT8_REL * b.float().abs().max().item()
         if errs[field] > tol:
             raise AssertionError(f"{label}: {field} max abs err {errs[field]} > {tol}")
-    return errs, cold_ms(kernel, layers, reps), cold_ms(plain, layers, reps)
+    return errs, cold_ms(kernel, layers, reps, True), cold_ms(plain, layers, reps, True)
 
 
 def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
@@ -1107,13 +1181,22 @@ def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
         kernel = lambda l: tq.int8_matmul_stacked(x, wq, scale, l)
         plain = lambda l: tq.int8_matmul_plain(x, wq[l], scale[l])
     errs, ms, plain_ms = check_int8(label, kernel, plain, max(layers, 1), layer, reps)
+    host_ms = cold_ms(kernel, max(layers, 1), reps)
     n_out = n_real or N
     b = bound(nbytes(x) + K * n_out + 4 * n_out + M * n_out * (4 if n_real else 2),
               2 * M * K * n_out, "bf16")
     log(f"[int8] {label}: int8_matmul M{M} K{K} N{n_out}"
         f"{f' layer {layer} of {layers}' if layers else ''}: max abs err {errs['out']:.3e} "
-        f"(tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"{bound_text(b)}; no PyTorch call multiplies bf16 rows by int8 weights")
+        f"(tol {TOL_INT8_REL} x max |ref|), two launches bit-identical; kernel {ms:.4f} ms "
+        f"({b['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} ms, {bound_text(b)}; "
+        f"no PyTorch call multiplies bf16 rows by int8 weights")
+    # the product the int8 mode replaces: torch.matmul on the same weights in bf16
+    wb = (wq[:, :n_real] if n_real else wq).to(torch.bfloat16).contiguous()
+    del wq
+    bf16_ms = cold_ms(lambda l: x @ (wb[l] if layers else wb), max(layers, 1), reps, True)
+    log(f"[int8] {label}: yardstick, bf16 torch.matmul on a bf16 copy of the weights "
+        f"{bf16_ms:.4f} ms (kernel / bf16 {ms / bf16_ms:.2f}); the kernel launched from Python "
+        f"call by call {host_ms:.4f} ms")
     return {"name": "int8_matmul", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
@@ -1126,13 +1209,25 @@ def check_fused_mlp(label, seed, M, D, F, reps):
     gu, gs = _int8_weight(gen, (layers, D, 2 * F), 4e-4)
     dn, ds = _int8_weight(gen, (layers, F, D), 1e-4)
     x = torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16)
+    kernel = lambda l: tq.fused_mlp_stacked(x, gu, gs, dn, ds, l)
     errs, ms, plain_ms = check_int8(
-        label, lambda l: tq.fused_mlp_stacked(x, gu, gs, dn, ds, l),
-        lambda l: tq.fused_mlp_plain(x, gu[l], gs[l], dn[l], ds[l]), layers, layer, reps)
+        label, kernel, lambda l: tq.fused_mlp_plain(x, gu[l], gs[l], dn[l], ds[l]), layers, layer,
+        reps)
+    host_ms = cold_ms(kernel, layers, reps)
     b = bound(2 * nbytes(x) + nbytes(gu[0], gs[0], dn[0], ds[0]), 2 * M * D * 3 * F, "bf16")
     log(f"[int8] {label}: fused_mlp_int8 M{M} D{D} F{F} layer {layer} of {layers}: max abs err "
-        f"{errs['out']:.3e} (tol {TOL_INT8_REL} x max |ref|); kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, {bound_text(b)}; no PyTorch call fuses an int8 MLP")
+        f"{errs['out']:.3e} (tol {TOL_INT8_REL} x max |ref|), two launches bit-identical; "
+        f"kernel {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+        f"{bound_text(b)}; no PyTorch call fuses an int8 MLP")
+    # the bf16 MLP the int8 mode replaces: three torch.matmul and silu * u
+    g, u = (gu[:, :, i * F:(i + 1) * F].to(torch.bfloat16).contiguous() for i in range(2))
+    d = dn.to(torch.bfloat16)
+    del gu, dn
+    silu = torch.nn.functional.silu
+    bf16_ms = cold_ms(lambda l: (silu(x @ g[l]) * (x @ u[l])) @ d[l], layers, reps, True)
+    log(f"[int8] {label}: yardstick, the bf16 MLP (three torch.matmul and silu * u) on bf16 "
+        f"copies of the weights {bf16_ms:.4f} ms (kernel / bf16 {ms / bf16_ms:.2f}); the kernel "
+        f"launched from Python call by call {host_ms:.4f} ms")
     return {"name": "fused_mlp_int8", "max_abs_err": errs["out"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
@@ -1170,6 +1265,74 @@ def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
     return {"name": "prompt_attn_int8", "max_abs_err": max(errs.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None}
+
+
+# the tensor-core kernels of the bf16 int8 path (csrc/int8_mma.cuh), by name
+INT8_MMA_KERNELS = ("int8_matmul_mma_kernel", "fused_mlp_gateup_kernel", "fused_mlp_down_kernel")
+
+
+def int8_crossover():
+    """qdot's cut-off between int8_matmul and a dequantized bf16 torch.matmul
+    (its path from KERNEL_MAX_M rows on): both at the q/k/v shape (K 4096, N
+    6144, a 32-layer stack cycled as cold_ms does) for M from 16 to 512."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    wq, scale = _int8_weight(gen, (32, 4096, 6144), 4e-4)
+    for M in (16, 32, 64, 128, 255, 384, 512):
+        x = torch.randn(M, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+        kernel = cold_ms(lambda l: tq.int8_matmul_stacked(x, wq, scale, l), 32, 32, True)
+        deq = cold_ms(lambda l: x @ tq.dequantize(
+            {"q8": wq, "scale": scale, "layer": l}).to(torch.bfloat16), 32, 32, True)
+        log(f"[int8] qdot cut-off, q/k/v M{M}: int8_matmul {kernel:.4f} ms, dequantize + bf16 "
+            f"torch.matmul {deq:.4f} ms ({'kernel' if kernel < deq else 'dequantize'} faster)")
+
+
+def int8_split_sweep():
+    """The bf16 tensor-core kernels at call A's decode shapes (M 12) under every
+    K split, launched straight through the library with the split given, so
+    that mma_plan's choice (marked) can be read against the others."""
+    from mimic_tpu_torch.ops import _build
+    from mimic_tpu_torch.ops import quant as tq
+
+    lib, gen = _build.load_library(), torch.Generator(device="cuda").manual_seed(30)
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    M, D, F = 12, 4096, 14336
+    x = torch.randn(M, D, generator=gen, device="cuda").to(torch.bfloat16)
+    for label, N, layers in (("qkv", 6144, 32), ("o", 4096, 32), ("lm head", 32128, 1)):
+        wq, scale = _int8_weight(gen, (layers, D, N), 4e-4)
+        out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+        plan = tq.mma_plan(M, D, N // tq.MMA_BLOCK_N, sms)
+        times = {}
+        for ks in tq.MMA_SPLITS:
+            def run(l, ks=ks):
+                err = lib.mimic_int8_matmul_mma(x.data_ptr(), D, wq[l].data_ptr(), scale[l].data_ptr(),
+                                                out.data_ptr(), M, D, N, ks, 1, stream())
+                assert err == 0, err
+            times[ks] = cold_ms(run, layers, 32, True)
+        log(f"[int8] split sweep, int8_matmul {label} M{M} N{N}: " + ", ".join(
+            f"ksplit {ks} {t:.4f} ms{' (plan)' if ks == plan else ''}" for ks, t in times.items()))
+        del wq, scale
+    gu, gs = _int8_weight(gen, (4, D, 2 * F), 4e-4)
+    dn, ds = _int8_weight(gen, (4, F, D), 1e-4)
+    h = torch.empty(M, F, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty(M, D, dtype=torch.bfloat16, device="cuda")
+    plan = (tq.mma_plan(M, D, F // 64, sms), tq.mma_plan(M, F, D // tq.MMA_BLOCK_N, sms))
+    for which in range(2):
+        times = {}
+        for ks in tq.MMA_SPLITS:
+            splits = (ks, plan[1]) if which == 0 else (plan[0], ks)
+            def run(l, splits=splits):
+                err = lib.mimic_fused_mlp_int8_mma(
+                    x.data_ptr(), gu[l].data_ptr(), gs[l].data_ptr(), dn[l].data_ptr(),
+                    ds[l].data_ptr(), h.data_ptr(), out.data_ptr(), M, D, F, *splits, 1, stream())
+                assert err == 0, err
+            times[ks] = cold_ms(run, 4, 16, True)
+        log(f"[int8] split sweep, fused_mlp_int8 M{M}, the {('gate/up', 'down')[which]} product's "
+            f"split (the other's {plan[1 - which]}): " + ", ".join(
+                f"ksplit {ks} {t:.4f} ms{' (plan)' if ks == plan[which] else ''}"
+                for ks, t in times.items()))
 
 
 def phase_int8_kernels():
@@ -1428,6 +1591,17 @@ def phase_int8_8b(runner):
     for name in calls:
         counted(name, "int8, shift", want)
     profile_run("int8 call A", lambda: timed_generate(runner, calls, "A")[1])
+    # "int8" prefills with the bf16 tree and decodes with the int8 one, so the
+    # bf16 call's cuBLAS time less this call's is what bf16 spends on the decode
+    if "call A" in PROFILES and "int8 call A" in PROFILES:
+        bf, q = PROFILES["call A"], PROFILES["int8 call A"]
+        cov = q["covered"]
+        log(f"[int8] call A decode matmuls: int8 kernels busy {cov.get('int8_matmul', 0) + cov.get('fused_mlp', 0):.4f} s "
+            f"of device time (int8_matmul {cov.get('int8_matmul', 0):.4f}, fused_mlp "
+            f"{cov.get('fused_mlp', 0):.4f}; their kernel durations sum to "
+            f"{q['int8_matmul'] + q['fused_mlp'] + q['int8 split-K reduce']:.4f}) against bf16 "
+            f"cuBLAS {bf['matmuls'] - q['matmuls']:.4f} s (bf16 call A {bf['matmuls']:.4f} s of "
+            f"matmuls, 'int8' call A {q['matmuls']:.4f} s)")
 
     batch = batch_of("A")
     deq = dequantized_tree(runner.decode_params)
@@ -1607,7 +1781,7 @@ def qdot_w8a8_plain(x, w, preferred_element_type=None):
     from mimic_tpu_torch.ops import quant as tq
 
     xm = x.reshape(-1, x.shape[-1])
-    if not (tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.KERNEL_MAX_M):
+    if not (tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.W8A8_MIN_M):
         return tq.qdot(x, w, preferred_element_type)
     wq, scale, layer = w["q8"], w["scale"], w.get("layer")
     n = scale.shape[-1]
@@ -1877,7 +2051,7 @@ def phase_eval_w8a8(ckpt, trained_shift, result_dir):
     def spy_qdot(x, w, preferred_element_type=None):
         out = orig_qdot(x, w, preferred_element_type)
         xm = x.reshape(-1, x.shape[-1])
-        if tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.KERNEL_MAX_M:
+        if tq.is_quantized(w) and "a8" in w and xm.shape[0] >= tq.W8A8_MIN_M:
             ref = (xm @ tq.dequantize(w).to(x.dtype)).float()
             got = out.reshape(ref.shape).float()
             xf = xm.float()
@@ -1969,7 +2143,16 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    other = None
+    if sys.argv[1:2] == ["--int8-only"] and len(sys.argv) == 3:
+        # phase 6 on another checkout's kernels (e.g. the parent commit's,
+        # unpacked with git archive), measured as this script measures
+        other = os.path.abspath(sys.argv[2])
+        sys.path.insert(0, other)
     from mimic_tpu_torch.ops import _build
+
+    if other is not None and not _build.__file__.startswith(other):
+        raise AssertionError(f"{_build.__file__} is not under {other}")
 
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} card(s)")
@@ -1980,21 +2163,26 @@ def main() -> int:
     log(f"[build] {info['command'] or 'cached: ' + info['path']}")
     log(f"[build] nvcc for sm_90a: {info['seconds']:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s in all; library {os.path.relpath(info['path'], ROOT)}")
-    # registers, spills and shared memory of the tensor-core attention forward
-    lines = info["ptxas"].splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "attn_fwd_mma" in line:
-            log("[build] " + " | ".join(x.replace("ptxas info    :", "").strip()
-                                        for x in lines[i:i + 4]))
-        if "Performance Loss" in line:  # e.g. wgmma serialized for want of registers
-            log("[build] " + line)
+    # registers, spills and shared memory of the tensor-core kernels
+    ptxas_lines(info, ("attn_fwd_mma", "int8_matmul", "fused_mlp"))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:
         phase_kernels()
-        sass_counts(info["path"])
+        sass_counts(info["path"], ("attn_fwd_mma_kernel",), ("HGMMA", "UTMALDG"), 4)
         log("[card] partial run (--attention-only): phase 2's forward kernels passed; "
             "no result line")
+        return 3
+
+    if sys.argv[1:2] == ["--int8-only"]:
+        phase_int8_kernels()
+        int8_crossover()
+        if other is None:
+            int8_split_sweep()
+            # int8_matmul and the MLP's two products, for one and two n8 operands
+            sass_counts(info["path"], INT8_MMA_KERNELS, ("HMMA",), 6)
+        log(f"[card] partial run (--int8-only{'' if other is None else ' ' + other}): phase 6's "
+            "int8 kernels passed; no result line")
         return 3
 
     if sys.argv[1:] == ["--eval-only"]:
@@ -2011,6 +2199,7 @@ def main() -> int:
     summary = phase_kernels()
     summary.update(phase_backward_kernels())
     summary.update(phase_int8_kernels())
+    int8_crossover()
     summary.update(phase_w8a8_kernels())
     phase_tiny_reference()
     phase_tiny_train()

@@ -31,7 +31,8 @@ SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
     "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
 )
-HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "int8_common.cuh")
+HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "int8_common.cuh",
+           "int8_mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -130,12 +131,18 @@ def load_library() -> ctypes.CDLL:
     lib.mimic_flash_bwd_dkv.restype = i
     lib.mimic_int8_matmul_ksplit.argtypes = [i, i, i]
     lib.mimic_int8_matmul_ksplit.restype = i
-    # x, w, scale, work, out, M, K, N, ksplit, dtype, out_dtype, stream
-    lib.mimic_int8_matmul.argtypes = [p] * 5 + [i] * 6 + [p]
+    # x, w, scale, work, out, M, K, N, ksplit, out_dtype, stream
+    lib.mimic_int8_matmul.argtypes = [p] * 5 + [i] * 5 + [p]
     lib.mimic_int8_matmul.restype = i
-    # xn, gu, gu_scale, down, down_scale, work, out, M, D, F, dtype, out_dtype, stream
-    lib.mimic_fused_mlp_int8.argtypes = [p] * 7 + [i] * 5 + [p]
+    # x, ldx, w, scale, out, M, K, N, ksplit, out_dtype, stream
+    lib.mimic_int8_matmul_mma.argtypes = [p, i, p, p, p] + [i] * 5 + [p]
+    lib.mimic_int8_matmul_mma.restype = i
+    # xn, gu, gu_scale, down, down_scale, work, out, M, D, F, out_dtype, stream
+    lib.mimic_fused_mlp_int8.argtypes = [p] * 7 + [i] * 4 + [p]
     lib.mimic_fused_mlp_int8.restype = i
+    # xn, gu, gu_scale, down, down_scale, h, out, M, D, F, ks_gu, ks_down, out_dtype, stream
+    lib.mimic_fused_mlp_int8_mma.argtypes = [p] * 7 + [i] * 6 + [p]
+    lib.mimic_fused_mlp_int8_mma.restype = i
     # q, k8, ks, v8, vs, mask, work, o, m, l, B0, Hkv, M, Sp, dtype, stream
     lib.mimic_prompt_attn_int8.argtypes = [p] * 10 + [i] * 5 + [p]
     lib.mimic_prompt_attn_int8.restype = i

@@ -1,6 +1,7 @@
 // Shared pieces of the int8 kernels (int8_matmul.cu, fused_mlp_int8.cu, prompt_attn_int8.cu).
 //
-// The decode-M weight product.  A CTA of NT = 256 threads owns BN = 128 output
+// The decode-M weight product of fp32 activations (bf16 activations take the
+// tensor-core product of int8_mma.cuh).  A CTA of NT = 256 threads owns BN = 128 output
 // columns and up to MB <= 16 activation rows, and walks a range of the
 // contraction axis in tiles of KT = 64 weight rows:
 //
@@ -11,7 +12,7 @@
 //     the other is multiplied;
 //   - warp w takes rows 8w..8w+7 of each tile, lane t columns 4t..4t+3: one
 //     32-bit shared load gives its four int8 weights, converted to fp32 in
-//     registers (int8 and bf16 values are exact in fp32), and each float4 of
+//     registers (int8 values are exact in fp32), and each float4 of
 //     activations (a broadcast) feeds 16 fused multiply-adds into acc[MB][4];
 //   - after the loop the eight warps' sums are added in shared memory in warp
 //     order (reduce_warps): no atomics, so every run gives the same bits.
@@ -82,8 +83,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 // x: [M, ldx] row-major activations.  wrow(k, c) gives the address of the 16
 // weight bytes of row k for the tile's 16-byte chunk c (0..7), or nullptr for
 // columns beyond the edge (read as zero).
-template <typename T, int MB, class WRow>
-__device__ __forceinline__ void accumulate(const T* x, int ldx, int M, int m0, int k_begin,
+template <int MB, class WRow>
+__device__ __forceinline__ void accumulate(const float* x, int ldx, int M, int m0, int k_begin,
                                            int k_end, const WRow& wrow, int8_t (*Ws)[BN],
                                            float (*Xs)[MB_MAX], float (&acc)[MB][4]) {
   static_assert(MB % 4 == 0 && MB <= MB_MAX, "MB must be 4, 8 or 16");
@@ -102,7 +103,7 @@ __device__ __forceinline__ void accumulate(const T* x, int ldx, int M, int m0, i
 #pragma unroll
     for (int e = 0; e < XE; ++e) {
       const int i = tid + NT * e, m = i / KT, k = k0 + i % KT;
-      xreg[e] = (m0 + m < M && k < k_end) ? to_f(x[static_cast<size_t>(m0 + m) * ldx + k]) : 0.f;
+      xreg[e] = (m0 + m < M && k < k_end) ? x[static_cast<size_t>(m0 + m) * ldx + k] : 0.f;
     }
   };
 

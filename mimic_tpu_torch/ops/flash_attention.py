@@ -152,6 +152,10 @@ def attention_tiled_plain(
 
     ``onepass_fwd`` is ``skip_tiles=False``; ``flash_fwd`` is
     ``skip_tiles=not need_unmasked``.
+
+    All batches and heads move together: a tile's decisions (dead per batch,
+    P·V dropped per batch and head) are masks over ``[B, H]`` that pick, per
+    warpgroup, between the updated and the kept running state.
     """
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -159,61 +163,65 @@ def attention_tiled_plain(
     c = sc * _LOG2E
     half_neg = 0.5 * NEG
     block_m, group_rows, block_n = TILE_BLOCK_M, TILE_GROUP_ROWS, TILE_BLOCK_N.get(D, 64)
-    qf = q.float()
-    kf = repeat_kv(k, H // Hkv).float()
-    vf = repeat_kv(v, H // Hkv).float()
+    qf = q.float().transpose(1, 2)                          # [B, H, T, D]
+    kf = repeat_kv(k, H // Hkv).float().transpose(1, 2)     # [B, H, S, D]
+    vf = repeat_kv(v, H // Hkv).float().transpose(1, 2)
     km = torch.ones(B, S, dtype=torch.bool) if key_mask is None else key_mask != 0
-    out = torch.empty(B, T, H, D, dtype=torch.float32)
-    lse = torch.empty(B, T, H, dtype=torch.float32)
-    lse_u = torch.empty(B, T, H, dtype=torch.float32)
-    for b, h, q0 in ((b, h, q0) for b in range(B) for h in range(H) for q0 in range(0, T, block_m)):
+    out = torch.empty(B, H, T, D, dtype=torch.float32)
+    lse = torch.empty(B, H, T, dtype=torch.float32)
+    lse_u = torch.empty(B, H, T, dtype=torch.float32)
+    where = torch.where
+    for q0 in range(0, T, block_m):
         ntiles = -(-S // block_n)
         if skip_tiles and causal:
             ntiles = min(ntiles, (q0 + block_m - 1) // block_n + 1)
         for g0 in range(q0, min(q0 + block_m, T), group_rows):
             rows = torch.arange(g0, min(g0 + group_rows, T))
             R = rows.numel()
-            m = torch.full((R,), NEG)
-            mu = torch.full((R,), NEG)
-            l, lu, o = torch.zeros(R), torch.zeros(R), torch.zeros(R, D)
+            m = torch.full((B, H, R), NEG)
+            mu = torch.full((B, H, R), NEG)
+            l, lu, o = torch.zeros(B, H, R), torch.zeros(B, H, R), torch.zeros(B, H, R, D)
             for k0 in range(0, ntiles * block_n, block_n):
                 cols = torch.arange(k0, min(k0 + block_n, S))  # keys >= S never count
-                dead = (causal and k0 > g0 + group_rows - 1) or not bool(km[b, cols].any())
-                do_pv = True
-                if dead:
-                    if skip_tiles:
-                        continue
-                    do_pv = not bool((m > half_neg).all())
-                    if not need_unmasked and not do_pv:
-                        continue
-                x = (qf[b, rows, h] @ kf[b, cols, h].T) * c  # raw scores, log2 domain
+                dead = ~km[:, cols].any(-1)[:, None].expand(B, H)            # [B, H]
+                if causal and k0 > g0 + group_rows - 1:
+                    dead = torch.ones_like(dead)
+                # P·V wanted: a live tile, or a row of the warpgroup still without a key
+                do_pv = ~dead | ~(m > half_neg).all(-1)
+                skip = dead if skip_tiles else torch.zeros_like(dead)
+                upd_pv = (~skip & do_pv)[..., None]                          # [B, H, 1]
+                upd_lu = (~skip & need_unmasked)[..., None]  # (under upd_pv)
+                x = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * c  # log2 domain
                 mu_new = torch.maximum(mu, x.amax(-1))
-                if not do_pv:  # only lse_u wants this tile
-                    lu = lu * torch.exp2(mu - mu_new) + torch.exp2(x - mu_new[:, None]).sum(-1)
-                    mu = mu_new
-                    continue
-                att = km[b, cols][None, :].expand(R, -1)
+                # only lse_u wants this tile
+                lu_only = lu * torch.exp2(mu - mu_new) + torch.exp2(x - mu_new[..., None]).sum(-1)
+                att = km[:, cols][:, None, None, :].expand(B, 1, R, -1)
                 if causal:
                     att = att & (cols[None, :] <= rows[:, None])
-                m_new = torch.maximum(m, torch.where(att, x, NEG).amax(-1))
-                p = torch.exp2(torch.where(att, x, NEG) - m_new[:, None])  # masked: 0, or 1
+                xm = where(att, x, NEG)
+                m_new = torch.maximum(m, xm.amax(-1))
+                p = torch.exp2(xm - m_new[..., None])  # masked: 0, or 1
                 alpha = torch.exp2(m - m_new)
-                l = l * alpha + p.sum(-1)
+                l_new = l * alpha + p.sum(-1)
+                lu_pv, mu_pv = lu, mu
                 if need_unmasked:
-                    own = torch.where(att, 0.0, torch.exp2(x - mu_new[:, None])).sum(-1)
-                    shared = torch.where(att, p, 0.0).sum(-1) * torch.exp2(m_new - mu_new)
-                    lu = lu * torch.exp2(mu - mu_new) + shared + own
-                    mu = mu_new
-                o = o * alpha[:, None] + p.to(v.dtype).float() @ vf[b, cols, h]
-                m = m_new
+                    own = where(att, 0.0, torch.exp2(x - mu_new[..., None])).sum(-1)
+                    shared = where(att, p, 0.0).sum(-1) * torch.exp2(m_new - mu_new)
+                    lu_pv, mu_pv = lu * torch.exp2(mu - mu_new) + shared + own, mu_new
+                o_new = o * alpha[..., None] + p.to(v.dtype).float() @ vf[:, :, cols]
+                lu = where(upd_pv, lu_pv, where(upd_lu, lu_only, lu))
+                mu = where(upd_pv, mu_pv, where(upd_lu, mu_new, mu))
+                l = where(upd_pv, l_new, l)
+                m = where(upd_pv, m_new, m)
+                o = where(upd_pv[..., None], o_new, o)
             l_safe = l.clamp_min(1e-30)
-            out[b, rows, h] = o / l_safe[:, None]
-            row_lse = torch.where(m > half_neg, (m + torch.log2(l_safe)) * _LN2,
-                                  torch.full_like(m, NEG))
-            lse[b, rows, h] = row_lse
-            lse_u[b, rows, h] = ((mu + torch.log2(lu.clamp_min(1e-30))) * _LN2
+            out[:, :, rows] = o / l_safe[..., None]
+            row_lse = where(m > half_neg, (m + torch.log2(l_safe)) * _LN2, torch.full_like(m, NEG))
+            lse[:, :, rows] = row_lse
+            lse_u[:, :, rows] = ((mu + torch.log2(lu.clamp_min(1e-30))) * _LN2
                                  if need_unmasked else row_lse)
-    return out.to(q.dtype), lse, lse_u
+    return (out.transpose(1, 2).contiguous().to(q.dtype), lse.transpose(1, 2).contiguous(),
+            lse_u.transpose(1, 2).contiguous())
 
 
 def _launch(

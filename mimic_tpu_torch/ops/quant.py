@@ -13,10 +13,14 @@ Three hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
 
 - ``int8_matmul`` (``csrc/int8_matmul.cu``, replaces Pallas ``_kernel`` and
   ``_kernel_stacked``): ``(x @ W8) · scale`` with the int8 weights converted
-  in registers, fp32 accumulation, split-K with a deterministic second pass;
+  in registers and fp32 accumulation; bf16 rows on the tensor cores with the
+  split-K sum inside a thread-block cluster (``csrc/int8_mma.cuh``, split
+  chosen by ``mma_plan``), fp32 rows on the scalar kernel with a
+  deterministic second pass;
 - ``fused_mlp_int8`` (``csrc/fused_mlp_int8.cu``, replaces Pallas
   ``_mlp_kernel``): a layer's whole SwiGLU MLP at decode M, the ``[M, 2F]``
-  intermediate kept on chip;
+  intermediate never in device memory (bf16: two tensor-core products that
+  pass the rounded ``silu(g)·u`` ``[M, F]`` between them);
 - ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, replaces Pallas ``_w8a8_kernel``
   and ``_w8a8_kernel_stacked``): per-row int8 activations (``quantize_rows``)
   times int8 weights on the integer tensor cores, an exact int32 sum and the
@@ -30,6 +34,7 @@ kernel name and nothing else touches it.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -50,11 +55,28 @@ DECODER_MATMUL_KEYS = (
 # port does the same in each case, so the bytes match.
 INV_127 = float(np.float32(1.0 / 127.0))
 
-# decode-sized M takes the kernels; from here on the product is compute-bound
-# and goes to a dequantized torch.matmul (the JAX package's XLA dot)
-KERNEL_MAX_M = 256
+# qdot's int8_matmul takes fewer rows than this; from here on a dequantized
+# torch.matmul is faster (JAX: M < 256, a TPU cut-off).  The tensor-core kernel
+# reads the weights once per 16 rows, so its time grows with M; on an H100 at
+# the q/k/v shape it beats dequantize + bf16 torch.matmul up to M 384 (0.197
+# against 0.242 ms) and loses at 512 (0.259 against 0.245 ms; PERF.md §6)
+KERNEL_MAX_M = 480
+# prefill-sized M of a W8A8 (``a8``) handle takes w8a8_matmul (JAX: M >= 256)
+W8A8_MIN_M = 256
+# the fused MLP's gate on M (the JAX package's M < 256)
+MLP_MAX_M = 256
 # the fused MLP kernel works on F-blocks of this many columns
 MLP_BLOCK_F = 64
+
+# the tensor-core products of bf16 rows (csrc/int8_mma.cuh): weight columns per
+# CTA, weight rows per staged tile, activation rows per CTA, and the K splits a
+# cluster of CTAs can sum (a portable cluster holds at most 8)
+MMA_BLOCK_N = 128
+MMA_BLOCK_K = 64
+MMA_ROWS = 16
+MMA_SPLITS = (1, 2, 4, 8)
+# the fewest weight tiles a CTA is given when K is split (see mma_plan)
+MMA_MIN_TILES = 16
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -221,6 +243,51 @@ def int8_matmul_plain(x, wq, scale, out_dtype=None) -> torch.Tensor:
     return ((x.float() @ wq.float()) * scale.float()).to(out_dtype)
 
 
+@functools.lru_cache(maxsize=4096)
+def mma_plan(M: int, K: int, tiles: int, sms: int) -> int:
+    """The K split of a tensor-core product: ``tiles`` column tiles, each cut
+    into ``ksplit`` ranges of whole ``MMA_BLOCK_K``-row tiles, one CTA per
+    range and 16-row block of M.  The smallest split of ``MMA_SPLITS`` that
+    gives the SMs 1.6 CTAs each (two fit on one: more warps to hide the
+    conversion's latency) while every CTA keeps ``MMA_MIN_TILES`` weight tiles
+    (below that the fixed work per CTA, pipeline fill and the cluster's sum,
+    dominates); failing that the largest split that keeps them.  At
+    idefics2-8b's decode shapes on 132 SMs: q/k/v 4, o 4, lm head 1, gate/up
+    1, down 8, each within 5 % of the best split in a sweep of all four
+    (PERF.md §6)."""
+    ktiles = -(-K // MMA_BLOCK_K)
+    blocks = tiles * -(-M // MMA_ROWS)
+    splits = [ks for ks in MMA_SPLITS if -(-ktiles // ks) >= MMA_MIN_TILES] or [1]
+    return next((ks for ks in splits if 5 * blocks * ks >= 8 * sms), splits[-1])
+
+
+def int8_matmul_tiled_plain(x, wq, scale, ksplit: int, out_dtype=None) -> torch.Tensor:
+    """The tensor-core kernel's sum, split by split (tests): fp32 partial sums
+    over each rank's K range of whole ``MMA_BLOCK_K``-row tiles, added in rank
+    order, then the scale.  (Inside a range the tensor cores' order is their
+    own; every product and partial sum is exact or an fp32 rounding, as here.)"""
+    out_dtype = out_dtype or x.dtype
+    ktiles = -(-wq.shape[0] // MMA_BLOCK_K)
+    chunk = -(-ktiles // ksplit) * MMA_BLOCK_K
+    acc = torch.zeros(x.shape[0], wq.shape[1], dtype=torch.float32, device=x.device)
+    for k0 in range(0, ksplit * chunk, chunk):
+        acc = acc + x[:, k0:k0 + chunk].float() @ wq[k0:k0 + chunk].float()
+    return (acc * scale.float()).to(out_dtype)
+
+
+def fused_mlp_tiled_plain(xn, gu_q8, gu_scale, down_q8, down_scale, ks_gu: int, ks_down: int,
+                          out_dtype=None) -> torch.Tensor:
+    """The bf16 path's two products (tests): gate|up split by ``ks_gu`` with
+    the scales, ``silu(g)·u`` rounded to the activation dtype (the ``h`` that
+    passes between the two launches), then the down product split by
+    ``ks_down``."""
+    out_dtype = out_dtype or xn.dtype
+    Fh = gu_q8.shape[-1] // 2
+    gu = int8_matmul_tiled_plain(xn, gu_q8, gu_scale, ks_gu, torch.float32)
+    h = (F.silu(gu[:, :Fh]) * gu[:, Fh:]).to(xn.dtype)
+    return int8_matmul_tiled_plain(h, down_q8, down_scale, ks_down, out_dtype)
+
+
 def fused_mlp_plain(xn, gu_q8, gu_scale, down_q8, down_scale, out_dtype=None) -> torch.Tensor:
     """One layer's SwiGLU MLP as the kernel computes it: gate/up scales before
     silu, ``silu(g)·u`` rounded to the activation dtype, then the down product
@@ -305,18 +372,39 @@ def _launch_int8_matmul(x, wq, scale, layer, out_dtype) -> torch.Tensor:
         w_ptr += layer * K * N          # int8: one byte per element
         s_ptr += layer * N * 4          # fp32
     lib = _build.load_library()
-    ksplit = lib.mimic_int8_matmul_ksplit(M, K, N)
-    work = torch.empty(ksplit * M * N, dtype=torch.float32, device=x.device)
     out = torch.empty(M, N, dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.mimic_int8_matmul(
-            x.data_ptr(), w_ptr, s_ptr, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
-            _KERNEL_DTYPES[x.dtype], _KERNEL_DTYPES[out_dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if x.dtype == torch.bfloat16:
+        x = _mma_rows(x)
+        ksplit = mma_plan(M, K, -(-N // MMA_BLOCK_N), _sm_count(x.device.index))
+        with torch.cuda.device(x.device):
+            err = lib.mimic_int8_matmul_mma(x.data_ptr(), x.shape[1], w_ptr, s_ptr, out.data_ptr(),
+                                            M, K, N, ksplit, _KERNEL_DTYPES[out_dtype], stream)
+    else:
+        ksplit = lib.mimic_int8_matmul_ksplit(M, K, N)
+        work = torch.empty(ksplit * M * N, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.mimic_int8_matmul(
+                x.data_ptr(), w_ptr, s_ptr, work.data_ptr(), out.data_ptr(), M, K, N, ksplit,
+                _KERNEL_DTYPES[out_dtype], stream,
+            )
     _raise_on_error(lib, err, name)
     LAUNCHES[name] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _mma_rows(x: torch.Tensor) -> torch.Tensor:
+    """bf16 rows as the tensor-core kernels read them: 16-byte chunks, so a row
+    length that is a multiple of 8 (zero columns appended, which add nothing)
+    and a 16-byte aligned start."""
+    if x.shape[1] % 8:
+        x = F.pad(x, (0, 8 - x.shape[1] % 8))
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _no_device(name: str, x: torch.Tensor):
@@ -434,17 +522,26 @@ def _launch_fused_mlp(xn, gu_q8, gu_scale, down_q8, down_scale, layer, out_dtype
     if not 0 <= layer < L:
         raise ValueError(f"{name}: layer {layer} outside [0, {L})")
     lib = _build.load_library()
-    nfb = Fh // MLP_BLOCK_F
-    work = torch.empty(nfb * M * D, dtype=torch.float32, device=xn.device)
     out = torch.empty(M, D, dtype=out_dtype, device=xn.device)
-    with torch.cuda.device(xn.device):
-        err = lib.mimic_fused_mlp_int8(
-            xn.data_ptr(), gu_q8.data_ptr() + layer * D * F2, gu_scale.data_ptr() + layer * F2 * 4,
-            down_q8.data_ptr() + layer * Fh * D, down_scale.data_ptr() + layer * D * 4,
-            work.data_ptr(), out.data_ptr(), M, D, Fh,
-            _KERNEL_DTYPES[xn.dtype], _KERNEL_DTYPES[out_dtype],
-            torch.cuda.current_stream(xn.device).cuda_stream,
-        )
+    weights = (gu_q8.data_ptr() + layer * D * F2, gu_scale.data_ptr() + layer * F2 * 4,
+               down_q8.data_ptr() + layer * Fh * D, down_scale.data_ptr() + layer * D * 4)
+    stream = torch.cuda.current_stream(xn.device).cuda_stream
+    if xn.dtype == torch.bfloat16:
+        xn = _mma_rows(xn)
+        sms = _sm_count(xn.device.index)
+        ks_gu = mma_plan(M, D, Fh // MLP_BLOCK_F, sms)
+        ks_down = mma_plan(M, Fh, -(-D // MMA_BLOCK_N), sms)
+        h = torch.empty(M, Fh, dtype=torch.bfloat16, device=xn.device)
+        with torch.cuda.device(xn.device):
+            err = lib.mimic_fused_mlp_int8_mma(
+                xn.data_ptr(), *weights, h.data_ptr(), out.data_ptr(), M, D, Fh, ks_gu, ks_down,
+                _KERNEL_DTYPES[out_dtype], stream)
+    else:
+        work = torch.empty(Fh // MLP_BLOCK_F * M * D, dtype=torch.float32, device=xn.device)
+        with torch.cuda.device(xn.device):
+            err = lib.mimic_fused_mlp_int8(
+                xn.data_ptr(), *weights, work.data_ptr(), out.data_ptr(), M, D, Fh,
+                _KERNEL_DTYPES[out_dtype], stream)
     _raise_on_error(lib, err, name)
     LAUNCHES[name] += 1
     return out
@@ -487,7 +584,7 @@ def fused_mlp(xn: torch.Tensor, gateup: Any, down: Any) -> Optional[torch.Tensor
     D = xn.shape[-1]
     xm = xn.reshape(-1, D)
     M = xm.shape[0]
-    if xn.device.type != "cuda" or M >= KERNEL_MAX_M:
+    if xn.device.type != "cuda" or M >= MLP_MAX_M:
         return None
     if torch.is_grad_enabled() and xn.requires_grad:
         return None
@@ -565,13 +662,15 @@ def qdot(x: torch.Tensor, w: Any, preferred_element_type=None) -> torch.Tensor:
     Plain tensors: ``x @ w`` (cast to ``preferred_element_type`` if given).
     Quantized, on the CPU: the dequantized fp32 product, as JAX off the TPU.
     The ``a8`` marker is inert there, again as in JAX.
-    On CUDA: M < 256 launches ``int8_matmul`` through ``Int8MatmulDiff``
-    (differentiable in ``x``; the marker is inert here too); M >= 256 takes
-    ``w8a8_matmul`` through ``W8A8MatmulDiff`` for an ``a8`` handle (rows
-    quantized per token, not bit-parity with the weight-only product) and a
-    dequantized ``torch.matmul`` otherwise.  The kernel masks a ragged last
-    row tile itself, so the TPU path's padding of M to 128 is not carried
-    over.
+    On CUDA: an ``a8`` handle at M >= ``W8A8_MIN_M`` (256, as in JAX) takes
+    ``w8a8_matmul`` through ``W8A8MatmulDiff`` (rows quantized per token, not
+    bit-parity with the weight-only product); otherwise M < ``KERNEL_MAX_M``
+    launches ``int8_matmul`` through ``Int8MatmulDiff`` (differentiable in
+    ``x``; the marker is inert there) and larger M a dequantized
+    ``torch.matmul``.  The cut-off is re-decided for the H100 (see
+    ``KERNEL_MAX_M``: the kernel wins up to M 384, the dequantized product from
+    512).  The kernel masks a ragged last row tile itself, so the TPU path's
+    padding of M to 128 is not carried over.
     """
     if not is_quantized(w):
         out = x @ w
@@ -589,11 +688,13 @@ def qdot(x: torch.Tensor, w: Any, preferred_element_type=None) -> torch.Tensor:
         out = (xm.float() @ dequantize(w)).to(out_dtype)
     elif x.device.type != "cuda":
         raise _no_device("qdot", x)
-    elif xm.shape[0] >= KERNEL_MAX_M and "a8" not in w:
-        out = (xm @ dequantize(w).to(x.dtype)).to(out_dtype)
     else:
-        if n != n_stored:
-            scale = F.pad(scale, (0, n_stored - n))
-        diff = w8a8_matmul_diff if xm.shape[0] >= KERNEL_MAX_M else int8_matmul_diff
-        out = diff(xm, wq, scale, layer, out_dtype)[:, :n]
+        w8a8 = xm.shape[0] >= W8A8_MIN_M and "a8" in w
+        if not w8a8 and xm.shape[0] >= KERNEL_MAX_M:
+            out = (xm @ dequantize(w).to(x.dtype)).to(out_dtype)
+        else:
+            if n != n_stored:
+                scale = F.pad(scale, (0, n_stored - n))
+            diff = w8a8_matmul_diff if w8a8 else int8_matmul_diff
+            out = diff(xm, wq, scale, layer, out_dtype)[:, :n]
     return out.reshape(*lead, n)

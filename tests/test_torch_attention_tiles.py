@@ -24,6 +24,7 @@ rows without an attendable key are finite everywhere.
 import functools
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +37,16 @@ jfa = importlib.import_module("mimic_tpu.ops.flash_attention")
 
 ATOL = 1e-5  # fp32: summation order, and ln against log2 arithmetic
 JAX_OUT_ATOL = 2e-5  # as tests/test_torch_attention.py holds the plain version to JAX
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tiled version runs many small ops: one thread each, not a pool that
+    every op must wake (under a loaded CPU the pool's wake-ups dominate)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SHAPES = {"aligned": (256, 256), "ragged": (200, 200), "ragged-t100-s200": (100, 200),
           "t128-s320": (128, 320)}
@@ -57,19 +68,36 @@ def _mask(kind, B, S):
 def _inputs(shape, mask, D):
     T, S = SHAPES[shape]
     rng = np.random.default_rng(1000 * T + S + D + MASKS.index(mask))
-    q = rng.normal(size=(2, T, 4, D)).astype(np.float32)
-    k, v = (rng.normal(size=(2, S, 2, D)).astype(np.float32) for _ in range(2))
+    # two query heads on one kv head: GQA at the least work per case
+    q = rng.normal(size=(2, T, 2, D)).astype(np.float32)
+    k, v = (rng.normal(size=(2, S, 1, D)).astype(np.float32) for _ in range(2))
     return q, k, v, _mask(mask, 2, S)
 
 
+_jax_sdpa = jax.jit(jfa._sdpa_fallback, static_argnums=(4, 5, 6))
+
+
 @functools.lru_cache(maxsize=None)
-def _references(shape, mask, D, causal, need_unmasked):
-    q, k, v, km = _inputs(shape, mask, D)
-    plain = tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
-                                need_unmasked=need_unmasked)
-    jax_ref = jfa._sdpa_fallback(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                 jnp.asarray(km), causal, None, need_unmasked)
+def _references_all_masks(shape, D, causal):
+    """Both references for every mask of MASKS, as one batch of 2 * len(MASKS)
+    rows, with lse_unmasked: one compiled JAX call per shape and causal flag
+    (its compilation is most of a case's cost).  out and lse do not depend on
+    need_unmasked."""
+    q, k, v, km = (np.concatenate(x) for x in zip(*(_inputs(shape, m, D) for m in MASKS)))
+    plain = tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal)
+    jax_ref = _jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(km),
+                        causal, None, True)
     return [x.numpy() for x in plain], [np.asarray(x) for x in jax_ref]
+
+
+def _references(shape, mask, D, causal, need_unmasked):
+    """(plain, JAX) for one mask; without need_unmasked lse_unmasked is lse."""
+    i = MASKS.index(mask)
+    out = []
+    for ref in _references_all_masks(shape, D, causal):
+        o, lse, lse_u = (x[2 * i:2 * i + 2] for x in ref)
+        out.append([o, lse, lse_u if need_unmasked else lse])
+    return out
 
 
 def _check(got, want, km, causal, need_unmasked, every_key, out_atol):

@@ -364,6 +364,16 @@ INT8_MATMUL_CASES = [
     (6, 200, 256, None),     # ragged K
     (4, 512, 128, 0),
     (40, 128, 256, None),    # several 16-row blocks
+    # every row count of the bf16 path's cases: one n8 operand up to 8 rows, two
+    # up to 16, then several 16-row blocks; K splits of 1 to 8 (a cluster each)
+    (1, 1024, 256, 0),
+    (16, 4096, 256, None),
+    (17, 640, 384, 1),
+    (64, 2048, 128, None),
+    (255, 512, 256, 2),
+    (12, 4100, 512, None),   # ragged K, not a multiple of 8: the rows are padded
+    (12, 968, 1024, 0),      # ragged K, a partial last tile in the last split
+    (4, 8192, 128, None),    # a cluster of 8 K splits
 ]
 
 
@@ -393,11 +403,64 @@ def test_int8_matmul_matches_plain_on_card(cuda_device, case, dtype):
     rtol = 1e-5 if dtype == "float32" else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= rtol * want.float().abs().max().item(), err
+    # a second launch on the same inputs gives the same bits (no atomics)
+    again = tq.int8_matmul(x, wq, sc) if layer is None else tq.int8_matmul_stacked(x, wq, sc, layer)
+    assert torch.equal(_bits(again), _bits(got))
+    if dtype == "bfloat16":
+        # the tensor-core kernel's split, summed in rank order: only the order
+        # inside one split is the tensor cores' own
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        ks = tq.mma_plan(M, K, -(-N // tq.MMA_BLOCK_N), sms)
+        w2, s2 = (wq, sc) if layer is None else (wq[layer], sc[layer])
+        tiled = tq.int8_matmul_tiled_plain(x, w2, s2, ks)
+        err = (got.float() - tiled.float()).abs().max().item()
+        assert err <= rtol * want.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 12, 17])
+def test_lm_head_through_qdot_on_card(cuda_device, M):
+    """The lm head's handle: N 128-padded in storage (32128 stored, 32003 real
+    at idefics2-8b; here 640 / 600), fp32 logits sliced back by qdot."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(44 + M)
+    w = {k: v.to(cuda_device) for k, v in _quantized(rng, (256, 600)).items()}
+    assert w["q8"].shape == (256, 640)
+    x = _t(rng.normal(size=(M, 256)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    before = tq.LAUNCHES["int8_matmul"]
+    got = tq.qdot(x, w, preferred_element_type=torch.float32)
+    assert tq.LAUNCHES["int8_matmul"] == before + 1
+    want = tq.int8_matmul_plain(x, w["q8"][:, :600], w["scale"], torch.float32)
+    assert got.shape == (M, 600) and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_qdot_routes_at_the_kernel_cut_off_on_card(cuda_device):
+    """Below KERNEL_MAX_M rows qdot launches int8_matmul, from it on it takes
+    the dequantized torch.matmul (an ``a8`` handle: w8a8_matmul from
+    W8A8_MIN_M rows)."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(45)
+    w = {k: v.to(cuda_device) for k, v in _quantized(rng, (2, 128, 256)).items()}
+    w["layer"] = 1
+    for M, launched in ((tq.KERNEL_MAX_M - 1, 1), (tq.KERNEL_MAX_M, 0)):
+        x = _t(rng.normal(size=(M, 128)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+        tq.reset_launch_counts()
+        got = tq.qdot(x, w)
+        assert tq.LAUNCHES == {"int8_matmul": launched, "fused_mlp_int8": 0, "w8a8_matmul": 0}
+        want = tq.int8_matmul_plain(x, w["q8"][1], w["scale"][1])
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), (M, err)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,D,F", [(12, 256, 128), (6, 128, 128), (20, 128, 192)])
+@pytest.mark.parametrize("M,D,F", [(12, 256, 128), (6, 128, 128), (20, 128, 192),
+                                   (1, 512, 256), (16, 1024, 512), (64, 256, 320),
+                                   (255, 128, 128), (12, 512, 4096)])
 def test_fused_mlp_matches_plain_on_card(cuda_device, M, D, F, dtype):
     from mimic_tpu_torch.ops import quant as tq
 
@@ -416,6 +479,14 @@ def test_fused_mlp_matches_plain_on_card(cuda_device, M, D, F, dtype):
     rtol = 1e-5 if dtype == "float32" else 1e-2
     err = (got.float() - want.float()).abs().max().item()
     assert err <= rtol * want.float().abs().max().item(), err
+    assert torch.equal(_bits(tq.fused_mlp_stacked(x, *args, 1)), _bits(got))  # same bits again
+    if dtype == "bfloat16":
+        sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+        ks_gu = tq.mma_plan(M, D, F // tq.MLP_BLOCK_F, sms)
+        ks_down = tq.mma_plan(M, F, -(-D // tq.MMA_BLOCK_N), sms)
+        tiled = tq.fused_mlp_tiled_plain(x, *(a[1] for a in args), ks_gu, ks_down)
+        err = (got.float() - tiled.float()).abs().max().item()
+        assert err <= rtol * want.float().abs().max().item(), err
     # the dispatcher takes the kernel for stacked handles at decode M
     h_gu = {"q8": args[0], "scale": args[1], "layer": 1}
     h_down = {"q8": args[2], "scale": args[3], "layer": 1}
@@ -452,7 +523,7 @@ def test_qdot_gradient_through_kernel_on_card(cuda_device, dtype, stacked):
 def test_w8a8_prefill_launches_on_card(cuda_device):
     """An ``a8`` handle: decode M takes the weight-only kernel (the marker is
     inert), M >= 256 quantizes the rows and launches ``w8a8_matmul``; without
-    the marker M >= 256 launches nothing."""
+    the marker M >= 256 launches no ``w8a8_matmul``."""
     from mimic_tpu_torch.ops import quant as tq
 
     wf = torch.randn(64, 200, device=cuda_device)
