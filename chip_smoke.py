@@ -15,9 +15,12 @@ Phases (any failure propagates: non-zero exit, no result line):
              axes), at masks whose first or interior key tiles hold no
              attendable key, at T != S, and each at the other's main shape;
              the backward pair at the shift pass (B2 T=S=256,
-             left-padded, lse_u), B1 T=S=2048, a ragged B2 T=S=1000, and
-             without need_unmasked; max error against stated tolerances, and
-             both times from CUDA events.
+             left-padded, lse_u), B1 T=S=2048, a ragged B2 T=S=1000,
+             without need_unmasked, and B2 T=S=512 with whole padded key
+             tiles; max error against stated tolerances, a second launch
+             bit-identical, and both times from CUDA events (the backward
+             kernels' as device time through CUDA graphs), beside the backward
+             of scaled_dot_product_attention at the shift pass as a yardstick.
 3. slice   — a tiny idefics2 in fp32 (ViT head dim 72, text head dim 128): the
              serving path through the kernels on the card must give the beam-3
              tokens of the plain path on the CPU, and prefill logits within 1e-4;
@@ -104,6 +107,10 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, then the HMMA
                                              # opcodes of the int8 kernels' SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only DIR    # the same on the kernels of the checkout in DIR (no SASS)
+    python3 chip_smoke.py --backward-only    # build + phase 2's backward cases, a cluster-split sweep,
+                                             # then the HGMMA opcodes of the bf16 backward kernels' SASS:
+                                             # exit 3, no result line
+    python3 chip_smoke.py --backward-only DIR  # the backward cases on the kernels of the checkout in DIR
 """
 
 from __future__ import annotations
@@ -488,9 +495,89 @@ def ptxas_lines(info: dict, kernels) -> None:
             log("[build] " + line)
 
 
-def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked, reps):
+def backward_launcher(args, name, split=None):
+    """A function that launches backward kernel ``name`` straight through the
+    library on the inputs the wrapper would give it, and nothing else: the
+    kernel's own device time, without the wrapper's Δ and mask preparation.
+    ``split``: the bf16 dkv kernel's cluster split (a library without
+    ``mimic_flash_bwd_tiling`` predates it and takes none)."""
+    from mimic_tpu_torch.ops import _build
+    from mimic_tpu_torch.ops.flash_attention import _KERNEL_DTYPES
+
+    q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, _, need_unmasked = args
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    lib = _build.load_library()
+    delta = (g_out.float() * out.float()).sum(-1).contiguous()
+    g_lse_u = g_lse_u if need_unmasked else torch.zeros_like(g_lse)
+    inputs = (q, k, v, g_out, (km != 0).to(torch.int32), lse, lse_u, delta, g_lse, g_lse_u)
+    outs = (torch.empty_like(q),) if name == "flash_bwd_dq" else (torch.empty_like(k),
+                                                                  torch.empty_like(v))
+    extra = ()
+    if name == "flash_bwd_dkv" and hasattr(lib, "mimic_flash_bwd_tiling"):
+        from mimic_tpu_torch.ops import flash_backward as tfb
+        from mimic_tpu_torch.ops.quant import _sm_count
+
+        extra = (split or tfb.dkv_split(B, T, S, H, Hkv, _sm_count(q.device.index)),)
+    ptrs = [x.data_ptr() for x in (*inputs, *outs)]
+    shape = (B, T, S, H, Hkv, D, _KERNEL_DTYPES[q.dtype], 1.0 / D**0.5, int(causal),
+             int(need_unmasked))
+    fn = getattr(lib, f"mimic_{name}")
+
+    # on the current stream (a graph's capture runs on a stream of its own); the
+    # default argument keeps the tensors made here alive while the closure lives
+    def launch(_inputs=inputs):
+        err = fn(*ptrs, *shape, *extra, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} ({lib.mimic_cuda_error_string(err).decode()})")
+        return outs
+    return launch
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: the durations of the kernels it
+    launches over ``reps`` calls under torch.profiler, after a warm-up (the
+    host's time between them left out, as a CUDA graph would)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / reps / 1e3
+
+
+def sdpa_backward_ms(q, k, v, reps):
+    """The backward of torch's scaled_dot_product_attention (causal, no key mask)
+    on the same q, k, v, as the device time of forward + backward less the
+    forward's: a yardstick of what a library attention backward costs at this
+    shape.  It is not this function (no lse or lse_u cotangent, no key mask),
+    so the result line's library_ms stays null."""
+    H, Hkv = q.shape[2], k.shape[2]
+    leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+    g = torch.randn_like(leaves[0])
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=H != Hkv)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, g)
+
+    with torch.no_grad():
+        fwd_ms = device_ms(fwd, reps)
+    return device_ms(fwd_bwd, reps) - fwd_ms, fwd_ms
+
+
+def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked, reps,
+                   sdpa=False):
     """Both backward kernels against the plain backward on the same bf16
-    inputs and the same saved forward (from the plain forward)."""
+    inputs and the same saved forward (from the plain forward); a second
+    launch must give the same bits.  Times: each kernel alone, device time
+    through a CUDA graph of launches straight through the library."""
     from mimic_tpu_torch.ops import flash_attention as tfa
     from mimic_tpu_torch.ops import flash_backward as tfb
 
@@ -501,7 +588,11 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
     g_lse, g_lse_u = (torch.randn(B, T, H, generator=gen, device="cuda") for _ in range(2))
     args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, None, need_unmasked)
     got = tfb._launch_backward(*args)
+    again = tfb._launch_backward(*args)
     torch.cuda.synchronize()
+    for field, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two launches gave different {field}")
     want = tfb.flash_attention_backward_plain(*args)
     torch.cuda.synchronize()
     errs = {}
@@ -527,17 +618,26 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
     bounds = {"flash_bwd_dq": bound(read + nbytes(got[0]), 2 * H * 128 * (2 * wide + pairs), "bf16"),
               "flash_bwd_dkv": bound(read + nbytes(got[1], got[2]),
                                      2 * H * 128 * (2 * wide + 2 * pairs), "bf16")}
-    del got, want
-    ms = {name: cuda_ms(lambda n=name: tfb._launch_backward(*args, kernels=(n,)), reps)
-          for name in tfb.KERNELS}
+    del got, again, want
+    ms = {name: cuda_ms(backward_launcher(args, name), reps, graph=True) for name in tfb.KERNELS}
+    wrapper_ms = cuda_ms(lambda: tfb._launch_backward(*args), reps, graph=True)
     plain_ms = cuda_ms(lambda: tfb.flash_attention_backward_plain(*args), reps)
+    yardstick = ""
+    if sdpa:
+        bwd_ms, fwd_ms = sdpa_backward_ms(q, k, v, reps)
+        yardstick = (f"; yardstick: scaled_dot_product_attention backward (causal, no key "
+                     f"mask, no lse cotangents; device time) {bwd_ms:.4f} ms (its forward "
+                     f"{fwd_ms:.4f} ms)")
     log(f"[kernels] {label}: backward B{B} T{T} S{S} H{H}/{Hkv} D128 causal={causal} "
         f"need_unmasked={need_unmasked}: max err / max |ref| dq {errs['dq']:.3e} "
         f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol {TOL_BWD_BF16}: one bf16 rounding "
-        f"of an fp32 sum); flash_bwd_dq {ms['flash_bwd_dq']:.3f} ms, flash_bwd_dkv "
-        f"{ms['flash_bwd_dkv']:.3f} ms, plain backward (dq, dk, dv) {plain_ms:.3f} ms; "
+        f"of an fp32 sum), second launch bit-identical; flash_bwd_dq {ms['flash_bwd_dq']:.4f} ms "
+        f"({bounds['flash_bwd_dq']['bound_ms'] / ms['flash_bwd_dq']:.1%} of its bound), "
+        f"flash_bwd_dkv {ms['flash_bwd_dkv']:.4f} ms "
+        f"({bounds['flash_bwd_dkv']['bound_ms'] / ms['flash_bwd_dkv']:.1%}), the wrapper (Δ, "
+        f"both kernels) {wrapper_ms:.4f} ms, plain backward (dq, dk, dv) {plain_ms:.3f} ms; "
         f"dq {bound_text(bounds['flash_bwd_dq'])}, dkv {bound_text(bounds['flash_bwd_dkv'])}; "
-        f"no single PyTorch call gives these gradients (lse and lse_u carry gradient)")
+        f"no single PyTorch call gives these gradients (lse and lse_u carry gradient){yardstick}")
     return [
         {"name": name, "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms,
          "bound_ms": bounds[name]["bound_ms"], "bound_by": bounds[name]["bound_by"],
@@ -550,14 +650,16 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
 def phase_backward_kernels():
     """The backward pair at (a) the shift pass, (b) B1 T=S=2048 (where the JAX
     package would have taken its Pallas backward), (c) a ragged B2 T=S=1000,
-    (d) without need_unmasked.  Errors are relative to max |reference|; the
-    times reported for the kernels are the shift pass's."""
+    (d) without need_unmasked, (e) whole padded key tiles with need_unmasked
+    (every tile visited, p = 0 on the padded ones).  Errors are relative to max
+    |reference|; the times reported for the kernels are the shift pass's."""
+    lp = left_padded_mask
     cases = [
-        ("bwd-shift-256", 10, 2, 256, 256, 32, 8, left_padded_mask(2, 256, [0, 61]), True, True, 10),
-        ("bwd-2048", 11, 1, 2048, 2048, 32, 8, left_padded_mask(1, 2048, [0]), True, True, 3),
-        ("bwd-ragged-1000", 12, 2, 1000, 1000, 32, 8, left_padded_mask(2, 1000, [0, 77]),
-         True, True, 5),
-        ("bwd-no-lse_u", 13, 2, 512, 512, 32, 8, left_padded_mask(2, 512, [0, 100]), True, False, 5),
+        ("bwd-shift-256", 10, 2, 256, 256, 32, 8, lp(2, 256, [0, 61]), True, True, 20, True),
+        ("bwd-2048", 11, 1, 2048, 2048, 32, 8, lp(1, 2048, [0]), True, True, 5, False),
+        ("bwd-ragged-1000", 12, 2, 1000, 1000, 32, 8, lp(2, 1000, [0, 77]), True, True, 5, False),
+        ("bwd-no-lse_u", 13, 2, 512, 512, 32, 8, lp(2, 512, [0, 100]), True, False, 5, False),
+        ("bwd-padded-tiles", 14, 2, 512, 512, 32, 8, lp(2, 512, [0, 200]), True, True, 5, False),
     ]
     summary = {}
     for i, case in enumerate(cases):
@@ -567,6 +669,40 @@ def phase_backward_kernels():
             if i == 0:
                 s.update({k: r[k] for k in TIMING_KEYS})
     return summary
+
+
+BWD_MMA_KERNELS = ("bwd_dq_mma_kernel", "bwd_dkv_mma_kernel")
+
+
+def backward_split_sweep():
+    """The bf16 dkv kernel at the shift pass and at B1 T=S=2048 under every
+    cluster split, launched straight through the library, so that dkv_split's
+    choice (marked) can be read against the others."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+    from mimic_tpu_torch.ops.quant import _sm_count
+
+    sms = _sm_count(torch.cuda.current_device())
+    for label, B, T, pads in (("shift-256", 2, 256, [0, 61]), ("2048", 1, 2048, [0])):
+        q, k, v, km = kernel_inputs(20, B, T, T, 32, 8, 128, left_padded_mask(B, T, pads))
+        out, lse, lse_u = tfa.attention_plain(q, k, v, km)
+        g_out = torch.randn_like(q)
+        g = torch.randn(B, T, 32, device="cuda")
+        args = (q, k, v, km, out, lse, lse_u, g_out, g, g, True, None, True)
+        chosen = tfb.dkv_split(B, T, T, 32, 8, sms)
+        ref = None
+        times = []
+        for split in (1, 2, 4, 8):
+            launch = backward_launcher(args, "flash_bwd_dkv", split)
+            got = [x.clone() for x in launch()]
+            ref = ref or got
+            if max((a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)) > 0.02 * max(
+                    b.float().abs().max().item() for b in ref):
+                raise AssertionError(f"dkv split {split} disagrees with split 1")
+            ms = cuda_ms(launch, 20, graph=True)
+            times.append(f"{split}{'*' if split == chosen else ''} {ms:.4f}")
+        log(f"[sweep] flash_bwd_dkv {label}: ms by cluster split (* dkv_split's choice): "
+            + ", ".join(times))
 
 
 # ---------------------------------------------------------------------------
@@ -748,7 +884,7 @@ def kernel_group(key: str) -> str:
     k = key.lower()
     # int8_matmul_kernel / int8_matmul_mma_kernel; fused_mlp_kernel and the
     # bf16 path's fused_mlp_gateup_kernel / fused_mlp_down_kernel
-    return ("attention backward kernels" if "flash_bwd" in key
+    return ("attention backward kernels" if "flash_bwd" in key or "bwd::" in key
             else "attention forward kernels" if "mimic::" in key
             else "int8_matmul" if "int8_matmul" in key
             else "fused_mlp" if "fused_mlp" in key
@@ -2144,9 +2280,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     other = None
-    if sys.argv[1:2] == ["--int8-only"] and len(sys.argv) == 3:
-        # phase 6 on another checkout's kernels (e.g. the parent commit's,
-        # unpacked with git archive), measured as this script measures
+    if sys.argv[1:2] in (["--int8-only"], ["--backward-only"]) and len(sys.argv) == 3:
+        # phase 6 or phase 2's backward cases on another checkout's kernels (e.g.
+        # the parent commit's, unpacked with git archive), measured as this script measures
         other = os.path.abspath(sys.argv[2])
         sys.path.insert(0, other)
     from mimic_tpu_torch.ops import _build
@@ -2164,7 +2300,7 @@ def main() -> int:
     log(f"[build] nvcc for sm_90a: {info['seconds']:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s in all; library {os.path.relpath(info['path'], ROOT)}")
     # registers, spills and shared memory of the tensor-core kernels
-    ptxas_lines(info, ("attn_fwd_mma", "int8_matmul", "fused_mlp"))
+    ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp"))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:
@@ -2183,6 +2319,15 @@ def main() -> int:
             sass_counts(info["path"], INT8_MMA_KERNELS, ("HMMA",), 6)
         log(f"[card] partial run (--int8-only{'' if other is None else ' ' + other}): phase 6's "
             "int8 kernels passed; no result line")
+        return 3
+
+    if sys.argv[1:2] == ["--backward-only"]:
+        phase_backward_kernels()
+        if other is None:
+            backward_split_sweep()
+            sass_counts(info["path"], BWD_MMA_KERNELS, ("HGMMA",), 2)
+        log(f"[card] partial run (--backward-only{'' if other is None else ' ' + other}): "
+            "phase 2's backward kernels passed; no result line")
         return 3
 
     if sys.argv[1:] == ["--eval-only"]:

@@ -31,8 +31,8 @@ SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
     "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
 )
-HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "int8_common.cuh",
-           "int8_mma.cuh")
+HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "attn_bwd_mma.cuh",
+           "int8_common.cuh", "int8_mma.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -126,9 +126,12 @@ def load_library() -> ctypes.CDLL:
     # B, T, S, H, Hkv, D, dtype, scale, causal, need_unmasked, stream
     lib.mimic_flash_bwd_dq.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
     lib.mimic_flash_bwd_dq.restype = i
-    # the same with dk, dv in place of dq
-    lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 7 + [f, i, i, p]
+    # the same with dk, dv in place of dq, and the cluster split before the stream
+    lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 7 + [f, i, i, i, p]
     lib.mimic_flash_bwd_dkv.restype = i
+    # out: dq rows per CTA, dq keys per tile, dkv keys per CTA, dkv rows per tile, max split
+    lib.mimic_flash_bwd_tiling.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    lib.mimic_flash_bwd_tiling.restype = i
     lib.mimic_int8_matmul_ksplit.argtypes = [i, i, i]
     lib.mimic_int8_matmul_ksplit.restype = i
     # x, w, scale, work, out, M, K, N, ksplit, out_dtype, stream

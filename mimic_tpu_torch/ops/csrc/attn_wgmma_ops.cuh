@@ -1,6 +1,6 @@
 // Inline-PTX wrappers of the warpgroup matrix multiply (wgmma) shapes that the
-// bf16 attention forward (attn_mma.cuh) uses, and the shared-memory matrix
-// descriptor they read their operands through.  sm_90a only.
+// bf16 attention forward (attn_mma.cuh) and backward (attn_bwd_mma.cuh) use, and
+// the shared-memory matrix descriptor they read their operands through.  sm_90a only.
 //
 // A descriptor holds a start address, a leading and a stride byte offset and a
 // swizzle mode.  The conventions below are the ones the forward kernel relies
@@ -61,6 +61,22 @@ __device__ __forceinline__ void wait() {
 // visible to the async proxy that wgmma reads through
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// D[64 x 32] (+)= A[64 x 16] . B[32 x 16]^T, both operands from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[64 x 16]^T, both operands from shared memory (K-major)

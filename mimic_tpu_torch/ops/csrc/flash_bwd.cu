@@ -17,16 +17,23 @@
 // Design.  On the TPU the reduction axis is the innermost, sequential grid axis
 // and the sums live in VMEM scratch between grid steps; dk/dv are emitted per
 // expanded head and folded over the GQA group outside the kernel.  CUDA blocks
-// run in no order, so here each CTA owns its outputs and loops itself:
+// run in no order, so here each CTA owns its outputs and loops itself, and the
+// GQA fold happens inside the launch (no [B,H,S,D] fp32 scratch, no atomics,
+// the same result from run to run).
+//
+// bf16 inputs take the tensor-core kernels of attn_bwd_mma.cuh (wgmma products,
+// p and ds rounded to bf16 before the second products as the JAX kernels do, a
+// cp.async ring of swizzled bf16 tiles, the dkv items split over a thread-block
+// cluster); its note says what bounds them and what the design does about it.
+// fp32 inputs keep the scalar kernels below:
 //   - flash_bwd_dq: one CTA per (batch, head, 64-row query tile) walks all key
 //     tiles; each query row's dq lives in the registers of four threads.
 //   - flash_bwd_dkv: one CTA per (batch, kv head, 64-key tile) walks the G query
 //     heads of its group and all query tiles; each key row's dk and dv live in
-//     the registers of four threads.  The GQA fold happens inside the block, so
-//     there is no [B,H,S,D] fp32 scratch, no atomics, and the result is the same
-//     from run to run.
+//     the registers of four threads.
 // Both products of a tile (s = q.k^T and dp = dO.v^T) run as scalar fp32 FMAs
-// from shared memory through the forward's score_tile (attn_common.cuh).
+// from shared memory through the forward's score_tile (attn_common.cuh), bound
+// by shared-memory bandwidth and FMA issue; 166 KB of fp32 tiles per CTA.
 //
 // Which tiles are visited.  With need_unmasked every tile is visited: a tile
 // above the causal diagonal or wholly padded still carries g_lse_u p_u, and
@@ -35,15 +42,8 @@
 // contribute nothing and are skipped.  Rows with no attendable key have p = 0
 // everywhere (their lse sits near NEG = -1e30 and is never exponentiated) but
 // keep their p_u terms.
-//
-// What bounds it on the H100.  Per (query tile, key tile) pair the dq kernel
-// does three 64x64x128 products and the dkv kernel four, all scalar fp32 FMAs
-// reading shared memory: bound by shared-memory bandwidth and FMA issue, far
-// below the tensor cores.  Shared memory is 166 KB per CTA (one CTA per SM).
-// At the shift pass's shape (T = S = 256, Hkv = 8, B = 2) the dkv grid has only
-// 64 CTAs, half the SMs.  wgmma products fed by TMA, and smaller key tiles for
-// short sequences, are the next steps; the contract stays.
 
+#include "attn_bwd_mma.cuh"
 #include "attn_common.cuh"
 
 namespace mimic {
@@ -292,24 +292,30 @@ cudaError_t launch_bwd(Kernel kernel, dim3 grid, int smem, const BwdArgs& a,
   return cudaGetLastError();
 }
 
+inline bwd::Args mma_args(const BwdArgs& a) {
+  using bf = __nv_bfloat16;
+  return {static_cast<const bf*>(a.q), static_cast<const bf*>(a.k), static_cast<const bf*>(a.v),
+          static_cast<const bf*>(a.g_out), a.key_mask, a.lse, a.lse_u, a.delta, a.g_lse,
+          a.g_lse_u, static_cast<bf*>(a.dq), static_cast<bf*>(a.dk), static_cast<bf*>(a.dv),
+          a.B, a.T, a.S, a.H, a.Hkv, a.scale, a.causal, a.need_unmasked};
+}
+
 // Only the text tower trains (the ViT and connector are frozen and run without
-// a graph), so head dim 128 only.  dtype: 0 = float32, 1 = bfloat16.
+// a graph), so head dim 128 only.  dtype: 0 = float32 (scalar kernels),
+// 1 = bfloat16 (tensor cores; dkv's items split over clusters of `split` CTAs).
 template <bool DQ>
-cudaError_t dispatch_bwd(int dtype, int D, const BwdArgs& a, cudaStream_t stream) {
+cudaError_t dispatch_bwd(int dtype, int D, int split, const BwdArgs& a, cudaStream_t stream) {
   if (D != 128 || a.H % a.Hkv != 0) return cudaErrorInvalidValue;
   constexpr int smem = BwdSmem<128>::BYTES;
+  if (dtype == 1) return DQ ? bwd::launch_dq(mma_args(a), stream)
+                            : bwd::launch_dkv(mma_args(a), split, stream);
+  if (dtype != 0) return cudaErrorInvalidValue;
   if (DQ) {
     dim3 grid((a.T + BQ - 1) / BQ, a.H, a.B);
-    if (dtype == 0) return launch_bwd(flash_bwd_dq_kernel<float, 128>, grid, smem, a, stream);
-    if (dtype == 1)
-      return launch_bwd(flash_bwd_dq_kernel<__nv_bfloat16, 128>, grid, smem, a, stream);
-  } else {
-    dim3 grid((a.S + BK - 1) / BK, a.Hkv, a.B);
-    if (dtype == 0) return launch_bwd(flash_bwd_dkv_kernel<float, 128>, grid, smem, a, stream);
-    if (dtype == 1)
-      return launch_bwd(flash_bwd_dkv_kernel<__nv_bfloat16, 128>, grid, smem, a, stream);
+    return launch_bwd(flash_bwd_dq_kernel<float, 128>, grid, smem, a, stream);
   }
-  return cudaErrorInvalidValue;
+  dim3 grid((a.S + BK - 1) / BK, a.Hkv, a.B);
+  return launch_bwd(flash_bwd_dkv_kernel<float, 128>, grid, smem, a, stream);
 }
 
 inline BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const void* g_out,
@@ -353,7 +359,7 @@ extern "C" int mimic_flash_bwd_dq(const void* q, const void* k, const void* v, c
                                           g_lse_u, dq, nullptr, nullptr, B, T, S, H, Hkv, scale,
                                           causal, need_unmasked);
   return static_cast<int>(
-      mimic::dispatch_bwd<true>(dtype, D, a, static_cast<cudaStream_t>(stream)));
+      mimic::dispatch_bwd<true>(dtype, D, 1, a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int mimic_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g_out,
@@ -361,10 +367,22 @@ extern "C" int mimic_flash_bwd_dkv(const void* q, const void* k, const void* v, 
                                    const void* delta, const void* g_lse, const void* g_lse_u,
                                    void* dk, void* dv, int B, int T, int S, int H, int Hkv, int D,
                                    int dtype, float scale, int causal, int need_unmasked,
-                                   void* stream) {
+                                   int split, void* stream) {
   mimic::BwdArgs a = mimic::make_bwd_args(q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse,
                                           g_lse_u, nullptr, dk, dv, B, T, S, H, Hkv, scale,
                                           causal, need_unmasked);
   return static_cast<int>(
-      mimic::dispatch_bwd<false>(dtype, D, a, static_cast<cudaStream_t>(stream)));
+      mimic::dispatch_bwd<false>(dtype, D, split, a, static_cast<cudaStream_t>(stream)));
+}
+
+// the bf16 kernels' tiling: query rows per dq CTA, keys per dq tile, keys per dkv
+// CTA, query rows per dkv tile, the largest dkv split
+extern "C" int mimic_flash_bwd_tiling(int* dq_rows, int* dq_keys, int* dkv_keys, int* dkv_rows,
+                                      int* max_split) {
+  *dq_rows = mimic::bwd::DQ_ROWS;
+  *dq_keys = mimic::bwd::DQ_KEYS;
+  *dkv_keys = mimic::bwd::DKV_KEYS;
+  *dkv_rows = mimic::bwd::DKV_ROWS;
+  *max_split = mimic::bwd::MAX_SPLIT;
+  return 0;
 }

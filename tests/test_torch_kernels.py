@@ -235,19 +235,30 @@ def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
         tfa.TILE_BLOCK_M, tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
 
 
-# (B, T, S, H, Hkv, causal, need_unmasked, left_pad); head dim 128
+# (B, T, S, H, Hkv, causal, need_unmasked, left_pad[, zero key spans]); head dim 128
 BWD_CASES = [
     (2, 256, 256, 8, 2, True, True, 37),
     (1, 640, 640, 4, 1, True, True, 0),
     (2, 300, 300, 8, 2, True, False, 20),
     (2, 200, 200, 4, 4, False, True, 0),
     (1, 130, 130, 4, 2, False, False, 0),
+    # whole padded key tiles (every tile still visited with need_unmasked), and without
+    (2, 512, 512, 8, 2, True, True, 200),
+    (2, 512, 512, 8, 2, True, False, 200),
+    # interior key tiles with no attendable key, ragged T
+    (2, 333, 333, 8, 2, True, True, 0, ((64, 192),)),
+    (2, 333, 333, 4, 4, False, False, 0, ((64, 192),)),
+    # every key of batch row 1 masked: p = 0 on its rows, the p_u terms kept
+    (2, 100, 100, 4, 1, True, True, 0, ((0, 100),)),
 ]
 
 
 def _bwd_inputs(case, dtype, dev, seed):
-    B, T, S, H, Hkv, causal, need_unmasked, left_pad = case
-    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=128, left_pad=left_pad, seed=seed)
+    B, T, S, H, Hkv, causal, need_unmasked, left_pad = case[:8]
+    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=128, left_pad=left_pad, seed=seed,
+                              zero_spans=case[8] if len(case) > 8 else None)
+    if len(case) > 8 and case[8] == ((0, S),):
+        km[0] = 1  # only batch row 1 without keys
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(seed + 1)
     g_out = rng.normal(size=q.shape).astype(np.float32)
@@ -263,21 +274,74 @@ def test_backward_kernels_match_plain_on_card(cuda_device, case, dtype):
     causal, need_unmasked = case[5], case[6]
     (q, k, v), km, g_out, g_lse, g_lse_u = _bwd_inputs(case, dtype, cuda_device, case[1])
     out, lse, lse_u = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
+    args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u)
+    kw = dict(causal=causal, need_unmasked=need_unmasked)
     before = dict(tfb.LAUNCHES)
-    got = tfb.flash_attention_backward(q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u,
-                                       causal=causal, need_unmasked=need_unmasked)
+    got = tfb.flash_attention_backward(*args, **kw)
+    again = tfb.flash_attention_backward(*args, **kw)
     torch.cuda.synchronize()
-    assert {n: tfb.LAUNCHES[n] - before[n] for n in before} == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1}
-    want = tfb.flash_attention_backward_plain(q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u,
-                                              causal=causal, need_unmasked=need_unmasked)
+    assert {n: tfb.LAUNCHES[n] - before[n] for n in before} == {"flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(a, b), f"{name}: two launches gave different bits"
+    want = tfb.flash_attention_backward_plain(*args, **kw)
     # fp32: summation order only; bf16: each gradient is rounded to bf16 once
-    # (relative 2^-8) from fp32 sums of the same bf16 inputs
+    # (relative 2^-8) from fp32 sums of the same bf16 inputs, with p and ds
+    # rounded to bf16 in the kernel and kept in fp32 by the plain version
     rtol = 1e-4 if dtype == "float32" else 1e-2
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.isfinite(a.float()).all(), name
         err = (a.float() - b.float()).abs().max().item()
         assert err <= rtol * b.float().abs().max().item(), (name, err)
+    if dtype == "bfloat16":
+        # the kernels' own algorithm (p and ds rounded to bf16, the kernels' tiles and
+        # cluster split), on the CPU: both sides are fp32 sums of the same rounded
+        # operands, rounded once to bf16, so they differ where a rounding falls the
+        # other way: at most one bf16 step at the largest value (2^-7 of it), and in
+        # rms far less than one rounding (2^-9 of the reference's rms)
+        from mimic_tpu_torch.ops.quant import _sm_count
+
+        split = tfb.dkv_split(q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                              _sm_count(cuda_device.index or 0))
+        model = tfb.flash_attention_backward_tiled_plain(*(x.cpu() for x in args), **kw,
+                                                         split=split)
+        for name, a, b in zip(("dq", "dk", "dv"), got, model):
+            a, b = a.float().cpu(), b.float()
+            err = (a - b).abs().max().item()
+            assert err <= 2.0 ** -7 * b.abs().max().item(), (name, err)
+            rms = ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+            assert rms <= 2.0 ** -9, (name, rms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_backward_dkv_cluster_splits_agree_on_card(cuda_device, split):
+    """The bf16 dkv kernel under every cluster split: the same bits on two
+    launches, and the unsplit result up to fp32 summation order."""
+    case = (2, 256, 256, 8, 2, True, True, 61)
+    (q, k, v), km, g_out, g_lse, g_lse_u = _bwd_inputs(case, "bfloat16", cuda_device, 7)
+    out, lse, lse_u = tfa.attention_plain(q, k, v, km)
+    args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, True, None, True)
+    run = lambda s: tfb._launch_backward(*args, kernels=("flash_bwd_dkv",), split=s)[1:]  # noqa: E731
+    one, got, again = run(1), run(split), run(split)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, one, again):
+        assert torch.equal(a, c)
+        assert (a.float() - b.float()).abs().max().item() <= 2.0 ** -7 * b.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_backward_tiled_plain_version_names_the_kernels_tiling_on_card(cuda_device):
+    """flash_attention_backward_tiled_plain (the CPU tests' model of the bf16
+    backward) and the compiled kernels name the same tiling."""
+    import ctypes
+
+    from mimic_tpu_torch.ops import _build
+
+    vals = [ctypes.c_int() for _ in range(5)]
+    assert _build.load_library().mimic_flash_bwd_tiling(*(ctypes.byref(x) for x in vals)) == 0
+    assert [x.value for x in vals] == [tfb.TILE_DQ_ROWS, tfb.TILE_DQ_KEYS, tfb.TILE_DKV_KEYS,
+                                       tfb.TILE_DKV_ROWS, tfb.MAX_SPLIT]
 
 
 @pytest.mark.cuda
