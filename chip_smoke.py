@@ -56,7 +56,8 @@ Phases (any failure propagates: non-zero exit, no result line):
 6. int8 kernels — int8_matmul, fused_mlp_int8 and prompt_attn_int8 against their
              plain versions on the card, bf16, at the decode shapes of the int8
              serving path (phase 2's rules: max error against stated tolerances,
-             both times from CUDA events), a second launch bit-identical; beside
+             both times from CUDA events), a second launch bit-identical,
+             prompt_attn_int8 one kernel per call (torch.profiler); beside
              each int8 product the bf16 torch.matmul it stands in for (a
              yardstick of the mode, never called by the port); qdot's cut-off:
              int8_matmul against dequantize + bf16 torch.matmul for M 16-512.
@@ -71,16 +72,20 @@ Phases (any failure propagates: non-zero exit, no result line):
              logits through the kernels against a bf16 tree dequantized from the
              same int8 handles (row cosine >= 0.99), one int8 call A under the
              profiler; call B without a shift, which takes the int8 prompt KV,
-             timed against the same call with quant_kv=False; then
+             timed against the same call with quant_kv=False at Tp 4096 and at
+             Tp 1024 (QUANT_KV_MIN_PROMPT's cut-off); then
              set_quant("int8-memory"): call A, peak device memory, kernels in the
              prefill (lm head) and the decode steps.
 
-9. W8A8 kernel — w8a8_matmul against w8a8_matmul_plain at the 8B prefill shapes
+9. W8A8 kernels — w8a8_matmul against w8a8_matmul_plain at the 8B prefill shapes
              of call A (M = 2048: q/k/v, o, gate/up, down; stacked, at a layer other
              than 0), a ragged M, a lane-padded N through qdot and a K below the
-             tile: fp32 and bf16 outputs EQUAL; times cold, beside torch._int_mm +
-             scales and the dequantize + bf16 matmul path; quantize_rows on the
-             card bit-identical to the CPU's.
+             tile: fp32 and bf16 outputs EQUAL; times cold, as device time through
+             CUDA graphs, beside torch._int_mm + scales, the dequantize + bf16
+             matmul path and a bf16 torch.matmul (the yardstick); the quantize_rows
+             kernel timed against its plain version per shape and bit-identical to
+             the CPU's at K 80 / 4096 / 14336; W8A8_MIN_M's cut-off: quantize_rows +
+             w8a8_matmul against int8_matmul at M 256 / 384 / 480.
 10. tiny W8A8 — phase 7's tiny idefics2 in "int8-w8a8" at 256 prompt rows: exact
              launches (4 per layer per prefill), prefill logits on the card against
              a CPU computation through the plain W8A8 functions.
@@ -98,19 +103,25 @@ Every kernel's entry in the next-to-last line carries its time, its plain
 version's, the least time the card could take (bound_ms, bound_by) and the time
 of the one PyTorch call that computes the same function where there is one
 (library_ms: timed here, never used by the port).
+The build fails the run where ptxas serializes a wgmma (a "Performance Loss" line)
+in w8a8_matmul.cu, prompt_attn_int8.cu or quantize_rows.cu.
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...}.
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
-    python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, then the HMMA
+    python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
+                                             # prompt_attn_int8 cluster-split sweeps, then the HMMA
                                              # opcodes of the int8 kernels' SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only DIR    # the same on the kernels of the checkout in DIR (no SASS)
     python3 chip_smoke.py --backward-only    # build + phase 2's backward cases, a cluster-split sweep,
                                              # then the HGMMA opcodes of the bf16 backward kernels' SASS:
                                              # exit 3, no result line
     python3 chip_smoke.py --backward-only DIR  # the backward cases on the kernels of the checkout in DIR
+    python3 chip_smoke.py --w8a8-only [DIR]  # build + phase 9 and W8A8_MIN_M's cut-off (on DIR's
+                                             # kernels), then the IGMMA opcodes of w8a8_matmul's
+                                             # SASS (this tree only): exit 3, no result line
 """
 
 from __future__ import annotations
@@ -217,6 +228,12 @@ KERNEL_META = {
         "source": "mimic_tpu_torch/ops/csrc/w8a8_matmul.cu",
         "replaces": "mimic_tpu/ops/quant.py:382",
         "also_replaces": ["mimic_tpu/ops/quant.py:403"],
+    },
+    # not a Pallas kernel: the port's form of the fused XLA pass that feeds w8a8_matmul
+    "quantize_rows": {
+        "route": "cuda",
+        "source": "mimic_tpu_torch/ops/csrc/quantize_rows.cu",
+        "replaces": "mimic_tpu/ops/quant.py:370",
     },
 }
 
@@ -483,9 +500,11 @@ def sass_counts(library: str, kernels, ops, instantiations: int) -> None:
             raise AssertionError(f"{fn}: an opcode of {ops} is missing from its SASS")
 
 
-def ptxas_lines(info: dict, kernels) -> None:
+def ptxas_lines(info: dict, kernels, strict_sources=()) -> None:
     """What ``-Xptxas=-v`` said of the registers, spills and shared memory of
-    the kernels whose mangled name holds one of ``kernels``."""
+    the kernels whose mangled name holds one of ``kernels``; a "Performance
+    Loss" line (wgmma serialized) in the output of one of ``strict_sources``
+    fails the run."""
     lines = info["ptxas"].splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(k in line for k in kernels):
@@ -493,6 +512,11 @@ def ptxas_lines(info: dict, kernels) -> None:
                                         for x in lines[i:i + 4]))
         if "Performance Loss" in line:  # e.g. wgmma serialized for want of registers
             log("[build] " + line)
+    for src in strict_sources:
+        bad = [x for x in info.get("ptxas_by_source", {}).get(src, "").splitlines()
+               if "Performance Loss" in x]
+        if bad:
+            raise AssertionError(f"ptxas serializes in {src}: {bad}")
 
 
 def backward_launcher(args, name, split=None):
@@ -887,6 +911,8 @@ def kernel_group(key: str) -> str:
     return ("attention backward kernels" if "flash_bwd" in key or "bwd::" in key
             else "attention forward kernels" if "mimic::" in key
             else "int8_matmul" if "int8_matmul" in key
+            else "w8a8_matmul" if "w8a8" in key
+            else "quantize_rows" if "quantize_rows" in key
             else "fused_mlp" if "fused_mlp" in key
             else "prompt_attn" if "prompt_attn" in key
             else "int8 split-K reduce" if "splitk_reduce" in key
@@ -926,7 +952,7 @@ def profile_run(label, run):
         return
     groups = dict.fromkeys(("attention forward kernels", "attention backward kernels",
                             "int8_matmul", "fused_mlp", "prompt_attn", "int8 split-K reduce",
-                            "matmuls", "other"), 0.0)
+                            "w8a8_matmul", "quantize_rows", "matmuls", "other"), 0.0)
     for key, t in us.items():
         groups[kernel_group(key)] += t
     spans = {}
@@ -1368,9 +1394,11 @@ def check_fused_mlp(label, seed, M, D, F, reps):
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
-def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
+def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps, split_sweep=False):
     """prompt_attn_int8 on a 16-layer int8 prompt cache quantized on the card,
-    folded layout, against its plain version (checked at layer 1)."""
+    folded layout, against its plain version (checked at layer 1); one kernel
+    launched per call; ``split_sweep``: the kernel under every cluster split,
+    the plan's choice marked."""
     from mimic_tpu_torch.ops import decode_attention as tda
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1396,8 +1424,32 @@ def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps):
     rows = beams * Hkv * G
     b = bound(nbytes(qf, pk["q8"][0], pk["scale"][0], pv["q8"][0], pv["scale"][0], mask)
               + B0 * rows * (D * 4 + 8), 4 * rows * D * keys, "bf16")
-    log(f"[int8] {label}: {bound_text(b)}; no PyTorch call attends over int8 keys and "
-        f"returns the partial (o, m, l)")
+    log(f"[int8] {label}: {bound_text(b)} ({b['bound_ms'] / ms:.1%} of it); no PyTorch call "
+        f"attends over int8 keys and returns the partial (o, m, l)")
+    if hasattr(tda, "prompt_split"):
+        # one kernel per call: no merge kernel, no workspace
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tda._launch(*args(1))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        log(f"[int8] {label}: kernels of one call {names}")
+        if len(names) != 1 or "prompt_attn" not in names[0]:
+            raise AssertionError(f"{label}: one call launched {names}, want one prompt_attn kernel")
+        if split_sweep:
+            M = beams * G
+            clusters = {s: tda._clusters(0, s, M) for s in tda.PROMPT_SPLITS}
+            plan = tda.prompt_split(B0, Hkv, Sp, clusters.get)
+            times = {}
+            for split in tda.PROMPT_SPLITS:
+                if split <= Sp // tda.KEY_BLOCK:
+                    times[split] = cold_ms(lambda l, s=split: tda._launch(*args(l), split=s),
+                                           layers, reps, True)
+            log(f"[int8] split sweep, prompt_attn_int8 {label} ({B0 * Hkv} clusters; the card "
+                f"holds at once " + ", ".join(f"{n} of {s}" for s, n in clusters.items()) + "): "
+                + ", ".join(f"split {k} {t:.4f} ms{' (plan)' if k == plan else ''}"
+                            for k, t in times.items()))
     return {"name": "prompt_attn_int8", "max_abs_err": max(errs.values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
             "library_ms": None}
@@ -1471,7 +1523,7 @@ def int8_split_sweep():
                 for ks, t in times.items()))
 
 
-def phase_int8_kernels():
+def phase_int8_kernels(split_sweep=False):
     """The int8 kernels at idefics2-8b's decode shapes (D 4096, 32 heads / 8 kv
     heads, F 14336, vocab 32003): M = 12 is call A's decode (4 requests x 3
     beams), M = 6 call B's; M = 255 the largest M that takes the kernel.  The
@@ -1484,8 +1536,10 @@ def phase_int8_kernels():
         check_int8_matmul("qkv-255", 24, 255, 4096, 6144, 32, 1, 0, reps=32),
         check_fused_mlp("mlp-12", 25, 12, 4096, 14336, reps=16),
         check_fused_mlp("mlp-6", 26, 6, 4096, 14336, reps=16),
-        check_prompt_attn("call-B", 27, 2, NUM_BEAMS, 8, 4, 4096, (0, 250), reps=32),
-        check_prompt_attn("call-A", 28, 4, NUM_BEAMS, 8, 4, 512, (130, 0, 37, 300), reps=32),
+        check_prompt_attn("call-B", 27, 2, NUM_BEAMS, 8, 4, 4096, (0, 250), reps=32,
+                          split_sweep=split_sweep),
+        check_prompt_attn("call-A", 28, 4, NUM_BEAMS, 8, 4, 512, (130, 0, 37, 300), reps=32,
+                          split_sweep=split_sweep),
     ]
     summary = {}
     for r in results:
@@ -1537,7 +1591,7 @@ def _int8_counts():
     from mimic_tpu_torch.ops import decode_attention as tda
     from mimic_tpu_torch.ops import quant as tq
 
-    return {**tq.LAUNCHES, **tda.LAUNCHES}
+    return {**tq.LAUNCHES, **tq.ROW_LAUNCHES, **tda.LAUNCHES}
 
 
 def _reset_int8_counts():
@@ -1591,7 +1645,7 @@ def phase_tiny_int8():
     torch.cuda.synchronize()
     launches = _int8_counts()
     want = {"int8_matmul": (new - 1) * (2 * L + 1), "fused_mlp_int8": (new - 1) * L,
-            "w8a8_matmul": 0, "prompt_attn_int8": 0}
+            "w8a8_matmul": 0, "quantize_rows": 0, "prompt_attn_int8": 0}
     errs = [(g - w).abs().max().item() for g, w in zip(logits["cuda"], logits["cpu"])]
     close = all(torch.allclose(g, w, rtol=TOL_TINY_FP32, atol=TOL_TINY_FP32)
                 for g, w in zip(logits["cuda"], logits["cpu"]))
@@ -1681,7 +1735,7 @@ def phase_int8_8b(runner):
     L = cfg.text.num_layers
     steps = MAX_NEW_TOKENS - 1
     want = {"int8_matmul": steps * (2 * L + 1), "fused_mlp_int8": steps * L, "w8a8_matmul": 0,
-            "prompt_attn_int8": 0}
+            "quantize_rows": 0, "prompt_attn_int8": 0}
     totals = dict.fromkeys(want, 0)
     shift = runner.shift
 
@@ -1757,22 +1811,31 @@ def phase_int8_8b(runner):
     # 2. call B without a shift: Tp = 4096 >= 1024 turns the int8 prompt KV on
     runner.set_shift(None)
     counted("B", "int8, no shift: int8 prompt KV", {**want, "prompt_attn_int8": steps * L})
+    # QUANT_KV_MIN_PROMPT (1024): quant_kv on against off at Tp 4096 (call B) and at
+    # Tp 1024 (call B's images with a 800-character context: the gate itself)
+    images_b = calls["B"][0]
+    short = runner.process_input(
+        images_b, [f"Image:<image> {synthetic_text(60 + i, 800)}Question: what is in the image? "
+                   f"Answer:" for i in range(2)], pad_to=1024)
+    for tp, batch in ((4096, batch_of("B")), (1024, short)):
+        times = {True: [], False: []}
+        for quant_kv in (True, False):  # warm-up
+            beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
+        for quant_kv in (True, False, True, False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
+            torch.cuda.synchronize()
+            times[quant_kv].append(time.perf_counter() - t)
+        log(f"[int8] QUANT_KV_MIN_PROMPT cut-off, call B without a shift at Tp {tp} "
+            f"({batch.input_ids.shape[1]} prompt slots) through beam_generate: quant_kv on "
+            f"{', '.join(f'{t:.3f}' for t in times[True])} s, off "
+            f"{', '.join(f'{t:.3f}' for t in times[False])} s")
     batch = batch_of("B")
-    times = {True: [], False: []}
-    for quant_kv in (True, False):  # warm-up
-        beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
-    for quant_kv in (True, False, True, False):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        beam(batch, MAX_NEW_TOKENS, runner.decode_params, quant_kv=quant_kv)
-        torch.cuda.synchronize()
-        times[quant_kv].append(time.perf_counter() - t)
     on = first_step_logits(batch, runner.decode_params, quant_kv=True)
     off = first_step_logits(batch, runner.decode_params, quant_kv=False)
     cos = _row_cosine(on, off)
-    log(f"[int8] call B without a shift through beam_generate: quant_kv on "
-        f"{', '.join(f'{t:.3f}' for t in times[True])} s, off "
-        f"{', '.join(f'{t:.3f}' for t in times[False])} s; first decode step logits on vs off: "
+    log(f"[int8] call B without a shift, first decode step logits quant_kv on vs off: "
         f"max abs diff {(on - off).abs().max().item():.4f}, min row cosine {cos:.6f} "
         f"(need >= {MIN_LOGIT_COSINE})")
     if cos < MIN_LOGIT_COSINE or not torch.isfinite(on).all():
@@ -1804,9 +1867,12 @@ def check_w8a8(label, seed, M, K, N, layers, layer, reps, n_real=0, timed=True):
     """w8a8_matmul (stacked when ``layers``) on rows quantized by quantize_rows
     against w8a8_matmul_plain: fp32 and bf16 outputs must be EQUAL (the int32 sum
     is exact and both multiply (acc * s_x) * s_w).  ``n_real``: a lane-padded
-    handle through qdot's a8 branch (scale padded, output sliced).  Timed with
-    the layer cycling through a stack larger than L2, beside torch._int_mm + the
-    two scale multiplies and the dequantize + bf16 torch.matmul path."""
+    handle through qdot's a8 branch (scale padded, output sliced).  Timed as
+    device time through CUDA graphs with the layer cycling through a stack
+    larger than L2, beside torch._int_mm + the two scale multiplies, the
+    dequantize + bf16 torch.matmul path, and a bf16 torch.matmul on a bf16 copy
+    of the weights (the product the mode stands in for; never called by the
+    port); and quantize_rows of the input, kernel against its plain version."""
     from mimic_tpu_torch.ops import quant as tq
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1852,8 +1918,8 @@ def check_w8a8(label, seed, M, K, N, layers, layer, reps, n_real=0, timed=True):
     nl = max(layers, 1)
     sel = (lambda l: (wq[l], scale[l])) if layers else (lambda l: (wq, scale))
     ms = cold_ms(lambda l: tq.w8a8_matmul_stacked(x8, xs, wq, scale, l) if layers
-                 else tq.w8a8_matmul(x8, xs, wq, scale), nl, reps)
-    plain_ms = cold_ms(lambda l: tq.w8a8_matmul_plain(x8, xs, *sel(l)), nl, max(reps // 4, 2))
+                 else tq.w8a8_matmul(x8, xs, wq, scale), nl, reps, True)
+    plain_ms = cold_ms(lambda l: tq.w8a8_matmul_plain(x8, xs, *sel(l)), nl, max(reps // 4, 2), True)
 
     def int_mm(l):
         w, sw = sel(l)
@@ -1861,28 +1927,69 @@ def check_w8a8(label, seed, M, K, N, layers, layer, reps, n_real=0, timed=True):
 
     if not torch.equal(int_mm(layer), tq.w8a8_matmul_plain(x8, xs, *sel(layer))):
         raise AssertionError(f"{label}: torch._int_mm + scales differs from the plain version")
-    library_ms = cold_ms(int_mm, nl, reps)
-    product_ms = cold_ms(lambda l: torch._int_mm(x8, sel(l)[0]), nl, reps)
+    library_ms = cold_ms(int_mm, nl, reps, True)
+    product_ms = cold_ms(lambda l: torch._int_mm(x8, sel(l)[0]), nl, reps, True)
     deq_ms = cold_ms(lambda l: x @ tq.dequantize(
-        {"q8": wq, "scale": scale, "layer": l if layers else None}).to(x.dtype), nl, reps)
-    rows_ms = cuda_ms(lambda: tq.quantize_rows(x), reps)
+        {"q8": wq, "scale": scale, "layer": l if layers else None}).to(x.dtype), nl, reps, True)
+    wb = wq.to(torch.bfloat16)
+    bf16_ms = cold_ms(lambda l: x @ (wb[l] if layers else wb), nl, reps, True)
+    del wb
+    rows = quantize_rows_times(x, reps)
     log(f"[w8a8] {label}: w8a8_matmul M{M} K{K} N{n_out}"
         f"{f' layer {layer} of {layers}' if layers else ''}: fp32 and bf16 outputs equal to the "
         f"plain version's (max abs err {worst}, max |ref| {ref:.3f}); kernel {ms:.4f} ms "
-        f"({2 * M * K * n_out / ms / 1e9:.1f} TOP/s), plain (float64 GEMM) {plain_ms:.4f} ms, "
-        f"torch._int_mm + two scale multiplies {library_ms:.4f} ms (its int32 product alone "
-        f"{product_ms:.4f} ms), dequantize + bf16 "
-        f"torch.matmul {deq_ms:.4f} ms, quantize_rows of the input {rows_ms:.4f} ms; "
-        f"{bound_text(b)}")
-    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+        f"({2 * M * K * n_out / ms / 1e9:.1f} TOP/s, {b['bound_ms'] / ms:.1%} of the bound), "
+        f"plain (float64 GEMM) {plain_ms:.4f} ms, torch._int_mm + two scale multiplies "
+        f"{library_ms:.4f} ms (its int32 product alone {product_ms:.4f} ms), dequantize + bf16 "
+        f"torch.matmul {deq_ms:.4f} ms; yardstick, bf16 torch.matmul on a bf16 copy of the "
+        f"weights {bf16_ms:.4f} ms (kernel / bf16 {ms / bf16_ms:.2f}); {bound_text(b)} "
+        f"(device time through CUDA graphs)")
+    result.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, rows=rows)
     return result
+
+
+def quantize_rows_times(x, reps):
+    """quantize_rows on ``x`` (the kernel on the card) against its plain version,
+    device time through CUDA graphs, and the bound of its bytes (x read, x8 and
+    s written once)."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    M, K = x.shape
+    plain = getattr(tq, "quantize_rows_plain", tq.quantize_rows)
+    ms = cuda_ms(lambda: tq.quantize_rows(x), reps, True)
+    plain_ms = cuda_ms(lambda: plain(x), reps, True)
+    b = bound(nbytes(x) + M * K + 4 * M, 0, "bf16")
+    log(f"[w8a8] quantize_rows [{M}, {K}] {str(x.dtype).replace('torch.', '')}: kernel "
+        f"{ms:.4f} ms ({b['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} ms; "
+        f"{bound_text(b)}; no PyTorch call quantizes rows (device time through CUDA graphs)")
+    return {"name": "quantize_rows", "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"], "library_ms": None}
+
+
+def w8a8_crossover():
+    """W8A8_MIN_M against the weight-only path: at the q/k/v shape (K 4096, N
+    6144, a 32-layer stack cycled as cold_ms does) for M 256, 384 and 480, the
+    W8A8 prefill (quantize_rows + w8a8_matmul) against int8_matmul on the same
+    bf16 rows, device time through CUDA graphs."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    gen = torch.Generator(device="cuda").manual_seed(48)
+    wq, scale = _int8_weight(gen, (32, 4096, 6144), 4e-4)
+    for M in (256, 384, 480):
+        x = torch.randn(M, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+        w8a8 = cold_ms(lambda l: tq.w8a8_matmul_stacked(*tq.quantize_rows(x), wq, scale, l),
+                       32, 32, True)
+        weight_only = cold_ms(lambda l: tq.int8_matmul_stacked(x, wq, scale, l), 32, 32, True)
+        log(f"[w8a8] W8A8_MIN_M cut-off, q/k/v M{M}: quantize_rows + w8a8_matmul {w8a8:.4f} ms, "
+            f"int8_matmul {weight_only:.4f} ms ({'W8A8' if w8a8 < weight_only else 'weight-only'} "
+            f"faster)")
 
 
 def phase_w8a8_kernels():
     """w8a8_matmul at idefics2-8b's prefill shapes of call A (M = 4 x 512): the
     fused q/k/v, o, gate/up and down projections, stacked at a layer other than
     0; then a ragged M, a lane-padded N through qdot, and a K that is no
-    multiple of the 64-byte tile; and quantize_rows on the card against the CPU."""
+    multiple of the 128-byte tile; and quantize_rows on the card against the CPU."""
     from mimic_tpu_torch.ops import quant as tq
 
     results = [
@@ -1895,18 +2002,25 @@ def phase_w8a8_kernels():
         check_w8a8("k-80", 46, 257, 80, 144, 0, 0, reps=0, timed=False),
     ]
     gen = torch.Generator(device="cuda").manual_seed(47)
+    worst = 0
     for dtype in (torch.float32, torch.bfloat16):
-        x = (torch.randn(2048, 4096, generator=gen, device="cuda") * 3).to(dtype)
-        x[5] = 0  # an all-zero row takes the 1e-8 floor
-        on_card, on_cpu = tq.quantize_rows(x), tq.quantize_rows(x.cpu())
-        if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
-            raise AssertionError(f"quantize_rows ({dtype}) on the card differs from the CPU's")
-    log("[w8a8] quantize_rows [2048, 4096] fp32 and bf16: int8 rows and fp32 scales on the card "
-        "bit-identical to the CPU's")
+        for K in (80, 4096, 14336):
+            x = (torch.randn(2048, K, generator=gen, device="cuda") * 3).to(dtype)
+            x[5] = 0  # an all-zero row takes the 1e-8 floor
+            on_card, on_cpu = tq.quantize_rows(x), tq.quantize_rows(x.cpu())
+            worst = max(worst, (on_card[0].cpu().int() - on_cpu[0].int()).abs().max().item(),
+                        (on_card[1].cpu() - on_cpu[1]).abs().max().item())
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+                raise AssertionError(f"quantize_rows ({dtype}, K {K}) on the card differs from "
+                                     f"the CPU's")
+    log("[w8a8] quantize_rows [2048, 80 / 4096 / 14336] fp32 and bf16: int8 rows and fp32 "
+        "scales on the card bit-identical to the CPU's")
     summary = {"max_abs_err": max(r["max_abs_err"] for r in results)}
     # the times kept are those of the largest product of the path, gate/up
     summary.update({k: results[2][k] for k in TIMING_KEYS})
-    return {"w8a8_matmul": summary}
+    # quantize_rows: its time at the K 4096 rows that feed three of the four products
+    rows = {"max_abs_err": worst, **{k: results[0]["rows"][k] for k in TIMING_KEYS}}
+    return {"w8a8_matmul": summary, "quantize_rows": rows}
 
 
 def qdot_w8a8_plain(x, w, preferred_element_type=None):
@@ -1990,7 +2104,8 @@ def phase_tiny_w8a8():
     launches = _int8_counts()
     # the prefill: 4 W8A8 matmuls per layer and the lm head at M = 2; then
     # new - 1 decode steps as in "int8-memory"
-    want = {"w8a8_matmul": 4 * L, "int8_matmul": (new - 1) * (2 * L + 1) + 1,
+    want = {"w8a8_matmul": 4 * L, "quantize_rows": 4 * L,
+            "int8_matmul": (new - 1) * (2 * L + 1) + 1,
             "fused_mlp_int8": (new - 1) * L, "prompt_attn_int8": 0}
     err = (logits["cuda"] - logits["cpu"]).abs().max().item()
     close = torch.allclose(logits["cuda"], logits["cpu"], rtol=TOL_TINY_W8A8, atol=TOL_TINY_W8A8)
@@ -2120,7 +2235,7 @@ def phase_eval_w8a8(ckpt, trained_shift, result_dir):
     with open(record_file) as f:
         saved = json.load(f)
     steps = MAX_NEW_TOKENS - 1
-    want = {"w8a8_matmul": EVAL_BATCHES * 4 * L,
+    want = {"w8a8_matmul": EVAL_BATCHES * 4 * L, "quantize_rows": EVAL_BATCHES * 4 * L,
             "int8_matmul": EVAL_BATCHES * (steps * (2 * L + 1) + 1),
             "fused_mlp_int8": EVAL_BATCHES * steps * L, "prompt_attn_int8": 0}
     log(f"[eval] python -m mimic_tpu_torch eval {' '.join(overrides[:4])} ...: {n} requests "
@@ -2280,7 +2395,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     other = None
-    if sys.argv[1:2] in (["--int8-only"], ["--backward-only"]) and len(sys.argv) == 3:
+    if sys.argv[1:2] in (["--int8-only"], ["--backward-only"], ["--w8a8-only"]) and len(sys.argv) == 3:
         # phase 6 or phase 2's backward cases on another checkout's kernels (e.g.
         # the parent commit's, unpacked with git archive), measured as this script measures
         other = os.path.abspath(sys.argv[2])
@@ -2299,8 +2414,11 @@ def main() -> int:
     log(f"[build] {info['command'] or 'cached: ' + info['path']}")
     log(f"[build] nvcc for sm_90a: {info['seconds']:.1f} s compiling, "
         f"{time.perf_counter() - t0:.1f} s in all; library {os.path.relpath(info['path'], ROOT)}")
-    # registers, spills and shared memory of the tensor-core kernels
-    ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp"))
+    # registers, spills and shared memory of the tensor-core kernels; a serialized
+    # wgmma (or mma) in the kernels redesigned last fails the run
+    ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp",
+                       "w8a8", "prompt_attn_mma", "quantize_rows"),
+                ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:
@@ -2311,7 +2429,7 @@ def main() -> int:
         return 3
 
     if sys.argv[1:2] == ["--int8-only"]:
-        phase_int8_kernels()
+        phase_int8_kernels(split_sweep=other is None)
         int8_crossover()
         if other is None:
             int8_split_sweep()
@@ -2319,6 +2437,16 @@ def main() -> int:
             sass_counts(info["path"], INT8_MMA_KERNELS, ("HMMA",), 6)
         log(f"[card] partial run (--int8-only{'' if other is None else ' ' + other}): phase 6's "
             "int8 kernels passed; no result line")
+        return 3
+
+    if sys.argv[1:2] == ["--w8a8-only"]:
+        phase_w8a8_kernels()
+        w8a8_crossover()
+        if other is None:
+            # the integer wgmma of both output types
+            sass_counts(info["path"], ("w8a8_wgmma_kernel",), ("IGMMA",), 2)
+        log(f"[card] partial run (--w8a8-only{'' if other is None else ' ' + other}): phase 9's "
+            "W8A8 kernels passed; no result line")
         return 3
 
     if sys.argv[1:2] == ["--backward-only"]:
@@ -2346,6 +2474,7 @@ def main() -> int:
     summary.update(phase_int8_kernels())
     int8_crossover()
     summary.update(phase_w8a8_kernels())
+    w8a8_crossover()
     phase_tiny_reference()
     phase_tiny_train()
     phase_tiny_int8()
@@ -2369,7 +2498,8 @@ def main() -> int:
     kernels = [
         {"name": name, **KERNEL_META[name], "launches": launches[name], **summary[name]}
         for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                     "int8_matmul", "fused_mlp_int8", "prompt_attn_int8", "w8a8_matmul")
+                     "int8_matmul", "fused_mlp_int8", "prompt_attn_int8", "w8a8_matmul",
+                     "quantize_rows")
     ]
     for k in kernels:
         missing = [key for key in ("max_abs_err", *TIMING_KEYS) if key not in k]

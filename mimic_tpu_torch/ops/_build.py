@@ -30,6 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
     "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
+    "quantize_rows.cu",
 )
 HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "attn_bwd_mma.cuh",
            "int8_common.cuh", "int8_mma.cuh")
@@ -75,7 +76,7 @@ def build() -> Dict[str, object]:
     Returns a dict with the library ``path``, the ``seconds`` spent compiling,
     the nvcc ``command`` lines and ``ptxas``, what ``-Xptxas=-v`` said of each
     kernel's registers, spills and shared memory (0 and "" when the library
-    was up to date).
+    was up to date), also by source in ``ptxas_by_source``.
     """
     digest = _digest()
     path = BUILD_DIR / f"libmimic_kernels-{digest}.so"
@@ -85,16 +86,16 @@ def build() -> Dict[str, object]:
     obj_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     t0 = time.perf_counter()
-    compiles, ptxas = [], []
+    compiles, ptxas = [], {}
     for src in SOURCES:
         cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o",
                str(obj_dir / (Path(src).stem + ".o")), str(CSRC / src)]
         compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                stderr=subprocess.PIPE, text=True)))
-    for cmd, p in compiles:
+    for src, (cmd, p) in zip(SOURCES, compiles):
         out, err = p.communicate()
         _check(subprocess.CompletedProcess(cmd, p.returncode, out, err), cmd)
-        ptxas.append(err)
+        ptxas[src] = err
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
             *(str(obj_dir / (Path(s).stem + ".o")) for s in SOURCES)]
@@ -103,7 +104,8 @@ def build() -> Dict[str, object]:
     os.replace(tmp, path)
     shutil.rmtree(obj_dir, ignore_errors=True)
     command = "\n".join(" ".join(c) for c in [*(c for c, _ in compiles), link])
-    return {"path": str(path), "seconds": seconds, "command": command, "ptxas": "".join(ptxas)}
+    return {"path": str(path), "seconds": seconds, "command": command,
+            "ptxas": "".join(ptxas.values()), "ptxas_by_source": ptxas}
 
 
 def load_library() -> ctypes.CDLL:
@@ -146,12 +148,18 @@ def load_library() -> ctypes.CDLL:
     # xn, gu, gu_scale, down, down_scale, h, out, M, D, F, ks_gu, ks_down, out_dtype, stream
     lib.mimic_fused_mlp_int8_mma.argtypes = [p] * 7 + [i] * 6 + [p]
     lib.mimic_fused_mlp_int8_mma.restype = i
-    # q, k8, ks, v8, vs, mask, work, o, m, l, B0, Hkv, M, Sp, dtype, stream
-    lib.mimic_prompt_attn_int8.argtypes = [p] * 10 + [i] * 5 + [p]
+    # q, k8, ks, v8, vs, mask, work, o, m, l, B0, Hkv, M, Sp, dtype, split, stream
+    lib.mimic_prompt_attn_int8.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.mimic_prompt_attn_int8.restype = i
+    # split, M -> clusters of that many CTAs the card holds at once
+    lib.mimic_prompt_attn_max_clusters.argtypes = [i, i]
+    lib.mimic_prompt_attn_max_clusters.restype = i
     # x8, xs, w, sw, out, M, K, N, out_dtype, stream
     lib.mimic_w8a8_matmul.argtypes = [p] * 5 + [i] * 4 + [p]
     lib.mimic_w8a8_matmul.restype = i
+    # x, x8, s, M, K, dtype, stream
+    lib.mimic_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.mimic_quantize_rows.restype = i
     lib.mimic_cuda_error_string.argtypes = [i]
     lib.mimic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -5,12 +5,13 @@
 // at quant.py:442, w8a8_matmul) and ::_w8a8_kernel_stacked (quant.py:494,
 // w8a8_matmul_stacked).  A layer of a contiguous [L, K, N] stack is a pointer
 // offset, applied by the wrapper (mimic_tpu_torch/ops/quant.py), so one kernel
-// serves both sites.
+// serves both sites.  The rows come from quantize_rows.cu.
 //
 // Contract: x8 [M, K] int8 row-major, xs [M] fp32, w8 [K, N] int8 row-major (N
 // contiguous, as the JAX tree stores it), sw [N] fp32; out [M, N] fp32 or bf16.
-// K and N are multiples of 16; M is any positive number (the ragged last row
-// tile is masked here, nothing is padded).  The sum is exact in int32
+// K and N are multiples of 16, x8 and w8 start 16-byte aligned; M is any
+// positive number (rows and columns beyond the arrays arrive as zeros and are
+// not stored; nothing is padded or copied).  The sum is exact in int32
 // (127 * 127 * K < 2^31 for K < 133,152) and both scales multiply it once, in
 // the order (acc * s_x) * s_w, so the result has no summation-order freedom: it
 // equals the plain version bit for bit.
@@ -20,90 +21,83 @@
 // 25-117 MB of weights and 8 MB of activations plus the output: 35-243 us at
 // the tensor cores' 1,979 TOP/s against 15-77 us at 3.35 TB/s.  Operations
 // bound it at every shape of the path, so the work belongs on the integer
-// tensor cores.
+// tensor cores at their full rate, which only wgmma reaches.
 //
-// Design.  The TPU kernel's sequential K grid axis with a VMEM accumulator
-// becomes a loop inside the block.  A CTA of 256 threads (8 warps as 2 x 4)
-// owns a 128 x 256 output tile and walks K in tiles of 64; each warp owns
-// 64 x 64 of it as 4 x 8 tiles of mma.sync.m16n8k32 (s8 x s8 -> s32), 128
-// int32 accumulators per thread, fragments read with ldmatrix.  The s8 mma
-// wants, for B, four consecutive k of one column n in one register, but the
-// weights are stored with N contiguous and ldmatrix.trans moves 16-bit
-// elements, not bytes.  So the weight tile is transposed on its way into
-// shared memory: a thread loads a 4 (k) x 16 (n) byte block as four 16-byte
-// words, transposes its four 4 x 4 sub-blocks in registers with six
-// __byte_perm each, and stores sixteen words along k into Bs[n][k].  The
-// 16-byte chunks of a Bs row are swizzled by the row index and each lane
-// rotates the order of its stores, which makes both the transposed stores and
-// the ldmatrix reads free of bank conflicts without padding (the activation
-// tile pads its rows to 80 bytes instead).  Two stages of shared memory: while
-// the tensor cores work on one, the next tile goes from registers into the
-// other, slice by slice between the mma instructions (a warp issues the scalar
-// work in the slots the tensor-core instructions leave free), and the tile
-// after that starts its way from global memory into the registers.  Measured
-// steps on the way here, on one H100 at M 2048 K 4096 N 28672: a 128 x 128
-// tile with 4-byte weight loads and one stage, 1.55 ms; this tile with 4-byte
-// loads, 1.40 ms; 16-byte loads, 1.23 ms; the stores interleaved, 1.10 ms; the
-// mma loop alone, with nothing loaded, 0.63 ms.  No cp.async / TMA ring and no
-// wgmma yet; PERF.md has its times.
+// Design (Hopper: wgmma .s8 + TMA + mbarrier, warp-specialised).
+//  * The trap: wgmma takes 8-bit operands from shared memory only K-major (the
+//    transpose bits exist for 16-bit types alone), and the weights are stored
+//    with N contiguous.  So the roles are swapped: the CTA computes out^T =
+//    W^T . x^T.  The activations x8 [M, K] are the K-major B operand (n = 256
+//    activation rows), read by wgmma straight from the TMA-written 128-byte
+//    swizzled tile; the weights are the REGISTER A operand (m = 64 weight
+//    columns per warpgroup), which has no layout rule in shared memory at all.
+//  * The A fragment from the raw [k][n] tile.  A warp's 16 A rows are 16 weight
+//    columns, one 16-byte chunk of a 128-byte tile row.  Rows of A may be any
+//    16 columns as long as the epilogue knows which: row g is column 2g and row
+//    g + 8 column 2g + 1, so a lane holds a column pair.  One
+//    ldmatrix.x4.trans reads the k32 step: the tile's bytes taken as b16 pairs
+//    of columns, four 8 x 8 matrices whose 8 rows are k values picked so that
+//    lane (g, t) receives (k, 2g), (k, 2g + 1), (k + 1, 2g), (k + 1, 2g + 1) for
+//    the four k = 4t .. 4t + 3 it needs, in two of its registers, and the same
+//    for k + 16 in the other two; two prmt per register give a0..a3.  Matrix
+//    h (0, 1) of the low half holds rows k = 4(j >> 1) + (j & 1) +
+//    2 (((j >> 2) & 1) ^ h), j = 0..7: the 8 rows of every matrix have distinct
+//    k mod 8, so under the TMA's 128-byte swizzle (chunk ^ (k & 7)) each 8-lane
+//    phase reads 8 different chunks: no bank conflicts, no copy of the weights.
+//  * A CTA is two consumer warpgroups (128 weight columns: 64 each, m64n256k32,
+//    128 int32 accumulators per thread) and one producer warp whose lane 0
+//    issues two TMA boxes per 128-byte k tile (x8: 256 rows x 128 bytes; w8:
+//    128 k x 128 columns) into a ring of STAGES slots of 48 KB, with full /
+//    empty mbarriers as in attn_mma.cuh (waits trap after 60 s of
+//    %globaltimer).  A warpgroup builds a k32 step's A fragment while the
+//    step before it runs (two register sets, refilled after wait_group 1),
+//    waits for the tile's last wgmma and frees the slot; the other warpgroup's
+//    wgmmas keep the tensor cores busy meanwhile.  No wgmma sits under a branch.
+//  * Grid: activation row tiles fastest, so the CTAs resident together share
+//    their weight tiles through L2 and the weights are read from HBM once.
+//  * Epilogue straight from the accumulators: a lane holds columns n, n + 1 of
+//    rows m, m + 1 per n8 atom; the 8 lanes of a row cover 16 consecutive
+//    columns (32 or 64 contiguous bytes, whole sectors).
+//
+// Shared memory 194 KB, one CTA of 288 threads (about 170 registers each) per SM;
+// PERF.md has its times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attn_mma.cuh"  // mbarriers, TMA, the encoder look-up and the wgmma wrappers
+
 namespace mimic_w8a8 {
 
-constexpr int NT = 256;             // threads per CTA: 8 warps as 2 (m) x 4 (n)
-constexpr int BM = 128;             // output rows per CTA
-constexpr int BN = 256;             // output columns per CTA
-constexpr int WARPS_N = BN / 64;
-constexpr int A_LOADS = BM * 4 / NT;
-constexpr int BK = 64;              // contraction bytes per staged tile
-constexpr int LDA = BK + 16;        // padded row of the activation tile, bytes
-constexpr int WM = 64, WN = 64;     // warp tile
-constexpr int MT = WM / 16;         // m16 tiles per warp
-constexpr int NTL = WN / 8;         // n8 tiles per warp
-constexpr int A_STAGE = BM * LDA;   // bytes of one activation stage
-constexpr int B_STAGE = BN * BK;    // bytes of one weight stage (rows of 64 bytes, 16-byte chunks swizzled)
-constexpr int SMEM_BYTES = 2 * (A_STAGE + B_STAGE);
+namespace mma = mimic::mma;
+namespace wg = mimic::wg;
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+constexpr int NWG = 2;                     // consumer warpgroups
+constexpr int THREADS = 128 * NWG + 32;    // and one producer warp
+// Registers: the card allocates a CTA's registers for whole warpgroups, so 288
+// threads cost what 384 do and a thread gets at most 168 (65536 / 384, rounded
+// down to 8).  128 accumulators leave 40: a tile's four A fragments (16
+// registers) held at once did not fit (ptxas serialized every wgmma, C7512, at
+// 168; at 170 registers the launch was refused), two (8 registers) do.
+constexpr int BW = 64 * NWG;               // weight columns per CTA
+constexpr int BX = 256;                    // activation rows per CTA (the wgmma's n)
+constexpr int BK = 128;                    // contraction bytes per stage (four k32 steps)
+constexpr int STAGES = 4;
+constexpr int X_BYTES = BX * BK;           // 32 KB
+constexpr int W_BYTES = BK * BW;           // 16 KB
+constexpr int SLOT_BYTES = X_BYTES + W_BYTES;
+constexpr int SMEM_BYTES = 1024 + STAGES * SLOT_BYTES + 2 * STAGES * 8;  // 1024: alignment slack
+static_assert(SLOT_BYTES % 1024 == 0 && X_BYTES % 1024 == 0, "128-byte swizzle wants 1 KB alignment");
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&d)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+struct Maps {
+  CUtensorMap x, w;
+};
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&d)[2], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(d[0]), "=r"(d[1])
-               : "r"(addr));
-}
-
-// r[i] holds bytes (k = i, n = 0..3); on return r[j] holds (n = j, k = 0..3)
-__device__ __forceinline__ void transpose4x4(uint32_t (&r)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);  // k0n0 k1n0 k0n1 k1n1
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);  // k2n0 k3n0 k2n1 k3n1
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);  // k0n2 k1n2 k0n3 k1n3
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);  // k2n2 k3n2 k2n3 k3n3
-  r[0] = __byte_perm(t0, t1, 0x5410);
-  r[1] = __byte_perm(t0, t1, 0x7632);
-  r[2] = __byte_perm(t2, t3, 0x5410);
-  r[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-__device__ __forceinline__ void swap_if(bool c, uint32_t& a, uint32_t& b) {
-  const uint32_t x = c ? b : a, y = c ? a : b;
-  a = x;
-  b = y;
 }
 
 __device__ __forceinline__ void store2(float* out, size_t i, float v0, float v1) {
@@ -114,178 +108,159 @@ __device__ __forceinline__ void store2(__nv_bfloat16* out, size_t i, float v0, f
       __halves2bfloat162(__float2bfloat16_rn(v0), __float2bfloat16_rn(v1));
 }
 
+// k of row j (0..7) of ldmatrix matrix `mat` (0..3) in a k32 step: matrices 0, 1
+// hold k 0..15, matrices 2, 3 k 16..31; lane (g, t) receives rows 2t, 2t + 1
+__host__ __device__ constexpr int frag_k(int mat, int j) {
+  return 16 * (mat >> 1) + 4 * (j >> 1) + (j & 1) + 2 * (((j >> 2) & 1) ^ (mat & 1));
+}
+
 template <typename OutT>
-__global__ void __launch_bounds__(NT, 1)
-    w8a8_matmul_kernel(const int8_t* __restrict__ x8, const float* __restrict__ xs,
-                       const int8_t* __restrict__ w, const float* __restrict__ sw,
-                       OutT* __restrict__ out, int M, int K, int N) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* const As = smem;                 // [2][BM][LDA]: As[m][k]
-  uint8_t* const Bs = smem + 2 * A_STAGE;   // [2][BN][BK]: Bs[n][k], the weight tile transposed
+__global__ void __launch_bounds__(THREADS, 1)
+    w8a8_wgmma_kernel(const float* __restrict__ xs, const float* __restrict__ sw,
+                      OutT* __restrict__ out, int M, int N, int ntiles,
+                      const __grid_constant__ Maps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
+  const uint32_t bars = base + STAGES * SLOT_BYTES;
+  auto full_bar = [&](int slot) { return bars + slot * 8; };
+  auto empty_bar = [&](int slot) { return bars + (STAGES + slot) * 8; };
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  const int m0 = blockIdx.x * BX, n0 = blockIdx.y * BW;
 
-  int acc[MT][NTL][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NTL; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  // weights: the tile is 16 k-groups (4 rows each) x 16 column groups of 16
-  // bytes, one 4 (k) x 16 (n) block per thread, loaded as four 16-byte rows.
-  // A warp covers 8 column groups (128 contiguous bytes of a weight row, one
-  // whole line) x 4 k-groups.
-  const int n16 = (warp & 1) * 8 + (lane & 7);  // column group of this thread, 0..15
-  const int kg = (warp >> 1) * 4 + (lane >> 3); // k-group of this thread, 0..15
-  const int jr = lane & 3;                       // rotation of the store order, see slice
-  const bool sr = lane & 4;
-  int4 areg[A_LOADS];
-  uint32_t wreg[4][4];  // [k row][4-byte word s]; after the transposes [column j][block s]
-
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int e = 0; e < A_LOADS; ++e) {
-      const int i = tid + NT * e, row = i >> 2, c = i & 3;
-      const int m = m0 + row, k = k0 + c * 16;
-      areg[e] = (m < M && k < K)
-                    ? __ldg(reinterpret_cast<const int4*>(x8 + static_cast<size_t>(m) * K + k))
-                    : make_int4(0, 0, 0, 0);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mma::mbar_init(full_bar(s), 1);
+      mma::mbar_init(empty_bar(s), NWG * 4);
     }
-    const int n = n0 + n16 * 16;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int k = k0 + kg * 4 + r;
-      const int4 v = (k < K && n < N)
-                         ? __ldg(reinterpret_cast<const int4*>(w + static_cast<size_t>(k) * N + n))
-                         : make_int4(0, 0, 0, 0);
-      wreg[r][0] = v.x, wreg[r][1] = v.y, wreg[r][2] = v.z, wreg[r][3] = v.w;
-    }
-  };
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();  // the last one: from here the roles run on barriers only
 
-  // Registers -> shared memory, in eight slices that the mma loop below takes
-  // one at a time, so that this scalar work fills the issue slots between the
-  // tensor-core instructions.  Word s of the four loaded rows is a 4 (k) x 4
-  // (n) byte block; transposed in place, wreg[j][s] holds column n16*16 + s*4 +
-  // j.  Row n of Bs keeps its four 16-byte chunks at chunk ^ ((n >> 1) & 3).  A
-  // thread stores its sixteen words in the order s = e ^ sr, j = p ^ jr: at each
-  // step the 32 lanes of a warp hit 32 different banks (row parity x 4 chunk
-  // positions x 4 k-groups), and the ldmatrix reads stay conflict-free.
-  auto slice = [&](int q, int stage, int k_next) {
-    uint8_t* const as = As + stage * A_STAGE;
-    uint8_t* const bs = Bs + stage * B_STAGE;
-    if (q == 0) {
-#pragma unroll
-      for (int e = 0; e < A_LOADS; ++e) {
-        const int i = tid + NT * e;
-        *reinterpret_cast<int4*>(as + (i >> 2) * LDA + (i & 3) * 16) = areg[e];
+  if (warp == NWG * 4) {
+    // ---- the producer warp: lane 0 keeps the ring full ----
+    if (lane == 0) {
+      int slot = 0, phase = 0;
+      for (int t = 0; t < ntiles; ++t) {
+        mma::mbar_wait(empty_bar(slot), phase ^ 1);  // passes at once on the first round
+        const uint32_t sx = base + slot * SLOT_BYTES;
+        mma::mbar_expect_tx(full_bar(slot), SLOT_BYTES);
+        mma::tma_load_2d(sx, &maps.x, full_bar(slot), t * BK, m0);
+        mma::tma_load_2d(sx + X_BYTES, &maps.w, full_bar(slot), n0, t * BK);
+        if (++slot == STAGES) {
+          slot = 0;
+          phase ^= 1;
+        }
       }
     }
-    if (q == 0 || q == 1) {
-#pragma unroll
-      for (int s = 2 * q; s < 2 * q + 2; ++s) {
-        uint32_t blk[4] = {wreg[0][s], wreg[1][s], wreg[2][s], wreg[3][s]};
-        transpose4x4(blk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wreg[j][s] = blk[j];
-      }
-    }
-    if (q == 2) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        swap_if(sr, wreg[j][0], wreg[j][1]);
-        swap_if(sr, wreg[j][2], wreg[j][3]);
-      }
-    }
-    if (q >= 3 && q <= 6) {
-      const int e = q - 3;
-      swap_if(jr & 1, wreg[0][e], wreg[1][e]);
-      swap_if(jr & 1, wreg[2][e], wreg[3][e]);
-      swap_if(jr & 2, wreg[0][e], wreg[2][e]);
-      swap_if(jr & 2, wreg[1][e], wreg[3][e]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int row = n16 * 16 + (e ^ static_cast<int>(sr)) * 4 + (p ^ jr);
-        const int word = kg ^ (((row >> 1) & 3) << 2);
-        *reinterpret_cast<uint32_t*>(bs + row * BK + word * 4) = wreg[p][e];
-      }
-    }
-    if (q == 7) fetch(k_next);  // the registers are free again
-  };
-
-  // mma on one stage; meanwhile the tile after it goes from the registers into
-  // the other stage and the tile after that starts its way into the registers
-  auto compute = [&](int stage, int k_next) {
-    const uint32_t as_u = static_cast<uint32_t>(__cvta_generic_to_shared(As + stage * A_STAGE));
-    const uint32_t bs_u = static_cast<uint32_t>(__cvta_generic_to_shared(Bs + stage * B_STAGE));
-#pragma unroll
-    for (int kb = 0; kb < 2; ++kb) {  // 32 contraction bytes each
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        // matrices: (rows 0-7, k lo), (rows 8-15, k lo), (rows 0-7, k hi), (rows 8-15, k hi)
-        const int row = wm + i * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int chunk = kb * 2 + (lane >> 4);
-        ldmatrix_x4(a[i], as_u + row * LDA + chunk * 16);
-      }
-#pragma unroll
-      for (int j = 0; j < NTL; ++j) {
-        uint32_t b[2];
-        const int row = wn + j * 8 + (lane & 7);
-        const int chunk = (kb * 2 + ((lane >> 3) & 1)) ^ ((row >> 1) & 3);
-        ldmatrix_x2(b, bs_u + row * BK + chunk * 16);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_s8(acc[i][j], a[i], b);
-        if (kb == 0) slice(j, stage ^ 1, k_next);
-      }
-    }
-  };
-
-  // Beyond the last tile fetch() loads nothing and gives zeros, and the slices
-  // write them into the stage that nobody reads any more: the loop needs no
-  // branch, so the compiler can interleave the two instruction streams.
-  const int tiles = (K + BK - 1) / BK;
-  fetch(0);
-#pragma unroll
-  for (int q = 0; q < 8; ++q) slice(q, 0, BK);
-  __syncthreads();
-  for (int t = 0; t < tiles; ++t) {
-    compute(t & 1, (t + 2) * BK);
-    __syncthreads();
+    return;
   }
 
+  // ---- the consumer warpgroups ----
+  const int wgi = warp >> 2, wq = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int chunk = wgi * 4 + wq;  // this warp's 16 weight columns in the 128-byte tile row
+  const int krow = frag_k(lane >> 3, lane & 7);
+  const uint32_t a_off = krow * 128 + ((chunk ^ (krow & 7)) << 4);
+  // lanes t < 2 find k = 4t, 4t + 1 in matrix 0 (2) and 4t + 2, 4t + 3 in matrix 1
+  // (3); lanes t >= 2 the other way round
+  const uint32_t sel_lo = t4 < 2 ? 0x6420u : 0x2064u;  // column 2g: bytes 0, 2 of each pair
+  const uint32_t sel_hi = t4 < 2 ? 0x7531u : 0x3175u;  // column 2g + 1: bytes 1, 3
+
+  int acc[128];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+
+  // the A fragment of k32 step s of the tile at sw_tile (see the top of the file)
+  auto fragment = [&](uint32_t (&a)[4], uint32_t sw_tile, int s) {
+    uint32_t r[4];
+    ldsm_x4_trans(r, sw_tile + s * 32 * 128 + a_off);
+    a[0] = __byte_perm(r[0], r[1], sel_lo);  // row g,     k 4t..4t+3
+    a[1] = __byte_perm(r[0], r[1], sel_hi);  // row g + 8, k 4t..4t+3
+    a[2] = __byte_perm(r[2], r[3], sel_lo);  // row g,     k 16 + 4t..
+    a[3] = __byte_perm(r[2], r[3], sel_hi);  // row g + 8, k 16 + 4t..
+  };
+  auto product = [&](const uint32_t (&a)[4], uint32_t sx, int s) {
+    wg::fence();
+    wg::wgmma_rs_s8_n256(acc, a, wg::make_desc(sx + s * 32, 16, 1024, wg::SW_128), 1);
+    wg::commit();
+  };
+
+  // per tile: steps 0 and 1 in flight, then each fragment register set is
+  // refilled for step s + 2 once the wgmma that read it has completed
+  int slot = 0, phase = 0;
+  for (int t = 0; t < ntiles; ++t) {
+    mma::mbar_wait(full_bar(slot), phase);
+    const uint32_t sx = base + slot * SLOT_BYTES, sw_tile = sx + X_BYTES;
+    uint32_t a0[4], a1[4];
+    fragment(a0, sw_tile, 0);
+    fragment(a1, sw_tile, 1);
+    product(a0, sx, 0);
+    product(a1, sx, 1);
+    wg::wait<1>();
+    fragment(a0, sw_tile, 2);
+    product(a0, sx, 2);
+    wg::wait<1>();
+    fragment(a1, sw_tile, 3);
+    product(a1, sx, 3);
+    wg::wait<0>();
+    if (lane == 0) mma::mbar_arrive(empty_bar(slot));
+    if (++slot == STAGES) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+
+  // acc[4 j + e]: A row 16 wq + g + 8 (e >> 1) = weight column n (+ 1), activation
+  // row 8 j + 2 t + (e & 1)
+  const int n = n0 + 64 * wgi + 16 * wq + 2 * g;
+  if (n >= N) return;  // N is even, so n + 1 < N too
+  const float s0 = sw[n], s1 = sw[n + 1];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm + i * 16 + gid + 8 * h;
-      if (m >= M) continue;
-      const float sx = xs[m];
+  for (int j = 0; j < 32; ++j) {
 #pragma unroll
-      for (int j = 0; j < NTL; ++j) {
-        const int n = n0 + wn + j * 8 + tig * 2;
-        if (n >= N) continue;  // N is even, so n + 1 < N too
-        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h]), sx), sw[n]);
-        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[i][j][2 * h + 1]), sx), sw[n + 1]);
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * j + 2 * t4 + e;
+      if (m < M) {
+        const float sx = xs[m];
+        const float v0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + e]), sx), s0);
+        const float v1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 + e]), sx), s1);
         store2(out, static_cast<size_t>(m) * N + n, v0, v1);
       }
     }
   }
 }
 
+// an int8 [rows, cols] row-major array cut into boxes of 128 columns x box_rows rows,
+// 128-byte swizzled; boxes beyond the array arrive as zeros
+inline bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t ones[2] = {1, 1};
+  mma::EncodeTiled encode = mma::encode_tiled();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+                ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename OutT>
-int launch(const int8_t* x8, const float* xs, const int8_t* w, const float* sw, void* out,
-           int M, int K, int N, cudaStream_t st) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+int launch(const int8_t* x8, const float* xs, const int8_t* w, const float* sw, void* out, int M,
+           int K, int N, cudaStream_t st) {
+  static_assert(BK == 128, "the box is one 128-byte swizzle row wide");
+  Maps maps = {};
+  if (!make_map(&maps.x, x8, M, K, BX) || !make_map(&maps.w, w, K, N, BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((M + BX - 1) / BX, (N + BW - 1) / BW);
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(w8a8_matmul_kernel<OutT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w8a8_matmul_kernel<OutT><<<grid, NT, SMEM_BYTES, st>>>(x8, xs, w, sw, static_cast<OutT*>(out),
-                                                          M, K, N);
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        w8a8_wgmma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    sized = true;
+  }
+  w8a8_wgmma_kernel<OutT><<<grid, THREADS, SMEM_BYTES, st>>>(
+      xs, sw, static_cast<OutT*>(out), M, N, (K + BK - 1) / BK, maps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,7 +270,8 @@ int launch(const int8_t* x8, const float* xs, const int8_t* w, const float* sw, 
 extern "C" int mimic_w8a8_matmul(const void* x8, const void* xs, const void* w, const void* sw,
                                  void* out, int M, int K, int N, int out_dtype, void* stream) {
   using namespace mimic_w8a8;
-  if (M <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 16 != 0)
+  if (M <= 0 || K <= 0 || N <= 0 || K % 16 != 0 || N % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x8) % 16 != 0 || reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xp = static_cast<const int8_t*>(x8);

@@ -17,11 +17,16 @@ query-group axis: the prompt KV is read once per batch row.
 
 One hand-written CUDA kernel, ``prompt_attn_int8`` (``csrc/prompt_attn_int8.cu``,
 replaces Pallas ``_kernel``), launched for CUDA tensors (or raising); the plain
-version, ``prompt_attention_int8_plain``, serves CPU tensors only.
+version, ``prompt_attention_int8_plain``, serves CPU tensors only.  bf16 takes
+the tensor-core form: one launch per call, the key axis split over the CTAs of
+a thread-block cluster (``prompt_split``), the partials merged in rank order;
+``prompt_attention_int8_tiled_plain`` follows its split, chunk order and
+merges step by step.  fp32 takes the scalar chunk kernel and its merge.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -36,6 +41,21 @@ LN2 = 0.6931471805599453
 KEY_BLOCK = 128
 MAX_ROWS = 32
 HEAD_DIM = 128
+# the bf16 kernel: warps per CTA (each owns KEY_BLOCK / PROMPT_WARPS keys of every
+# chunk) and the CTAs one (batch row, kv head) may be split over (a portable cluster)
+PROMPT_WARPS = 8
+PROMPT_SPLITS = tuple(range(1, 9))
+# up to this many folded rows (one m16 tile) a warp takes two chunks' keys per
+# softmax step; above it, one
+PAIR_MAX_ROWS = 16
+
+
+def prompt_steps(c0: int, c1: int, M: int):
+    """The chunk groups a warp of the bf16 kernel walks in order over its rank's
+    chunks [c0, c1): pairs (a lone last chunk for an odd count) at M <= 16,
+    single chunks above."""
+    nb = 2 if M <= PAIR_MAX_ROWS else 1
+    return [tuple(range(c, min(c + nb, c1))) for c in range(c0, c1, nb)]
 
 LAUNCHES: Dict[str, int] = {"prompt_attn_int8": 0}
 
@@ -123,7 +143,92 @@ def prompt_attention_int8_plain(qf, k8, ks, v8, vs, prompt_mask):
     return o, m * LN2, l
 
 
-def _launch(qf, k8, ks, v8, vs, mask):
+def prompt_split(B0: int, Hkv: int, Sp: int, clusters) -> int:
+    """CTAs per (batch row, kv head) of the bf16 kernel: among the splits of
+    ``PROMPT_SPLITS`` that give every CTA at least one 128-key chunk and keep
+    the call's B0 · Hkv clusters resident at once (one wave; ``clusters(s)``:
+    how many clusters of s CTAs the card holds at once), the one that leaves
+    the fewest chunks to a CTA, the smallest such on a tie (less to merge).  A
+    cluster's CTAs must share a GPC, so an H100 (one CTA per SM) holds 15
+    clusters of 8 or of 7 but 17 of 6: call B's 16 (batch row, kv head) take 6,
+    call A's 32 take 2 (PERF.md §6)."""
+    n = Sp // KEY_BLOCK
+    best, most = 1, n
+    for s in PROMPT_SPLITS:
+        if s <= n and B0 * Hkv <= clusters(s) and -(-n // s) < most:
+            best, most = s, -(-n // s)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters(index: int, split: int, M: int) -> int:
+    from . import _build
+
+    with torch.cuda.device(index):
+        return _build.load_library().mimic_prompt_attn_max_clusters(split, M)
+
+
+def _merge(parts):
+    """Merge partial (o, m, l) states in list order, log2 domain: the running max
+    over all parts first, then each part rescaled and added in order."""
+    mt = parts[0][1]
+    for _, m, _ in parts[1:]:
+        mt = torch.maximum(mt, m)
+    o = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for op, m, lp in parts:
+        f = torch.exp2(m - mt)
+        o = o + op * f[..., None]
+        l = l + lp * f
+    return o, mt, l
+
+
+def prompt_attention_int8_tiled_plain(qf, k8, ks, v8, vs, prompt_mask, split: int):
+    """The bf16 kernel's algorithm step by step, in PyTorch (same arguments and
+    outputs as ``prompt_attention_int8_plain``).  Rank r of ``split`` takes
+    chunks [r n / split, (r + 1) n / split) of the n = Sp / 128; warp w of a rank
+    takes keys 16 w .. 16 w + 15 of each of its chunks, in chunk order and in
+    the groups of ``prompt_steps``, with an online softmax over each group's
+    keys at once (running max, rescaled sum and o; p · vscale rounded to q's
+    dtype against the running max); the warps' partials merge in warp order,
+    the ranks' in rank order."""
+    B0, Hkv, M, D = qf.shape
+    Sp = k8.shape[2]
+    n = Sp // KEY_BLOCK
+    q = (qf.float() * LOG2E).to(qf.dtype).float()
+    s_all = torch.einsum("bhmd,bhsd->bhms", q, k8.float()) * ks.float()[:, :, None, :]
+    s_all = torch.where((prompt_mask != 0)[:, None, None, :], s_all, NEG)
+    keys = KEY_BLOCK // PROMPT_WARPS
+    # [.., chunk, warp, key of the warp's slice]
+    s_all = s_all.reshape(B0, Hkv, M, n, PROMPT_WARPS, keys)
+    vs_all = vs.float().reshape(B0, Hkv, n, PROMPT_WARPS, keys)
+    v_all = v8.float().reshape(B0, Hkv, n, PROMPT_WARPS, keys, D)
+    ranks = []
+    for r in range(split):
+        c0, c1 = r * n // split, (r + 1) * n // split
+        warps = []
+        for w in range(PROMPT_WARPS):
+            m = torch.full((B0, Hkv, M), float("-inf"))
+            l = torch.zeros(B0, Hkv, M)
+            o = torch.zeros(B0, Hkv, M, D)
+            for group in prompt_steps(c0, c1, M):
+                g = slice(group[0], group[-1] + 1)
+                s = s_all[:, :, :, g, w].reshape(B0, Hkv, M, -1)
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(s - m_new[..., None])
+                l = l * alpha + p.sum(dim=-1)
+                pv = (p * vs_all[:, :, g, w].reshape(B0, Hkv, 1, -1)).to(qf.dtype).float()
+                o = o * alpha[..., None] + torch.einsum(
+                    "bhms,bhsd->bhmd", pv, v_all[:, :, g, w].reshape(B0, Hkv, -1, D))
+                m = m_new
+            warps.append((o, m, l))
+        ranks.append(_merge(warps))
+    o, m, l = _merge(ranks)
+    return o, m * LN2, l
+
+
+def _launch(qf, k8, ks, v8, vs, mask, split=None):
     from . import _build
 
     name = "prompt_attn_int8"
@@ -148,17 +253,28 @@ def _launch(qf, k8, ks, v8, vs, mask):
         raise ValueError(f"{name}: bad shapes q {tuple(qf.shape)} k {tuple(k8.shape)} "
                          f"scale {tuple(ks.shape)} mask {tuple(mask.shape)}")
     lib = _build.load_library()
-    nsplit = Sp // KEY_BLOCK
     dev = qf.device
-    work = torch.empty(nsplit * B0 * Hkv * M * (D + 2), dtype=torch.float32, device=dev)
+    if qf.dtype == torch.bfloat16:
+        # the tensor-core kernel: no workspace, the key axis split over a cluster
+        if split is None:
+            split = prompt_split(B0, Hkv, Sp, lambda s: _clusters(dev.index, s, M))
+        if split not in PROMPT_SPLITS or split > Sp // KEY_BLOCK:
+            raise ValueError(f"{name}: split {split} not in {PROMPT_SPLITS} or above "
+                             f"{Sp // KEY_BLOCK} chunks")
+        work = None
+    else:
+        # the scalar chunk kernel writes one partial per 128-key chunk, then merges
+        split = 1
+        work = torch.empty(Sp // KEY_BLOCK * B0 * Hkv * M * (D + 2), dtype=torch.float32, device=dev)
     o = torch.empty(B0, Hkv, M, D, dtype=torch.float32, device=dev)
     m = torch.empty(B0, Hkv, M, dtype=torch.float32, device=dev)
     l = torch.empty(B0, Hkv, M, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.mimic_prompt_attn_int8(
             qf.data_ptr(), k8.data_ptr(), ks.data_ptr(), v8.data_ptr(), vs.data_ptr(),
-            mask.data_ptr(), work.data_ptr(), o.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B0, Hkv, M, Sp, _KERNEL_DTYPES[qf.dtype], torch.cuda.current_stream(dev).cuda_stream,
+            mask.data_ptr(), None if work is None else work.data_ptr(), o.data_ptr(),
+            m.data_ptr(), l.data_ptr(), B0, Hkv, M, Sp, _KERNEL_DTYPES[qf.dtype], split,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on_error(lib, err, name)
     LAUNCHES[name] += 1

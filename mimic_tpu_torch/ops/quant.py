@@ -23,13 +23,18 @@ Three hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
   pass the rounded ``silu(g)·u`` ``[M, F]`` between them);
 - ``w8a8_matmul`` (``csrc/w8a8_matmul.cu``, replaces Pallas ``_w8a8_kernel``
   and ``_w8a8_kernel_stacked``): per-row int8 activations (``quantize_rows``)
-  times int8 weights on the integer tensor cores, an exact int32 sum and the
-  two-scale epilogue ``(acc · s_x[m]) · s_w[n]``; ``qdot`` sends an ``a8``
-  handle there at prefill M (>= 256) on CUDA.
+  times int8 weights on the integer tensor cores (``wgmma`` s8 fed by TMA),
+  an exact int32 sum and the two-scale epilogue ``(acc · s_x[m]) · s_w[n]``;
+  ``qdot`` sends an ``a8`` handle there at prefill M (>= 256) on CUDA.
+
+One more kernel feeds it: ``quantize_rows`` (``csrc/quantize_rows.cu``), the
+per-row activation quantization in one pass, the port's form of the fused XLA
+pass that ``mimic_tpu/ops/quant.py::quantize_rows`` is under ``jit``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes its
-plain PyTorch version only for CPU tensors; ``LAUNCHES`` counts launches by
-kernel name and nothing else touches it.
+plain PyTorch version only for CPU tensors; ``LAUNCHES`` counts the matmul
+kernels' launches by name and ``ROW_LAUNCHES`` the row quantization's, and
+nothing else touches them.
 """
 
 from __future__ import annotations
@@ -81,11 +86,13 @@ MMA_MIN_TILES = 16
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"int8_matmul": 0, "fused_mlp_int8": 0, "w8a8_matmul": 0}
+ROW_LAUNCHES: Dict[str, int] = {"quantize_rows": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, ROW_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _round_up(n: int, m: int) -> int:
@@ -299,8 +306,9 @@ def fused_mlp_plain(xn, gu_q8, gu_scale, down_q8, down_scale, out_dtype=None) ->
     return ((a.float() @ down_q8.float()) * down_scale.float()).to(out_dtype)
 
 
-def quantize_rows(x: torch.Tensor):
-    """Per-row symmetric int8: [..., K] float → (int8 [..., K], f32 [...] scales).
+def quantize_rows_plain(x: torch.Tensor):
+    """Plain version of ``quantize_rows``: [..., K] float → (int8 [..., K], f32
+    [...] scales).
 
     ``s = max(amax, 1e-8) / 127`` and ``x8 = clip(round(x / s), ±127)``, half
     to even, bit-identical to JAX's ``quantize_rows`` under ``jit`` (how the
@@ -464,6 +472,8 @@ def _launch_w8a8_matmul(x8, xs, wq, scale, layer, out_dtype) -> torch.Tensor:
             raise ValueError(f"{name}: layer {layer} outside [0, {wq.shape[0]})")
         w_ptr += layer * K * N          # int8: one byte per element
         s_ptr += layer * N * 4          # fp32
+    if x8.data_ptr() % 16 or w_ptr % 16:
+        raise ValueError(f"{name}: x8 and the weights must start 16-byte aligned (TMA)")
     lib = _build.load_library()
     out = torch.empty(M, N, dtype=out_dtype, device=x8.device)
     with torch.cuda.device(x8.device):
@@ -474,6 +484,43 @@ def _launch_w8a8_matmul(x8, xs, wq, scale, layer, out_dtype) -> torch.Tensor:
     _raise_on_error(lib, err, name)
     LAUNCHES[name] += 1
     return out
+
+
+def _launch_quantize_rows(x: torch.Tensor):
+    from . import _build
+
+    name = "quantize_rows"
+    if x.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{name}: rows must be one of {list(_KERNEL_DTYPES)}, got {x.dtype}")
+    lead, K = x.shape[:-1], x.shape[-1]
+    xm = x.reshape(-1, K).contiguous()
+    M = xm.shape[0]
+    if K == 0:
+        raise ValueError(f"{name}: rows of length 0 have no scale")
+    x8 = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    s = torch.empty(M, dtype=torch.float32, device=x.device)
+    if M == 0:
+        return x8.reshape(*lead, K), s.reshape(lead)
+    lib = _build.load_library()
+    with torch.cuda.device(x.device):
+        err = lib.mimic_quantize_rows(xm.data_ptr(), x8.data_ptr(), s.data_ptr(), M, K,
+                                      _KERNEL_DTYPES[x.dtype],
+                                      torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on_error(lib, err, name)
+    ROW_LAUNCHES[name] += 1
+    return x8.reshape(*lead, K), s.reshape(lead)
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8: [..., K] float → (int8 [..., K], f32 [...]
+    scales), bit-identical to JAX's jitted ``quantize_rows`` (see
+    ``quantize_rows_plain``): the one-pass kernel on CUDA, the plain version on
+    the CPU."""
+    if x.device.type == "cuda":
+        return _launch_quantize_rows(x)
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    raise _no_device("quantize_rows", x)
 
 
 def w8a8_matmul(x8, xs, wq, scale, out_dtype=torch.bfloat16) -> torch.Tensor:

@@ -614,6 +614,14 @@ W8A8_SHAPES = [
     (1000, 512, 640, 3, 2),      # ragged last row tile, stacked
     (257, 80, 144, 0, 0),        # K and N below a tile, one row into the third row tile
     (300, 1024, 4096, 2, 1),     # many K tiles
+    # the wgmma kernel's edges: one row, the last row of a 256-row tile, exactly one
+    # tile, a ragged 1000 at the model's K, eight tiles of the prefill; K 80 stacked
+    (1, 4096, 256, 2, 1),
+    (255, 512, 384, 0, 0),
+    (256, 4096, 640, 2, 1),
+    (1000, 4096, 384, 0, 0),
+    (2048, 4096, 512, 2, 1),
+    (384, 80, 256, 3, 2),
 ]
 
 
@@ -662,6 +670,53 @@ def test_quantize_rows_on_card_matches_cpu(cuda_device, dtype):
     x8, xs = tq.quantize_rows(x.to(cuda_device))
     c8, cs = tq.quantize_rows(x)
     assert torch.equal(x8.cpu(), c8) and torch.equal(xs.cpu(), cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [80, 4096, 14336, 30000])
+def test_quantize_rows_kernel_matches_cpu_on_card(cuda_device, K, dtype):
+    """The one-pass kernel (one launch per call) against the plain version on the
+    CPU, bit for bit: zero rows, a row under the 1e-8 floor, rows of every scale;
+    K 30000 is longer than the rows the kernel keeps in shared memory."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(K)
+    x = _t((rng.normal(size=(300, K)) * rng.uniform(0.01, 30, size=(300, 1))).astype(np.float32))
+    x = x.to(getattr(torch, dtype))
+    x[0] = 0
+    x[9] = 1e-12
+    before = tq.ROW_LAUNCHES["quantize_rows"]
+    x8, xs = tq.quantize_rows(x.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tq.ROW_LAUNCHES["quantize_rows"] == before + 1
+    c8, cs = tq.quantize_rows(x)
+    assert x8.dtype == torch.int8 and xs.dtype == torch.float32
+    assert torch.equal(x8.cpu(), c8) and torch.equal(xs.cpu(), cs)
+    # leading axes, and rows of K - 3 elements (not whole 16-byte vectors: the scalar path)
+    y = x.reshape(3, 100, K)[:, 1:, :K - 3]
+    y8, ys = tq.quantize_rows(y.to(cuda_device))
+    z8, zs = tq.quantize_rows(y)
+    assert y8.shape == (3, 99, K - 3) and torch.equal(y8.cpu(), z8) and torch.equal(ys.cpu(), zs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_w8a8_lane_padded_n_through_qdot_on_card(cuda_device, out_dtype):
+    """A handle stored 128-padded on N (300 real columns) through qdot's a8 branch:
+    the output sliced back, equal to the plain version on the real columns."""
+    from mimic_tpu_torch.ops import quant as tq
+
+    rng = np.random.default_rng(44)
+    w = tq.quantize_weight(_t(rng.normal(size=(256, 300)).astype(np.float32)).to(cuda_device),
+                           act_quant=True)
+    assert w["q8"].shape == (256, 384)
+    x = _t(rng.normal(size=(512, 256)).astype(np.float32)).to(cuda_device)
+    dt = getattr(torch, out_dtype)
+    out = tq.qdot(x, w, preferred_element_type=dt)
+    x8, xs = tq.quantize_rows(x)
+    assert out.shape == (512, 300)
+    assert torch.equal(out, tq.w8a8_matmul_plain(x8, xs, w["q8"][:, :300], w["scale"], dt))
 
 
 @pytest.mark.cuda
@@ -722,13 +777,14 @@ def test_w8a8_cpu_path_never_launches_or_builds(monkeypatch):
     monkeypatch.setattr(_build, "load_library", no_build)
     monkeypatch.setattr(_build, "build", no_build)
     rng = np.random.default_rng(43)
+    rows_before = dict(tq.ROW_LAUNCHES)
     x8, xs = tq.quantize_rows(_t(rng.normal(size=(300, 64)).astype(np.float32)))
     wq = _t(rng.integers(-127, 128, size=(2, 64, 128), dtype=np.int8))
     sw = _t(rng.uniform(1e-3, 1e-2, size=(2, 128)).astype(np.float32))
     before = dict(tq.LAUNCHES)
     a = tq.w8a8_matmul(x8, xs, wq[1], sw[1], out_dtype=torch.float32)
     b = tq.w8a8_matmul_stacked(x8, xs, wq, sw, 1, out_dtype=torch.float32)
-    assert torch.equal(a, b) and tq.LAUNCHES == before
+    assert torch.equal(a, b) and tq.LAUNCHES == before and tq.ROW_LAUNCHES == rows_before
     # the exact integer sum, scaled in the kernel's order
     acc = x8.to(torch.int64) @ wq[1].to(torch.int64)
     assert torch.equal(a, (acc.float() * xs[:, None]) * sw[1][None, :])
@@ -792,3 +848,70 @@ def test_quantization_on_card_gives_the_cpu_bytes(cuda_device, shape):
     for a, b in zip(card_kv, cpu_kv):
         for key in ("q8", "scale"):
             assert torch.equal(_bits(a[key]), _bits(b[key])), key
+
+
+def _prompt_inputs(cuda_device, dtype, B0=2, Hkv=2, M=12, Sp=1024, pads=(300, 0), seed=34):
+    from mimic_tpu_torch.ops import decode_attention as tda
+
+    rng = np.random.default_rng(seed)
+    pk, pv = tda.quantize_prompt_kv(
+        *(_t(rng.normal(size=(1, B0, Sp, Hkv, 128)).astype(np.float32)).to(cuda_device)
+          for _ in range(2)))
+    qf = _t((rng.normal(size=(B0, Hkv, M, 128)) / np.sqrt(128)).astype(np.float32))
+    mask = np.ones((B0, Sp), np.int32)
+    for b, p in enumerate(pads):
+        mask[b, :p] = 0
+    return (qf.to(cuda_device, getattr(torch, dtype)), pk["q8"][0], pk["scale"][0], pv["q8"][0],
+            pv["scale"][0], _t(mask).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("split", range(1, 9))
+def test_prompt_attention_int8_every_split_on_card(cuda_device, split):
+    """The bf16 kernel under each cluster split (8 chunks: 1 to 8 per rank), a
+    fully masked leading chunk: o and l within 1e-2 of max |plain| and m within
+    1e-3 of the plain version and of the tiled plain version that follows the
+    same split (p·vscale rounded to bf16 against a running max), and a second
+    launch bit-identical."""
+    from mimic_tpu_torch.ops import decode_attention as tda
+
+    args = _prompt_inputs(cuda_device, "bfloat16")
+    got = tda._launch(*args, split=split)
+    again = tda._launch(*args, split=split)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    want = tda.prompt_attention_int8_plain(*args)
+    tiled = tda.prompt_attention_int8_tiled_plain(*(a.cpu() for a in args), split)
+    o, m, l = got
+    assert (m - want[1]).abs().max().item() <= 1e-3
+    assert (m.cpu() - tiled[1]).abs().max().item() <= 1e-3
+    for a, b in ((o, want[0]), (l, want[2])):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= 1e-2 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prompt_attention_int8_kernels_per_call_on_card(cuda_device, dtype):
+    """bf16: one launch of the tensor-core kernel per call; fp32: the scalar chunk
+    kernel and its merge, within 1e-5 of the plain version."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimic_tpu_torch.ops import decode_attention as tda
+
+    args = _prompt_inputs(cuda_device, dtype, M=20)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tda._launch(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    if dtype == "bfloat16":
+        assert len(names) == 1 and "prompt_attn_mma_kernel" in names[0], names
+    else:
+        assert len(names) == 2 and "prompt_attn_kernel" in names[0], names
+        assert "prompt_attn_merge" in names[1], names
+    want = tda.prompt_attention_int8_plain(*args)
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    assert (got[1] - want[1]).abs().max().item() <= (1e-5 if dtype == "float32" else 1e-3)
+    for a, b in ((got[0], want[0]), (got[2], want[2])):
+        assert (a - b).abs().max().item() <= tol * b.abs().max().item()
