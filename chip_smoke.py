@@ -51,8 +51,9 @@ Phases (any failure propagates: non-zero exit, no result line):
              weights bit-unchanged, shift changed.  Then one step under
              torch.profiler, the per-leaf gradients of one step through the
              kernels against the plain attention path (cosine >= 0.99), and the
-             step timed again on precomputed image features (what a training
-             vision-feature cache would leave of it), once under the profiler.
+             step timed again on precomputed image features (what the training
+             vision-feature cache leaves of it; phase 12 runs the cache), once
+             under the profiler.
 6. int8 kernels — int8_matmul, fused_mlp_int8 and prompt_attn_int8 against their
              plain versions on the card, bf16, at the decode shapes of the int8
              serving path (phase 2's rules: max error against stated tolerances,
@@ -89,15 +90,43 @@ Phases (any failure propagates: non-zero exit, no result line):
 10. tiny W8A8 — phase 7's tiny idefics2 in "int8-w8a8" at 256 prompt rows: exact
              launches (4 per layer per prefill), prefill logits on the card against
              a CPU computation through the plain W8A8 functions.
-11. 8B eval — this slice's path: run_train on the bf16 8B runner writes epoch-10
-             (after phase 5), then (after phase 8) the CLI's eval entry on a model
+11. 8B eval — run_train on the bf16 8B runner writes epoch-10 (after phase 12),
+             then (after phase 8) the CLI's eval entry on a model
              built anew: checkpoint load, set_quant("int8-w8a8"), run_eval on
              2 x 4 requests (bucket 512, beam 3, 10 new tokens, shift active).
+             Both vision-feature caches are on, as by default: their hit rates
+             are printed.
              The record file holds the metric; every prefill took "flash";
              w8a8_matmul launched 4 x 32 times per prefill and the decode kernels
              as in "int8-memory"; first-step logits against a bf16 tree
              dequantized from the same handles (row cosine >= 0.99); q/s, peak
              memory, and the prefill timed in "int8-w8a8" beside "int8-memory".
+12. caches, sampling, converter — on the phase-5 runner, after phase 5:
+             (a) the 8-shot step through TrainVisionCache at phase 5's batch, one
+             cold step and 3 warm ones, counted and timed: each warm step launches
+             onepass_fwd 2 x 32 times (no ViT rows) and each backward kernel 31
+             times; loss (relative 1e-3) and shift gradients (cosine >= 0.99)
+             against the uncached step on the same state and batch; one warm step
+             under torch.profiler.  (b) call A through enable_vision_cache, cold
+             then warm: every image hits and the ViT launches nothing on the warm
+             call, whose tokens and logits are bit-identical to the cold call's;
+             first-step logits against the uncached runner (row cosine >= 0.99);
+             three cold / warm pairs timed (the cache emptied before each cold
+             call) and the encode a warm call skips (CUDA events); a batch
+             sharing one demo image encodes it once.  (c)
+             do_sample=True at call A's shape: top_k=1 gives the greedy tokens
+             wherever the largest logit is unique (bf16 logits tie at the top,
+             and the draw picks among the tied tokens),
+             temperature 0.7 / top_k 50 / top_p 0.9 repeats under one seed and
+             differs under another, tokens below the vocabulary, scores finite;
+             once at call B's shape (flash_fwd).  (d) the converter at full width
+             and depth: the random tree under HF's names (a helper of this script)
+             and back through convert_idefics2 on the card, every leaf bit-equal,
+             time and peak memory.  (e) a tiny idefics2 as two safetensors shards
+             through python -m mimic_tpu_torch.models.convert, params.msgpack and
+             build_model(paths=...): logits equal to the source runner's.
+
+Every phase prints its seconds ("[time]").
 
 Every kernel's entry in the next-to-last line carries its time, its plain
 version's, the least time the card could take (bound_ms, bound_by) and the time
@@ -109,6 +138,7 @@ The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
+    python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -1216,6 +1246,7 @@ def phase_train_8b(runner):
         log(f"[train] step {i + 1}: {secs:.3f} s; " + ", ".join(f"{k} {v:.6g}" for k, v in row.items()))
     launches = {**tfa.LAUNCHES, **tfb.LAUNCHES}
     paths = list(ATTN_PATH_LOG)
+    STEP_SECONDS["uncached"] = times
     log(f"[train] {TRAIN_STEPS} counted steps: mean {sum(times) / len(times):.3f} s/step "
         f"(min {min(times):.3f}, max {max(times):.3f}); peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; kernel launches {launches}; "
@@ -1271,10 +1302,11 @@ def phase_train_8b(runner):
     if min(cos.values()) < MIN_GRAD_COSINE:
         raise AssertionError("8B gradients through the kernels disagree with the plain path")
 
-    # the step on precomputed image features: what a training vision-feature
-    # cache (not ported yet) would leave of it
+    # the step on precomputed image features: what the training vision-feature
+    # cache leaves of it (phase 12 runs the cache itself)
     run_step(fb)
     vision_free = [run_step(fb)[1] for _ in range(2)]
+    STEP_SECONDS["precomputed"] = vision_free
     log(f"[train] step on precomputed image features: {vision_free[0]:.3f} s, "
         f"{vision_free[1]:.3f} s")
     profile_run("train step on precomputed image features", lambda: run_step(fb)[1])
@@ -2151,7 +2183,7 @@ def phase_train_for_eval(runner, result_dir):
     write epoch-10 (1-shot: two 980 px images per record row)."""
     from mimic_tpu_torch.config import TrainConfig, get_preset
     from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
-    from mimic_tpu_torch.pipeline.train_entry import run_train
+    from mimic_tpu_torch.pipeline import train_entry
 
     enc, peft = get_preset("mimic")
     cfg = TrainConfig(runname="smoke", model_name="idefics2-8b-base", encoder=enc, peft=peft,
@@ -2160,12 +2192,29 @@ def phase_train_for_eval(runner, result_dir):
     # a query row (64 image tokens + the question, byte-level) passes the default
     # cap of 128 tokens, and a pass capped at its longest row is not 128-aligned
     cfg.data.max_query_len = 256
+    made = []
+
+    class CountedCache(train_entry.TrainVisionCache):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
     ATTN_PATH_LOG.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = run_train(cfg, result_dir=result_dir, runner=runner, splits=synthetic_vqa_splits(6, 8))
+    train_entry.TrainVisionCache = CountedCache
+    try:
+        state = train_entry.run_train(cfg, result_dir=result_dir, runner=runner,
+                                      splits=synthetic_vqa_splits(6, 8))
+    finally:
+        train_entry.TrainVisionCache = CountedCache.__base__
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    if len(made) != 1:
+        raise AssertionError("run_train did not build its training vision cache")
+    cache = made[0].cache
+    log(f"[eval] run_train's training vision cache (on by default): {cache.hits} hits, "
+        f"{cache.misses} misses, hit rate {cache.hit_rate:.3f}")
     ckpt = os.path.join(result_dir, "ckpt", "smoke-idefics2-8b-base-vqav2-2-1shot", "epoch-10")
     paths = list(ATTN_PATH_LOG)
     log(f"[eval] run_train (mimic preset, 1-shot, B2, 11 epochs x 1 step): {state.step} steps in "
@@ -2244,6 +2293,11 @@ def phase_eval_w8a8(ckpt, trained_shift, result_dir):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; record "
         f"{os.path.relpath(record_file, result_dir)} eval_result {json.dumps(saved['eval_result'])}; "
         f"launches {launches}; raw outputs {json.dumps([r['raw_output'] for r in records])}")
+    vc = runner.vision_cache
+    if vc is None or vc.misses == 0:
+        raise AssertionError("run_eval did not turn the vision cache on")
+    log(f"[eval] the eval's vision cache (on by default; set_quant empties it at each eval): "
+        f"{vc.hits} hits, {vc.misses} misses over both evals, hit rate {vc.hit_rate:.3f}")
     got = {k: launches[k] for k in want}
     if got != want or launches["onepass_fwd"] == 0:
         raise AssertionError(f"eval: launches {launches}, want {want}")
@@ -2370,6 +2424,495 @@ def phase_eval_w8a8(ckpt, trained_shift, result_dir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the vision-feature caches, sampling and the checkpoint converter
+# ---------------------------------------------------------------------------
+
+# the cached step against the uncached one on the same state and batch: the
+# features are the same encode's (18 record-pass images in one call either
+# way), so the two losses differ by bf16 summation order at most
+CACHED_LOSS_REL = 1e-3
+# wall seconds of the train step, by form (phase 5 and phase 12), for the summary
+STEP_SECONDS = {}
+
+
+class ResultSpy:
+    """Records the ``GenerateResult`` of every greedy / beam / sample call the
+    runner makes (``runner.generate`` returns decoded strings, and with random
+    weights most token ids decode to nothing)."""
+
+    NAMES = ("greedy_generate", "beam_generate", "sample_generate")
+
+    def __init__(self):
+        from mimic_tpu_torch.models import runner as trunner
+
+        self.mod, self.results = trunner, []
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.mod, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            def spy(*args, _fn=fn, **kwargs):
+                out = _fn(*args, **kwargs)
+                self.results.append(out)
+                return out
+            setattr(self.mod, n, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.mod, n, fn)
+
+
+def _bits_equal_tree(a, b) -> bool:
+    """Keys, dtypes, shapes and bits equal, compared on the tensors' device."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _bits_equal_tree(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+_VIT_HF = (("ln1_w", "layer_norm1.weight", False), ("ln1_b", "layer_norm1.bias", False),
+           ("q_proj", "self_attn.q_proj.weight", True), ("q_bias", "self_attn.q_proj.bias", False),
+           ("k_proj", "self_attn.k_proj.weight", True), ("k_bias", "self_attn.k_proj.bias", False),
+           ("v_proj", "self_attn.v_proj.weight", True), ("v_bias", "self_attn.v_proj.bias", False),
+           ("o_proj", "self_attn.out_proj.weight", True),
+           ("o_bias", "self_attn.out_proj.bias", False),
+           ("ln2_w", "layer_norm2.weight", False), ("ln2_b", "layer_norm2.bias", False),
+           ("fc1", "mlp.fc1.weight", True), ("fc1_bias", "mlp.fc1.bias", False),
+           ("fc2", "mlp.fc2.weight", True), ("fc2_bias", "mlp.fc2.bias", False))
+_DECODER_HF = (("input_ln", "input_layernorm.weight", False),
+               ("q_proj", "self_attn.q_proj.weight", True),
+               ("k_proj", "self_attn.k_proj.weight", True),
+               ("v_proj", "self_attn.v_proj.weight", True),
+               ("o_proj", "self_attn.o_proj.weight", True),
+               ("post_ln", "post_attention_layernorm.weight", False),
+               ("gate_proj", "mlp.gate_proj.weight", True), ("up_proj", "mlp.up_proj.weight", True),
+               ("down_proj", "mlp.down_proj.weight", True))
+_PERCEIVER_HF = (("ln_latents", "input_latents_norm.weight", False),
+                 ("ln_context", "input_context_norm.weight", False),
+                 ("q_proj", "self_attn.q_proj.weight", True),
+                 ("k_proj", "self_attn.k_proj.weight", True),
+                 ("v_proj", "self_attn.v_proj.weight", True),
+                 ("o_proj", "self_attn.o_proj.weight", True),
+                 ("post_ln", "post_attention_layernorm.weight", False),
+                 ("gate_proj", "mlp.gate_proj.weight", True),
+                 ("up_proj", "mlp.up_proj.weight", True),
+                 ("down_proj", "mlp.down_proj.weight", True))
+
+
+def hf_state_dict(tree, cfg):
+    """An idefics2 parameter tree under HF's ``Idefics2ForConditionalGeneration``
+    names and layouts, on the tree's device (the inverse of
+    ``models/convert.py::convert_idefics2``): kernels back to [out, in],
+    stacked layers one tensor per layer, the dense patch kernel back to a conv
+    kernel [D, C, p, p]."""
+    sd = {}
+
+    def unstack(prefix, stacked, names):
+        for name, hf, transposed in names:
+            for i, w in enumerate(stacked[name].unbind(0)):
+                sd[f"{prefix}{i}.{hf}"] = w.T.contiguous() if transposed else w.contiguous()
+
+    lm, vis, conn = tree["lm"], tree["vision"], tree["connector"]
+    sd["model.text_model.embed_tokens.weight"] = lm["embed"]
+    unstack("model.text_model.layers.", lm["decoder"]["layers"], _DECODER_HF)
+    sd["model.text_model.norm.weight"] = lm["decoder"]["final_ln"]
+    sd["lm_head.weight"] = lm["lm_head"].T.contiguous()
+    p = "model.vision_model."
+    kernel = vis["patch_embed"]["kernel"]  # [p*p*C, D]
+    ps = cfg.vision.patch_size
+    sd[p + "embeddings.patch_embedding.weight"] = kernel.reshape(
+        ps, ps, kernel.shape[0] // (ps * ps), kernel.shape[1]).permute(3, 2, 0, 1).contiguous()
+    sd[p + "embeddings.patch_embedding.bias"] = vis["patch_embed"]["bias"]
+    sd[p + "embeddings.position_embedding.weight"] = vis["pos_embed"]
+    unstack(p + "encoder.layers.", vis["layers"], _VIT_HF)
+    sd[p + "post_layernorm.weight"] = vis["post_ln_w"]
+    sd[p + "post_layernorm.bias"] = vis["post_ln_b"]
+    for name, hf in (("gate", "gate_proj"), ("up", "up_proj"), ("down", "down_proj")):
+        sd[f"model.connector.modality_projection.{hf}.weight"] = \
+            conn["modality_proj"][name].T.contiguous()
+    r = "model.connector.perceiver_resampler."
+    sd[r + "latents"] = conn["latents"]
+    unstack(r + "layers.", conn["layers"], _PERCEIVER_HF)
+    sd[r + "norm.weight"] = conn["final_ln"]
+    return sd
+
+
+_ST_NAMES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+             torch.int64: "I64"}
+
+
+def write_safetensors(path, tensors) -> None:
+    """``tensors`` as one ``.safetensors`` file (an 8-byte little-endian header
+    length, the JSON header padded to 8 bytes, the raw buffers in order)."""
+    header, chunks, offset = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        chunks.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head + b"".join(chunks))
+
+
+def phase_cached_train(runner):
+    """(a) The 8-shot step through TrainVisionCache at phase 5's batch."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.feature_cache import image_key
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+    from mimic_tpu_torch.shift.params import (init_shift_params, multi_head, needs_attn_capture,
+                                               needs_ffn_capture)
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.collate import TrainBatch
+    from mimic_tpu_torch.train.optim import build_optimizer
+    from mimic_tpu_torch.train.vision_cache import TrainVisionCache
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    enc, peft = get_preset("mimic")
+    shift = init_shift_params(enc, cfg.text, torch.Generator(device="cuda").manual_seed(2),
+                              torch.device("cuda"))
+    trainable = {"shift": shift}
+    tx = build_optimizer(trainable, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, attn_impl="flash",
+                              logz2="unmasked")
+    state = ts.TrainState(trainable, tx.init(trainable), 0)
+    batch = make_train_batch(cfg)
+    # the same batch as the collator hands it over: host arrays and content keys
+    host = {k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+            for k, v in batch.items()}
+    keys = {p: [image_key(px) for px in host[f"{p}_pixels"].reshape(
+        (-1,) + host[f"{p}_pixels"].shape[2:])] for p in ("full", "query")}
+    tb = TrainBatch(query_ids=host["query_ids"], query_mask=host["query_mask"],
+                    query_pixels=host["query_pixels"], query_pixel_mask=None, query_img_attn=None,
+                    query_patch_mask=host["query_patch_mask"], full_ids=host["full_ids"],
+                    full_mask=host["full_mask"], full_pixels=host["full_pixels"],
+                    full_patch_mask=host["full_patch_mask"], prefix_q_idx=host["prefix_q_idx"],
+                    shift_q_idx=host["shift_q_idx"], q_valid=host["q_valid"],
+                    full_image_keys=keys["full"], query_image_keys=keys["query"])
+    xform = TrainVisionCache(cfg, frozen)
+    n_img = len(keys["full"]) + len(keys["query"])
+
+    def run_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, frozen, xform(tb))
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    tfa.reset_launch_counts()
+    tfb.reset_launch_counts()
+    m, cold = run_step()
+    cold_launches = {**tfa.LAUNCHES, **tfb.LAUNCHES}
+    log(f"[cache] cold cached step (TrainVisionCache, {n_img} images encoded into the cache): "
+        f"{cold:.3f} s, loss {float(m['loss']):.6f}; launches {cold_launches}; cache "
+        f"{xform.cache.misses} misses, {len(xform.cache)} entries, "
+        f"{xform.cache.nbytes / 2**20:.1f} MiB")
+    if xform.cache.misses != n_img or xform.cache.hits != 0:
+        raise AssertionError(f"cold step: {xform.cache.misses} misses, {xform.cache.hits} hits")
+    times, total = [], {}
+    ATTN_PATH_LOG.clear()
+    for i in range(TRAIN_STEPS):
+        tfa.reset_launch_counts()
+        tfb.reset_launch_counts()
+        m, secs = run_step()
+        launches = {**tfa.LAUNCHES, **tfb.LAUNCHES}
+        times.append(secs)
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        log(f"[cache] warm cached step {i + 1}: {secs:.3f} s; loss {float(m['loss']):.6g}, "
+            f"grad_norm {float(m['grad_norm']):.6g}; launches {launches}")
+        # no ViT rows: onepass_fwd only in the decoder, 2 passes x L layers
+        want = {"onepass_fwd": 2 * L, "flash_fwd": 0, "flash_bwd_dq": L - 1, "flash_bwd_dkv": L - 1}
+        if launches != want:
+            raise AssertionError(f"warm cached step launched {launches}, want {want}")
+        if not (np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
+            raise AssertionError(f"warm cached step metrics {m}")
+    if xform.cache.misses != n_img or xform.cache.hits != TRAIN_STEPS * n_img:
+        raise AssertionError(f"warm steps missed the cache: {xform.cache.misses} misses, "
+                             f"{xform.cache.hits} hits")
+    if ATTN_PATH_LOG != ["flash"] * (2 * TRAIN_STEPS):
+        raise AssertionError(f"a decoder call left the flash path: {ATTN_PATH_LOG}")
+    STEP_SECONDS["cached, warm"] = times
+    log(f"[cache] {TRAIN_STEPS} warm cached steps: mean {sum(times) / len(times):.3f} s/step "
+        f"(min {min(times):.3f}, max {max(times):.3f}); phase 5 in this run: uncached "
+        f"{', '.join(f'{t:.3f}' for t in STEP_SECONDS.get('uncached', []))} s, precomputed "
+        f"features {', '.join(f'{t:.3f}' for t in STEP_SECONDS.get('precomputed', []))} s")
+    profile_run("cached train step, warm", lambda: run_step()[1])
+
+    # loss and shift gradients of the cached step against the uncached step,
+    # on the same state and batch
+    loss_kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=needs_attn_capture(enc),
+                   rec_ffn=needs_ffn_capture(enc), mh=multi_head(enc),
+                   ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                   logz2="unmasked", attn_impl="flash")
+    grads, losses = {}, {}
+    for name, b in (("cached", xform(tb)), ("uncached", batch)):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in state.trainable["shift"].items()}
+        with torch.enable_grad():
+            loss, _ = ts.compute_loss({"shift": leaves}, frozen, b, **loss_kw)
+            grads[name] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        losses[name] = float(loss.detach())
+    cos = {k: torch.nn.functional.cosine_similarity(
+        grads["cached"][k].flatten(), grads["uncached"][k].flatten(), dim=0).item()
+        for k in grads["cached"]}
+    rel = abs(losses["cached"] - losses["uncached"]) / abs(losses["uncached"])
+    log(f"[cache] cached vs uncached step, same state and batch: loss {losses['cached']:.6f} vs "
+        f"{losses['uncached']:.6f} (relative {rel:.2e}, need <= {CACHED_LOSS_REL}); per-leaf "
+        f"gradient cosine {cos} (need >= {MIN_GRAD_COSINE})")
+    if rel > CACHED_LOSS_REL or min(cos.values()) < MIN_GRAD_COSINE:
+        raise AssertionError("the cached train step disagrees with the uncached step")
+    del xform, state, grads
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_cached_eval(runner):
+    """(b) Call A through the runner's vision cache, cold and warm; misses
+    deduplicated in a batch whose requests share a demo image."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    calls = serving_calls()
+    images, texts, bucket = calls["A"]
+    runner.vision_cache = None
+    with LogitSpy() as spy:
+        timed_generate(runner, calls, "A")
+    uncached_first = spy.logits[0]
+    cache = runner.enable_vision_cache()
+    out, launches = {}, {}
+    for name in ("cold", "warm"):
+        tfa.reset_launch_counts()
+        with LogitSpy() as spy, ResultSpy() as res:
+            strings, secs = timed_generate(runner, calls, "A")
+        launches[name] = dict(tfa.LAUNCHES)
+        out[name] = (res.results[0].tokens, spy.logits, secs)
+        log(f"[cache] call A, cache {name}: {secs:.3f} s = {len(texts) / secs:.3f} q/s; cache "
+            f"{cache.hits} hits, {cache.misses} misses so far; launches {launches[name]}")
+    L, Lv = runner.cfg.text.num_layers, runner.cfg.vision.num_layers
+    if cache.misses != 4 or cache.hits != 4:
+        raise AssertionError(f"call A: {cache.misses} misses, {cache.hits} hits, want 4 and 4")
+    # cold: one ViT encode of the 4 misses (Lv launches) and the prefill's L;
+    # warm: the prefill's L alone, no ViT rows
+    if launches["cold"]["onepass_fwd"] != Lv + L or launches["warm"]["onepass_fwd"] != L:
+        raise AssertionError(f"call A launches {launches}, want {Lv + L} cold and {L} warm")
+    same = torch.equal(out["cold"][0], out["warm"][0]) and all(
+        torch.equal(a, b) for a, b in zip(out["cold"][1], out["warm"][1]))
+    cos = _row_cosine(out["cold"][1][0], uncached_first)
+    log(f"[cache] call A warm tokens and logits bit-identical to cold: {same}; tokens "
+        f"{out['warm'][0].tolist()}; first-step logits, cached vs uncached runner: min row "
+        f"cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if not same or cos < MIN_LOGIT_COSINE:
+        raise AssertionError("the cached call A differs from itself or from the uncached runner")
+    # wall time in pairs (the cache emptied before each cold call)
+    walls = {"cold": [], "warm": []}
+    for _ in range(3):
+        for name in walls:
+            if name == "cold":
+                cache.clear()
+            walls[name].append(timed_generate(runner, calls, "A")[1])
+    log("[cache] call A in pairs, cold then warm: " + "; ".join(
+        f"{k} {', '.join(f'{t:.3f} s ({len(texts) / t:.3f} q/s)' for t in v)}"
+        for k, v in walls.items()))
+    # the device time a warm call no longer spends: the encode of its 4 images
+    from mimic_tpu_torch.models.lvlm import encode_images
+
+    runner.tokenizer.padding_side = "left"  # as generate() pads
+    batch = runner.process_input(images, texts, pad_to=bucket)
+    with torch.no_grad():
+        encode = cuda_ms(lambda: encode_images(runner.params, runner.cfg, batch.pixel_values,
+                                               batch.patch_mask, attn_impl="flash"), 3)
+    log(f"[cache] the encode a warm call A skips (4 images, ViT + connector, CUDA events): "
+        f"{encode:.1f} ms")
+
+    # four requests sharing one demo image: 5 distinct images in 8 slots
+    demo = synthetic_image(70)
+    shared = [[demo, synthetic_image(71 + i)] for i in range(4)]
+    shared_texts = [f"Image:<image> Question: what is here? Answer: a cat\nImage:<image> "
+                    f"{synthetic_text(80 + i, 150)} Question: what is here? Answer:"
+                    for i in range(4)]
+    cache = runner.enable_vision_cache()
+    tfa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    runner.generate(shared, shared_texts, num_beams=NUM_BEAMS, max_new_tokens=MAX_NEW_TOKENS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    log(f"[cache] 4 requests x 2 images sharing one demo image, cold cache: {secs:.3f} s; "
+        f"{cache.misses} misses, {cache.hits} hits, {len(cache)} entries; launches "
+        f"{dict(tfa.LAUNCHES)}")
+    if (cache.misses, cache.hits, len(cache)) != (5, 3, 5) or \
+            tfa.LAUNCHES["onepass_fwd"] != Lv + L:
+        raise AssertionError("the shared demo image was not deduplicated into one encode")
+    return launches["warm"]
+
+
+def phase_sampling(runner):
+    """(c) do_sample=True at call A's shape (and once at call B's, which takes
+    flash_fwd in the prefill)."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    calls = serving_calls()
+    images, texts, bucket = calls["A"]
+    V = runner.cfg.text.vocab_size
+    runner.enable_vision_cache()
+
+    def sample(name="A", **kw):
+        images, texts, _ = calls[name]
+        with ResultSpy() as res:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            runner.generate(images, texts, max_new_tokens=MAX_NEW_TOKENS, **kw)
+            torch.cuda.synchronize()
+        r = res.results[0]
+        if (r.tokens.min() < 0 or r.tokens.max() >= V or not torch.isfinite(r.scores).all()):
+            raise AssertionError(f"sampled tokens out of range or scores not finite: {r}")
+        return r, time.perf_counter() - t
+
+    greedy, _ = sample()
+    tfa.reset_launch_counts()
+    with LogitSpy() as spy:
+        top1, secs = sample(do_sample=True, top_k=1, seed=0)
+    launches = dict(tfa.LAUNCHES)
+    # top_k=1 keeps every logit equal to the largest (``x < kth`` filters), and
+    # bf16 logits tie at the top: where they do, the noise picks among the tied
+    # tokens, where greedy's argmax takes the lowest index.  So each row must
+    # equal greedy's up to its first difference, and there both tokens must
+    # hold the step's largest logit
+    same, ties = torch.equal(top1.tokens, greedy.tokens), 0
+    for r in range(top1.tokens.shape[0]):
+        diff = (top1.tokens[r] != greedy.tokens[r]).nonzero()
+        if len(diff):
+            i = int(diff[0])
+            row = spy.logits[i][r]
+            if not (row[top1.tokens[r, i]] == row.max() == row[greedy.tokens[r, i]]):
+                raise AssertionError(f"top_k=1 sampling left greedy's tokens at row {r} step {i} "
+                                     f"without a tie: {top1.tokens.tolist()} vs "
+                                     f"{greedy.tokens.tolist()}")
+            ties += 1
+    top_ties = sum(int((x == x.amax(-1, keepdim=True)).sum(-1).gt(1).sum()) for x in spy.logits)
+    log(f"[sample] call A, do_sample top_k=1: {secs:.3f} s = {len(texts) / secs:.3f} q/s; "
+        f"tokens equal to greedy bit for bit: {same}; {ties} rows left greedy's tokens, each at "
+        f"a tie of the largest bf16 logit ({top_ties} of the {len(spy.logits) * len(texts)} "
+        f"draws had a tied maximum)")
+    kw = dict(do_sample=True, temperature=0.7, top_k=50, top_p=0.9)
+    a, secs = sample(seed=1, **kw)
+    b, _ = sample(seed=1, **kw)
+    c, _ = sample(seed=2, **kw)
+    log(f"[sample] call A, temperature 0.7, top_k 50, top_p 0.9: {secs:.3f} s = "
+        f"{len(texts) / secs:.3f} q/s; seed 1 twice identical: {torch.equal(a.tokens, b.tokens)}; "
+        f"seed 2 differs: {not torch.equal(a.tokens, c.tokens)}; tokens {a.tokens.tolist()}, "
+        f"scores {[round(x, 4) for x in a.scores.tolist()]}")
+    if not torch.equal(a.tokens, b.tokens) or torch.equal(a.tokens, c.tokens):
+        raise AssertionError("sampling is not reproducible under one seed or ignores the seed")
+    tfa.reset_launch_counts()
+    _, secs = sample("B", seed=3, **kw)
+    log(f"[sample] call B (bucket 4096), same options: {secs:.3f} s; launches {dict(tfa.LAUNCHES)}")
+    if tfa.LAUNCHES["flash_fwd"] != runner.cfg.text.num_layers:
+        raise AssertionError(f"call B's sampled prefill launched {dict(tfa.LAUNCHES)}")
+    launches = {k: launches[k] + tfa.LAUNCHES[k] for k in launches}
+    runner.vision_cache = None  # the later phases count the ViT's launches
+    return launches
+
+
+def phase_convert_8b(runner):
+    """(d) The converter at full width and depth: the random tree under HF's
+    names and back, bit for bit."""
+    import gc
+
+    from mimic_tpu_torch.models.convert import convert_idefics2
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = hf_state_dict(runner.params, runner.cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = convert_idefics2(sd, runner.cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    equal = _bits_equal_tree(back, runner.params)
+    log(f"[convert] idefics2-8b-base: {len(sd)} HF tensors "
+        f"({sum(t.numel() for t in sd.values()) / 1e9:.3f} B values) made from the tree in "
+        f"{t1 - t0:.2f} s, convert_idefics2 back in {t2 - t1:.2f} s on the card; every leaf "
+        f"bit-equal: {equal}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB ({base / 2**30:.1f} GiB before)")
+    if not equal:
+        raise AssertionError("convert_idefics2 does not invert the HF layout at 8B")
+    del sd, back
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_convert_tiny():
+    """(e) A two-shard safetensors checkpoint of a tiny idefics2 through the
+    converter's command, params.msgpack and build_model(paths=...)."""
+    from mimic_tpu_torch.config.paths import Paths
+    from mimic_tpu_torch.models import factory
+    from mimic_tpu_torch.models.convert import convert_checkpoint
+    from mimic_tpu_torch.models.lvlm import lvlm_forward
+
+    src = factory.build_model("tiny-idefics2", device="cuda", dtype=torch.float32, seed=5)
+    sd = hf_state_dict(src.params, src.cfg)
+    names = sorted(sd)
+    with tempfile.TemporaryDirectory(prefix="mimic_convert_") as d:
+        half = len(names) // 2
+        for k, part in enumerate((names[:half], names[half:])):
+            write_safetensors(os.path.join(d, f"model-0000{k + 1}-of-00002.safetensors"),
+                              {n: sd[n] for n in part})
+        t = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "mimic_tpu_torch.models.convert", "tiny-idefics2", d],
+                       cwd=ROOT, check=True, timeout=600)
+        secs = time.perf_counter() - t
+        # tiny models have no path of their own: read this one through idefics2's field
+        factory._MODEL_PATH_FIELD["tiny-idefics2"] = "idefics2_8b_base_path"
+        try:
+            loaded = factory.build_model("tiny-idefics2", paths=Paths(idefics2_8b_base_path=d),
+                                         device="cuda", dtype=torch.float32)
+        finally:
+            del factory._MODEL_PATH_FIELD["tiny-idefics2"]
+    same_params = _bits_equal_tree(loaded.params, src.params)
+    images = [[synthetic_image(90 + i)[:56, :84]] for i in range(2)]
+    texts = ["Image:<image> Question: what is here? Answer:", "Image:<image> Question: who? Answer:"]
+    src.tokenizer.padding_side = loaded.tokenizer.padding_side = "left"
+    logits = [lvlm_forward(r.params, r.cfg, r.process_input(images, texts), attn_impl="xla").logits
+              for r in (src, loaded)]
+    equal = torch.equal(logits[0], logits[1])
+    log(f"[convert] tiny-idefics2: 2 safetensors shards ({len(names)} tensors) -> python -m "
+        f"mimic_tpu_torch.models.convert in {secs:.2f} s -> params.msgpack -> "
+        f"build_model(paths=...): parameters bit-equal {same_params}, logits "
+        f"{tuple(logits[0].shape)} equal to the source runner's {equal}")
+    if not (same_params and equal):
+        raise AssertionError("the converted tiny checkpoint does not reproduce its source")
+
+
+def phase_caches_8b(runner):
+    """Phase 12 on the phase-5 runner: (a)-(e); the launches of the cached
+    train steps, the warm cached call and the sampled calls."""
+    out = {}
+    for label, fn in (("cached training", phase_cached_train), ("cached eval", phase_cached_eval),
+                      ("sampling", phase_sampling)):
+        t = time.perf_counter()
+        out[label] = fn(runner)
+        log(f"[time] phase 12 {label}: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_convert_8b(runner)
+    phase_convert_tiny()
+    log(f"[time] phase 12 converter: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
     """One cache-empty prefill of ``batch`` (the generation's first forward)."""
     from mimic_tpu_torch.models.decoder import init_kv_cache
@@ -2458,6 +3001,12 @@ def main() -> int:
             "phase 2's backward kernels passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--cache-only"]:
+        runner, _ = phase_main()
+        phase_caches_8b(runner)
+        log("[card] partial run (--cache-only): phase 12 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--eval-only"]:
         from mimic_tpu_torch.models.factory import build_model
 
@@ -2469,27 +3018,36 @@ def main() -> int:
         log("[card] partial run (--eval-only): phase 11 passed; no result line")
         return 3
 
-    summary = phase_kernels()
-    summary.update(phase_backward_kernels())
-    summary.update(phase_int8_kernels())
-    int8_crossover()
-    summary.update(phase_w8a8_kernels())
-    w8a8_crossover()
-    phase_tiny_reference()
-    phase_tiny_train()
-    phase_tiny_int8()
-    phase_tiny_w8a8()
-    runner, serve_launches = phase_main()
-    train_launches = phase_train_8b(runner)
-    with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
-        ckpt, trained_shift = phase_train_for_eval(runner, result_dir)
-        int8_launches = phase_int8_8b(runner)
-        del runner  # the eval entry builds its own model
-        eval_launches = phase_eval_w8a8(ckpt, trained_shift, result_dir)
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {label}: {time.perf_counter() - t:.1f} s")
+        return out
 
-    # launches: each path's counted run (serving, training, int8 serving, the
-    # W8A8 eval), each driven with the counts at 0 and read just after, summed
-    paths = {"serving": serve_launches, "training": train_launches,
+    summary = timed("phase 2 kernels", phase_kernels)
+    summary.update(timed("phase 2 backward kernels", phase_backward_kernels))
+    summary.update(timed("phase 6 int8 kernels", phase_int8_kernels))
+    timed("phase 6 qdot cut-off", int8_crossover)
+    summary.update(timed("phase 9 W8A8 kernels", phase_w8a8_kernels))
+    timed("phase 9 W8A8_MIN_M cut-off", w8a8_crossover)
+    timed("phase 3 tiny serving", phase_tiny_reference)
+    timed("phase 3 tiny training", phase_tiny_train)
+    timed("phase 7 tiny int8", phase_tiny_int8)
+    timed("phase 10 tiny W8A8", phase_tiny_w8a8)
+    runner, serve_launches = timed("phase 4 8B serving", phase_main)
+    train_launches = timed("phase 5 8B train step", phase_train_8b, runner)
+    cache_launches = timed("phase 12 caches, sampling, converter", phase_caches_8b, runner)
+    with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
+        ckpt, trained_shift = timed("phase 11 run_train", phase_train_for_eval, runner,
+                                    result_dir)
+        int8_launches = timed("phase 8 8B int8", phase_int8_8b, runner)
+        del runner  # the eval entry builds its own model
+        eval_launches = timed("phase 11 eval", phase_eval_w8a8, ckpt, trained_shift, result_dir)
+
+    # launches: each path's counted run (serving, training, the cached train
+    # steps, the warm cached call A, the sampled calls, int8 serving, the W8A8
+    # eval), each driven with the counts at 0 and read just after, summed
+    paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
              "int8 serving": int8_launches, "W8A8 eval": eval_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))

@@ -1,7 +1,8 @@
-"""Autoregressive generation: greedy and beam search.
+"""Autoregressive generation: greedy, beam search and sampling.
 
 Counterpart of ``mimic_tpu/models/generate.py`` (HF semantics: ``num_beams``,
-``length_penalty``, early_stopping=False).  The JAX decode loop is one
+``length_penalty``, early_stopping=False; ``temperature`` / ``top_k`` /
+``top_p`` for sampling).  The JAX decode loop is one
 ``lax.scan`` over a fixed number of steps; here it is a Python loop over the
 same steps.  Prompts must be left-padded so the last prompt position is
 aligned across the batch.
@@ -14,7 +15,10 @@ Int8 serving: ``decode_params`` (the int8 copy of the ``"int8"`` mode) is
 read by every decode step while the prefill reads ``params``; ``quant_kv``
 stores the beam-shared prompt KV int8 (``ops/decode_attention.py``).
 
-Not ported yet: sampling, prefix tuning, LoRA adapters.
+``image_feats``: encoded image features computed elsewhere (the runner's
+``VisionFeatureCache``); the prefill then skips the vision tower.
+
+Not ported yet: prefix tuning, LoRA adapters.
 """
 
 from __future__ import annotations
@@ -65,16 +69,16 @@ class GenerateResult(NamedTuple):
 
 def _prefill(
     params, cfg: ModelConfig, batch: LVLMBatch, total_len: int, shift, logz2: str,
-    dtype, attn_impl: str = "xla",
+    dtype, attn_impl: str = "xla", image_feats: Optional[torch.Tensor] = None,
 ):
     """Run the prompt through the model (cache-empty prefill).
 
     Returns (last_logits [B,V], cache with the prompt written, image_feats),
-    the image features for the decode steps to reuse.
+    the image features for the decode steps to reuse (``image_feats`` as
+    given, else encoded from ``batch.pixel_values``).
     """
     B, T = batch.input_ids.shape
-    image_feats = None
-    if batch.pixel_values is not None:
+    if image_feats is None and batch.pixel_values is not None:
         image_feats = encode_images(
             params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
         )
@@ -106,13 +110,14 @@ def greedy_generate(
     logz2: str = "unmasked",
     attn_impl: str = "xla",
     decode_params=None,
+    image_feats: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
     B, T = batch.input_ids.shape
     total = T + max_new_tokens
     dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
     last_logits, cache, image_feats = _prefill(
-        params, cfg, batch, total, shift, logz2, dtype, attn_impl
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
     )
     am = batch.attention_mask
     n_real = am.sum(-1)  # [B]
@@ -157,6 +162,7 @@ def beam_generate(
     attn_impl: str = "xla",
     decode_params=None,
     quant_kv: Optional[bool] = None,
+    image_feats: Optional[torch.Tensor] = None,
 ) -> GenerateResult:
     """HF-semantics beam search (do_sample=False, early_stopping=False).
 
@@ -179,7 +185,7 @@ def beam_generate(
     dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
     last_logits, cache, image_feats = _prefill(
-        params, cfg, batch, total, shift, logz2, dtype, attn_impl
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
     )
     V = last_logits.shape[-1]
     dev = last_logits.device
@@ -292,3 +298,100 @@ def beam_generate(
     best_scores, best_idx = _top_k(torch.cat([fin_scores, run_pen], dim=1), 1)
     best_tokens = _take_rows(torch.cat([fin_tokens, tokens], dim=1), best_idx)[:, 0]
     return GenerateResult(tokens=best_tokens, scores=best_scores[:, 0])
+
+
+def gumbel(generator: torch.Generator, shape) -> torch.Tensor:
+    """Standard Gumbel noise [shape] in fp32 on the generator's device: the
+    draw behind ``jax.random.categorical`` (argmax of logits + Gumbel noise),
+    kept in one function so that a test can hand in the noise JAX drew."""
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def process_logits(logits: torch.Tensor, temperature: float, top_k: int, top_p: float) -> torch.Tensor:
+    """HF's order of logits processing: temperature, then top-k, then top-p.
+    Filtered entries become ``NEG`` (not ``-inf``); the top-k comparison
+    ``x < kth`` keeps ties with the k-th value; top-p keeps a token while the
+    probability mass before it is at most ``top_p`` (HF's inclusive rule: the
+    most likely token always survives)."""
+    # by a tensor: CUDA turns a division by a Python scalar into a multiply
+    x = logits.float() / torch.tensor(max(temperature, 1e-6), device=logits.device)
+    V = x.shape[-1]
+    if top_k and top_k < V:
+        kth = torch.topk(x, top_k, dim=-1).values[:, -1:]
+        x = torch.where(x < kth, NEG, x)
+    if top_p < 1.0:
+        sorted_x, sort_idx = torch.sort(x, dim=-1, descending=True, stable=True)
+        probs = torch.softmax(sorted_x, dim=-1)
+        keep_sorted = (torch.cumsum(probs, dim=-1) - probs) <= top_p
+        keep = torch.zeros_like(keep_sorted).scatter(-1, sort_idx, keep_sorted)
+        x = torch.where(keep, x, NEG)
+    return x
+
+
+@torch.no_grad()
+def sample_generate(
+    params,
+    cfg: ModelConfig,
+    batch: LVLMBatch,
+    max_new_tokens: int,
+    eos_token_id: int,
+    pad_token_id: int,
+    generator: torch.Generator,
+    temperature: float = 1.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    shift: Optional[Dict[str, torch.Tensor]] = None,
+    logz2: str = "unmasked",
+    attn_impl: str = "xla",
+    decode_params=None,
+    image_feats: Optional[torch.Tensor] = None,
+) -> GenerateResult:
+    """Ancestral sampling (``do_sample=True``): each step processes the last
+    logits (``process_logits``) and draws one token per row as the argmax of
+    the processed logits plus ``gumbel`` noise from ``generator``, one draw
+    per step, the prefill's first.  ``top_k=0`` / ``top_p=1.0`` disable their
+    filters.  ``scores`` is the sum of the sampled tokens' log-probabilities
+    under the processed logits; finished rows emit ``pad_token_id``.  As in
+    the JAX loop, every one of the ``max_new_tokens`` steps runs a decode
+    forward and draws, the last draw unused but scored.
+    """
+    B, T = batch.input_ids.shape
+    total = T + max_new_tokens
+    dparams = decode_params if decode_params is not None else params
+    dtype = _param_dtype(params)
+    last_logits, cache, image_feats = _prefill(
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
+    )
+
+    def draw(logits):
+        x = process_logits(logits, temperature, top_k, top_p)
+        tok = (x + gumbel(generator, x.shape).to(x.device)).argmax(-1)
+        lp = torch.gather(torch.log_softmax(x, dim=-1), 1, tok[:, None])[:, 0]
+        return tok, lp
+
+    am = batch.attention_mask
+    n_real = am.sum(-1)
+    mask_full = torch.cat([am, am.new_zeros(B, max_new_tokens)], dim=-1)
+    tok, lp_sum = draw(last_logits)
+    finished = torch.zeros(B, dtype=torch.bool, device=am.device)
+    toks = []
+    for i in range(max_new_tokens):
+        tok = torch.where(finished, pad_token_id, tok)
+        mask_full[:, T + i] = 1
+        out = lvlm_forward(
+            dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
+            image_feats=image_feats,
+            position_ids=(n_real + i)[:, None],
+            kv_cache=cache,
+            kv_total_len=total,
+            shift=shift,
+            logz2=logz2,
+        )
+        cache = out.decoder.kv_cache
+        finished = finished | (tok == eos_token_id)
+        toks.append(tok)
+        next_tok, lp = draw(out.logits[:, -1])
+        lp_sum = lp_sum + torch.where(finished, 0.0, lp)
+        tok = torch.where(finished, pad_token_id, next_tok)
+    return GenerateResult(tokens=torch.stack(toks, dim=1), scores=lp_sum)

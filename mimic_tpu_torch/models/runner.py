@@ -5,9 +5,10 @@ parameters, tokenizer/processor and prompt template, and exposes
 ``set_shift`` / ``set_quant`` / ``apply_prompt_template`` /
 ``process_input`` / ``generate``, the surface the shared eval adapters drive.
 The parameters live in a ``ParamModule`` on the runner's device.
+``enable_vision_cache`` keeps encoded image features across ``generate``
+calls (``models/feature_cache.py``); ``generate(do_sample=True)`` samples.
 
-Not ported yet: sampling, the vision feature cache, LoRA adapters and prefix
-tuning.
+Not ported yet: LoRA adapters and prefix tuning.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from ..device import DeviceLike, resolve_device
 from ..ops.quant import is_quantized, quantize_lm_params
 from ..data.templates import apply_prompt_template as render_template
 from .config import ModelConfig
-from .generate import beam_generate, greedy_generate
+from .feature_cache import VisionFeatureCache, image_key
+from .generate import beam_generate, greedy_generate, sample_generate
 from .lvlm import LVLMBatch
 from .processor import LVLMProcessor
 
@@ -48,6 +50,7 @@ class LVLMRunner:
         pad_multiple: int = 128,
         length_buckets: tuple = (),
         quant: Optional[str] = None,
+        image_size: Optional[int] = None,
     ):
         if cfg.family != "idefics2":
             raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
@@ -55,11 +58,12 @@ class LVLMRunner:
         self.device = resolve_device(device)
         self.module = ParamModule(params).to(self.device)
         self.decode_params = None
+        self.vision_cache: Optional[VisionFeatureCache] = None
         if quant:
             self.set_quant(quant)
         self.tokenizer = tokenizer
         self.template = "idefics2"
-        self.processor = LVLMProcessor(cfg, tokenizer)
+        self.processor = LVLMProcessor(cfg, tokenizer, image_size=image_size)
         self.shift = None
         self.adapters = None  # LoRA adapters: not ported, always None
         self.logz2 = logz2
@@ -81,6 +85,14 @@ class LVLMRunner:
         self.shift = (
             None if shift is None else {k: v.to(self.device) for k, v in shift.items()}
         )
+
+    def enable_vision_cache(self, max_bytes: int = 512 * 1024 * 1024) -> VisionFeatureCache:
+        """Cache encoded image features across ``generate`` calls, keyed by
+        the source images' content: each support image of an ICL eval is
+        encoded once per eval instead of once per occurrence.  A cached
+        feature is the encode function's own output."""
+        self.vision_cache = VisionFeatureCache(max_bytes=max_bytes)
+        return self.vision_cache
 
     def set_quant(self, quant: Optional[str]) -> None:
         """(Re)build the int8 serving tree from the current params.
@@ -105,7 +117,10 @@ class LVLMRunner:
         ``ValueError``.
         Quantization runs one layer at a time on the runner's device; the
         scales stay fp32 (never cast a tree that holds quantized handles).
+        The vision-feature cache is emptied: the tree it was filled from changes.
         """
+        if self.vision_cache is not None:
+            self.vision_cache.clear()
         if quant is None:
             self.decode_params = None
             return
@@ -129,21 +144,51 @@ class LVLMRunner:
     def apply_prompt_template(self, conversation, add_generation_prompt: bool = False):
         return render_template(conversation, self.template, add_generation_prompt)
 
-    def _to_batch(self, enc: Dict[str, np.ndarray]) -> LVLMBatch:
+    def _to_batch(self, enc: Dict[str, np.ndarray], pixels: bool = True) -> LVLMBatch:
         def t(name):
             return torch.from_numpy(enc[name]).to(self.device) if name in enc else None
 
         return LVLMBatch(
             input_ids=t("input_ids").long(),
             attention_mask=t("attention_mask"),
-            pixel_values=t("pixel_values"),
-            patch_mask=t("patch_mask"),
+            pixel_values=t("pixel_values") if pixels else None,
+            patch_mask=t("patch_mask") if pixels else None,
         )
 
     def process_input(self, images, text, pad_to: Optional[int] = None) -> LVLMBatch:
         if text and not isinstance(text, str) and not isinstance(text[0], str):
             text = self.apply_prompt_template(text)
         return self._to_batch(self.processor(images, text, pad_to=pad_to))
+
+    def _image_cache_keys(self, images, enc) -> list:
+        """One content key per [B, N] pixel slot (padding slots share a key).
+
+        Source images are hashed raw (pre-processing) when their nesting
+        matches the processed layout; otherwise the processed pixel slots
+        themselves are digested (slower but always layout-correct)."""
+        B, N = enc["pixel_values"].shape[:2]
+        pad = image_key(None)
+        nested = images
+        if nested is not None and not isinstance(nested, (list, tuple)):
+            nested = [[nested]]
+        elif nested and not isinstance(nested[0], (list, tuple)):
+            nested = [list(nested)]
+        if (
+            nested is not None
+            and len(nested) == B
+            and all(len(row) <= N for row in nested)
+        ):
+            keys = []
+            for row in nested:
+                keys.extend(image_key(im) for im in row)
+                keys.extend([pad] * (N - len(row)))
+            return keys
+        px, mask = enc["pixel_values"], enc["pixel_mask"]
+        return [
+            image_key(px[b, i]) if mask[b, i] else pad
+            for b in range(B)
+            for i in range(N)
+        ]
 
     def generate(
         self,
@@ -153,6 +198,10 @@ class LVLMRunner:
         max_new_tokens: int = 10,
         length_penalty: float = 0.0,
         do_sample: bool = False,
+        temperature: float = 1.0,
+        top_k: int = 0,
+        top_p: float = 1.0,
+        seed: int = 0,
         **_: Any,
     ) -> List[str]:
         """Prompt → decoded continuations (prompt stripped), HF-generate parity.
@@ -161,9 +210,12 @@ class LVLMRunner:
         fitting ``length_buckets`` entry), left-padded.  On a CUDA device the
         vision tower and the prefill run the attention kernels
         (``attn_impl="flash"``); on the CPU they run plain ``sdpa_with_lse``.
+        With the vision cache on, the image features come from the cache and
+        the pixels of a hit never reach the device.  ``do_sample=True``
+        samples (``temperature``, ``top_k``, ``top_p``) from a
+        ``torch.Generator`` on the runner's device seeded with ``seed``;
+        ``num_beams`` is then ignored, as in the JAX runner.
         """
-        if do_sample:
-            raise NotImplementedError("sampling is not ported yet")
         old_side = self.tokenizer.padding_side
         self.tokenizer.padding_side = "left"
         try:
@@ -183,17 +235,32 @@ class LVLMRunner:
         finally:
             self.tokenizer.padding_side = old_side
 
-        batch = self._to_batch(enc)
+        attn_impl = "flash" if self.device.type == "cuda" else "xla"
+        image_feats = None
+        use_cache = self.vision_cache is not None and "pixel_values" in enc
+        if use_cache:
+            image_feats = self.vision_cache.get_features(
+                self.params, self.cfg, enc["pixel_values"], enc.get("patch_mask"),
+                self._image_cache_keys(images, enc), attn_impl=attn_impl,
+            )
+        batch = self._to_batch(enc, pixels=not use_cache)
         common = dict(
             max_new_tokens=max_new_tokens,
             eos_token_id=self.tokenizer.eos_token_id,
             pad_token_id=self.tokenizer.pad_token_id,
             shift=self.shift,
             logz2=self.logz2,
-            attn_impl="flash" if self.device.type == "cuda" else "xla",
+            attn_impl=attn_impl,
             decode_params=self.decode_params,
+            image_feats=image_feats,
         )
-        if num_beams > 1:
+        if do_sample:
+            generator = torch.Generator(device=self.device).manual_seed(seed)
+            result = sample_generate(
+                self.params, self.cfg, batch, generator=generator,
+                temperature=temperature, top_k=top_k, top_p=top_p, **common,
+            )
+        elif num_beams > 1:
             result = beam_generate(
                 self.params, self.cfg, batch, num_beams=num_beams,
                 length_penalty=length_penalty, **common,

@@ -7,8 +7,11 @@
 
 Everything runs on the card; ``device=cpu`` (``train`` / ``eval``) or
 ``--device cpu`` (``pipeline``) asks for the CPU.  ``result_dir=DIR`` (or
-``--result-dir``) names the results directory.  Models are built with random
-weights from the config's seed (``models/factory.py``).
+``--result-dir``) names the results directory.  Models load the
+``params.msgpack`` that ``python -m mimic_tpu_torch.models.convert`` wrote
+under the model's path (``MIMIC_TPU_IDEFICS2_8B_BASE_PATH``,
+``config/paths.py``), else they are built with random weights
+(``models/factory.py``).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ def _eval(overrides: List[str], splits=None, runner=None):
     from .runner import _load_ckpt_into_runner
 
     if runner is None:
-        runner = build_model(cfg.model_name, device=run["device"],
+        runner = build_model(cfg.model_name, cfg.data.name, device=run["device"],
                              dtype=getattr(torch, cfg.dtype))
     if not cfg.is_icl:
         _load_ckpt_into_runner(cfg, runner)
@@ -115,7 +118,7 @@ def _pipeline(args: List[str], splits=None):
         do_eval=ns.eval or all_phases,
         do_analyze=ns.analyze or all_phases,
     )
-    runner = build_model(ns.model, device=ns.device)
+    runner = build_model(ns.model, ns.datasets[0], device=ns.device)
     return run_pipeline(spec, result_dir=ns.result_dir, runner=runner, splits=splits)
 
 

@@ -1,9 +1,11 @@
 """Training entry: assembles a full run (counterpart of
 ``mimic_tpu/pipeline/train_entry.py``).
 
-Differences from the JAX entry, each a later slice's work: one process on one
-device (no mesh, no per-host sharding), no training vision-feature cache
-(``train/vision_cache.py``), shift encoders only (LoRA and prefix raise).
+The training vision-feature cache (``train/vision_cache.py``) is on when
+``cfg.vision_cache`` is set and the model has an inline-splice vision tower,
+as in the JAX entry.  Differences from the JAX entry, each a later slice's
+work: one process on one device (no mesh, no per-host sharding), shift
+encoders only (LoRA and prefix raise).
 ``attn_impl="auto"`` resolves to ``"flash"`` on CUDA and ``"xla"`` on the
 CPU; on the flash path the collator pads to multiples of 128, the alignment
 the decoder's flash path needs (at the collator's default of 64 a batch
@@ -26,6 +28,7 @@ from ..train.collate import TrainCollator
 from ..train.optim import build_optimizer, cosine_warmup_schedule
 from ..train.step import TrainState, make_train_step
 from ..train.trainer import get_max_epochs, train_loop
+from ..train.vision_cache import TrainVisionCache
 
 
 def init_trainable(cfg: TrainConfig, text_cfg, generator: torch.Generator, device) -> Dict[str, Any]:
@@ -53,8 +56,8 @@ def run_train(
     ``device`` when not given; ``None`` is the card) and write
     ``<result_dir>/ckpt/<runname>/``."""
     if runner is None:
-        runner = build_model(cfg.model_name, device=device, dtype=getattr(torch, cfg.dtype),
-                             seed=cfg.seed)
+        runner = build_model(cfg.model_name, cfg.data.name, device=device,
+                             dtype=getattr(torch, cfg.dtype), seed=cfg.seed)
     dev = runner.device
     adapter = build_adapter(cfg.data, splits=splits)
     trainable = init_trainable(
@@ -87,13 +90,27 @@ def run_train(
         align_loss_weight=cfg.peft.align_loss_weight,
         attn_impl=attn_impl,
     )
+    # demo images resample from the fixed train set and the tower is frozen:
+    # cache their encoded features instead of encoding them every step
+    use_vcache = (
+        cfg.vision_cache
+        and runner.cfg.family != "idefics1"
+        and runner.cfg.vision is not None
+    )
     collator = TrainCollator(
         runner.processor, cfg.encoder.strategy(),
         num_image_in_query=cfg.data.num_image_in_query,
         pad_multiple=128 if attn_impl == "flash" else 64,
         max_query_len=cfg.data.max_query_len,
         max_full_len=cfg.data.max_full_len,
+        emit_image_keys=use_vcache,
     )
+    batch_transform = None
+    if use_vcache:
+        batch_transform = TrainVisionCache(
+            runner.cfg, runner.params, max_bytes=cfg.vision_cache_mb * 1024 * 1024,
+            attn_impl=attn_impl,
+        )
     state = TrainState(trainable, tx.init(trainable), 0)
 
     def epoch_batches(epoch: int):
@@ -105,4 +122,5 @@ def run_train(
         cfg, state, runner.params, step, epoch_batches,
         result_dir=result_dir, max_epochs=max_epochs,
         lr_schedule=cosine_warmup_schedule(cfg.peft.lr, warmup, total_steps),
+        batch_transform=batch_transform,
     )

@@ -187,9 +187,13 @@ def _bf16_bits_to_torch(tree: Any, device) -> Any:
     return to_torch(tree, device)
 
 
-def _numpy_tree(tree: Any) -> Any:
+def numpy_tree(tree: Any, sort_keys: bool = True) -> Any:
+    """torch tree → numpy tree for ``tree_to_bytes`` (bf16 leaves as their bits,
+    typed by name); keys sorted, as ``jax.tree.map`` leaves a dict, or in the
+    tree's own order."""
     if isinstance(tree, dict):
-        return {k: _numpy_tree(tree[k]) for k in sorted(tree)}
+        keys = sorted(tree) if sort_keys else tree
+        return {k: numpy_tree(tree[k], sort_keys) for k in keys}
     if tree.dtype == torch.bfloat16:
         bits = tree.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
         return bits.view(np.dtype([("bfloat16", np.uint16)]))
@@ -199,7 +203,7 @@ def _numpy_tree(tree: Any) -> Any:
 def save_trainable(ckpt_dir: str, trainable: Dict[str, Any]) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     with open(os.path.join(ckpt_dir, ENCODER_FILE), "wb") as f:
-        f.write(tree_to_bytes(_numpy_tree(trainable)))
+        f.write(tree_to_bytes(numpy_tree(trainable)))
 
 
 def load_trainable(

@@ -89,14 +89,16 @@ def train_loop(
     max_epochs: Optional[int] = None,
     log_every: int = 2,
     lr_schedule: Optional[Callable[[int], Any]] = None,
+    batch_transform: Optional[Callable[[Any], Dict[str, Any]]] = None,
 ) -> TrainState:
     """Run epochs of the step over host-built batches.
 
     ``epoch_batches(epoch)`` yields ``TrainBatch`` objects (host numpy), moved
-    to the trainable tree's device by ``to_device_batch``.  Resume-skip
+    to the trainable tree's device by ``to_device_batch``, or by
+    ``batch_transform`` when given (``train.vision_cache.TrainVisionCache``
+    swaps recurring images' pixels for cached encoded features).  Resume-skip
     semantics match the reference: the whole run is skipped when every
-    scheduled checkpoint exists.  (The JAX loop's ``batch_transform`` serves
-    the training vision cache, which is not ported yet.)
+    scheduled checkpoint exists.
     """
     runname = get_expand_runname(cfg)
     run_dir = os.path.join(result_dir, "ckpt", runname)
@@ -114,7 +116,11 @@ def train_loop(
     step = int(state.step)
     for epoch in range(max_epochs):
         for batch in epoch_batches(epoch):
-            state, metrics = train_step(state, frozen_params, to_device_batch(batch, device))
+            device_batch = (
+                batch_transform(batch) if batch_transform is not None
+                else to_device_batch(batch, device)
+            )
+            state, metrics = train_step(state, frozen_params, device_batch)
             step += 1
             if step % log_every == 0:
                 if lr_schedule is not None:

@@ -88,8 +88,9 @@ def test_copy_equals_its_source(rel):
 
 
 def test_image_key_copy_equals_its_source():
-    """``train/collate.py`` imports ``image_key`` from ``models/feature_cache.py``;
-    the port copies that function, not the cache."""
+    """``models/feature_cache.py`` is a port (its cache encodes through torch),
+    but the content keys it and ``train/collate.py`` use must stay those of
+    the JAX package: ``image_key``'s text is held to its source's."""
 
     def function_source(path):
         text = path.read_text()
@@ -99,9 +100,6 @@ def test_image_key_copy_equals_its_source():
 
     rel = "models/feature_cache.py"
     assert function_source(PORT / rel) == function_source(SRC / rel)
-    names = {n.name for n in ast.parse((PORT / rel).read_text()).body
-             if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
-    assert names == {"image_key"}
 
 
 def _imported_roots(path: Path):
