@@ -125,6 +125,32 @@ Phases (any failure propagates: non-zero exit, no result line):
              time and peak memory.  (e) a tiny idefics2 as two safetensors shards
              through python -m mimic_tpu_torch.models.convert, params.msgpack and
              build_model(paths=...): logits equal to the source runner's.
+13. LoRA and prefix — on the phase-5 runner, after phase 12, on phase 5's batch
+             with its images encoded once (what the warm training cache hands
+             the step): (a) 3 counted steps of the lora preset (r 16, alpha 32,
+             dropout 0.05 on q/k/v/o, Strategy.LM_LOSS: the shift pass alone,
+             flash path), B drawn N(0, 0.05^2) so that A has a gradient: each
+             step launches onepass_fwd and both backward kernels once per layer
+             (32: layer 0's adapters give its attention inputs a gradient); the
+             same state and seed repeat the loss, consecutive steps differ; the
+             loss (relative 1e-3) and per-leaf gradients (cosine >= 0.99)
+             against the plain attention path with the same dropout masks; one
+             step under torch.profiler.  (b) The MimIC step with shift_remat
+             against the same step without: loss equal, gradient cosine >=
+             0.9999, seconds and peak memory of each, in turns.  (d) 3
+             prefix-tuning steps (P 16; the plain cached path, no kernel
+             launches), then beam-3 call A with the trained prefix: the prefill
+             logs "flash+prefix" and launches onepass_fwd for the prompt block,
+             its logits against the plain cached path (row cosine >= 0.99);
+             under the profiler.  (e) call B in "int8" without a shift with the
+             prefix: flash_fwd in the prefill, prompt_attn_int8 over the
+             P + 4096 prompt slots in every decode step; under the profiler.
+             (c) run_train with the lora preset (11 one-step epochs) writes
+             epoch-10, then the CLI's eval (quant=int8-w8a8, preset=lora) on a
+             model built anew: the adapters merged into the weights (no live
+             adapters, the bf16 base kept), exact launches, q/s, peak memory;
+             call A's prefill logits of the merged bf16 tree against live
+             adapters (row cosine >= 0.99).
 
 Every phase prints its seconds ("[time]").
 
@@ -139,6 +165,7 @@ Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
+    python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -973,6 +1000,7 @@ def profile_run(label, run):
     its synchronised wall seconds."""
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         secs = run()
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
@@ -996,7 +1024,8 @@ def profile_run(label, run):
     log(f"[profile] {label}: {secs:.3f} s wall under the profiler, device busy "
         f"{busy / 1e6:.3f} s ({busy / 1e6 / secs:.1%}; kernel durations sum to "
         f"{sum(us.values()) / 1e6:.3f} s); " + ", ".join(f"{g} {t / 1e6:.3f} s"
-                                                        for g, t in groups.items()))
+                                                        for g, t in groups.items())
+        + f" (tracing and reading the trace: {time.perf_counter() - t0:.1f} s)")
     for e in sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         log(f"[profile]   {e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}x {e.key[:110]}")
 
@@ -1426,27 +1455,36 @@ def check_fused_mlp(label, seed, M, D, F, reps):
             "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None}
 
 
-def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps, split_sweep=False):
+def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps, split_sweep=False,
+                      prefix=0):
     """prompt_attn_int8 on a 16-layer int8 prompt cache quantized on the card,
     folded layout, against its plain version (checked at layer 1); one kernel
     launched per call; ``split_sweep``: the kernel under every cluster split,
-    the plan's choice marked."""
+    the plan's choice marked.  ``prefix``: P prefix-tuning slots lead the Sp
+    left-padded prompt slots, as in the beam search with a prefix; the P + Sp
+    slots are zero-padded to a multiple of 128 by ``quantize_prompt_kv`` and
+    masked there."""
     from mimic_tpu_torch.ops import decode_attention as tda
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     D, layers = tda.HEAD_DIM, 16
-    kv = [torch.randn(layers, B0, Sp, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
+    Sr = prefix + Sp
+    Sq = -(-Sr // tda.KEY_BLOCK) * tda.KEY_BLOCK
+    kv = [torch.randn(layers, B0, Sr, Hkv, D, generator=gen, device="cuda").to(torch.bfloat16)
           for _ in range(2)]
-    pk, pv = tda.quantize_prompt_kv(*kv)
+    pk, pv = tda.quantize_prompt_kv(*kv, padded_len=Sq)
     del kv
     qg = (torch.randn(B0 * beams, 1, Hkv, G, D, generator=gen, device="cuda") / D**0.5)
     qf = tda._fold(qg.to(torch.bfloat16), B0).contiguous()
-    mask = torch.from_numpy(left_padded_mask(B0, Sp, pads)).cuda()
+    mask = torch.from_numpy(np.concatenate(
+        [np.ones((B0, prefix), np.int32), left_padded_mask(B0, Sp, pads),
+         np.zeros((B0, Sq - Sr), np.int32)], axis=1)).cuda()
     args = lambda l: (qf, pk["q8"][l], pk["scale"][l], pv["q8"][l], pv["scale"][l], mask)
     errs, ms, plain_ms = check_int8(
         label, lambda l: tda._launch(*args(l)),
         lambda l: tda.prompt_attention_int8_plain(*args(l)), layers, 1, reps, fields="oml")
-    log(f"[int8] {label}: prompt_attn_int8 B0 {B0} x beams {beams}, Hkv {Hkv}, G {G}, Sp {Sp}, "
+    slots = f"Sp {Sp}" if Sq == Sp else f"Sp {prefix} prefix + {Sp} = {Sr} stored as {Sq}"
+    log(f"[int8] {label}: prompt_attn_int8 B0 {B0} x beams {beams}, Hkv {Hkv}, G {G}, {slots}, "
         f"D {D}, left pads {list(pads)}: max abs err o {errs['o']:.3e} m {errs['m']:.3e} "
         f"l {errs['l']:.3e} (tol o, l {TOL_INT8_REL} x max |ref|, m {TOL_INT8_M}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -1472,10 +1510,10 @@ def check_prompt_attn(label, seed, B0, beams, Hkv, G, Sp, pads, reps, split_swee
         if split_sweep:
             M = beams * G
             clusters = {s: tda._clusters(0, s, M) for s in tda.PROMPT_SPLITS}
-            plan = tda.prompt_split(B0, Hkv, Sp, clusters.get)
+            plan = tda.prompt_split(B0, Hkv, Sq, clusters.get)
             times = {}
             for split in tda.PROMPT_SPLITS:
-                if split <= Sp // tda.KEY_BLOCK:
+                if split <= Sq // tda.KEY_BLOCK:
                     times[split] = cold_ms(lambda l, s=split: tda._launch(*args(l), split=s),
                                            layers, reps, True)
             log(f"[int8] split sweep, prompt_attn_int8 {label} ({B0 * Hkv} clusters; the card "
@@ -1572,6 +1610,9 @@ def phase_int8_kernels(split_sweep=False):
                           split_sweep=split_sweep),
         check_prompt_attn("call-A", 28, 4, NUM_BEAMS, 8, 4, 512, (130, 0, 37, 300), reps=32,
                           split_sweep=split_sweep),
+        # call B with a 16-slot prefix (phase 13e): 4112 slots padded to 4224
+        check_prompt_attn("call-B-prefix", 31, 2, NUM_BEAMS, 8, 4, 4096, (0, 250), reps=32,
+                          prefix=16),
     ]
     summary = {}
     for r in results:
@@ -2913,6 +2954,480 @@ def phase_caches_8b(runner):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LoRA and prefix tuning
+# ---------------------------------------------------------------------------
+
+# the remat step against the same step without remat: the same kernels on the
+# same inputs, recomputed, so the gradients agree up to the order of bf16 sums
+MIN_REMAT_COSINE = 0.9999
+PEFT_LOSS_REL = 1e-3
+
+
+def _grad_cosines(a, b):
+    return {k: torch.nn.functional.cosine_similarity(a[k].flatten().float(),
+                                                     b[k].flatten().float(), dim=0).item()
+            for k in a}
+
+
+def _counts():
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+
+    return {**tfa.LAUNCHES, **tfb.LAUNCHES, **_int8_counts()}
+
+
+def _reset_counts():
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+
+    tfa.reset_launch_counts()
+    tfb.reset_launch_counts()
+    _reset_int8_counts()
+
+
+def _sum_counts(*dicts):
+    return {k: sum(d.get(k, 0) for d in dicts) for k in KERNEL_META}
+
+
+def _feature_batch(runner, batch):
+    """Phase 5's batch with the images encoded once (what the warm training
+    vision cache hands the step)."""
+    from mimic_tpu_torch.models.lvlm import encode_images
+
+    with torch.no_grad():
+        feats = {f"{p}_feats": encode_images(runner.params, runner.cfg, batch[f"{p}_pixels"],
+                                             batch[f"{p}_patch_mask"], attn_impl="flash")
+                 for p in ("full", "query")}
+    out = {k: v for k, v in batch.items() if "pixels" not in k and "patch" not in k}
+    out.update(feats)
+    return out
+
+
+def phase_lora_steps(runner, fb):
+    """(a) Three lora-preset steps on the flash path, held to the plain path."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.shift.lora import init_lora_params
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    enc, peft = get_preset("lora")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lora = init_lora_params(peft.lora, cfg.text, gen, torch.device("cuda"))
+    # B off zero (at init dA is zero): N(0, 0.05^2)
+    for k in lora:
+        if k.endswith("_b"):
+            lora[k] = torch.randn(lora[k].shape, generator=gen, device="cuda") * 0.05
+    trainable = {"lora": lora}
+    scaling, rate = peft.lora.scaling(), peft.lora.dropout
+    tx = build_optimizer(trainable, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, lora_scaling=scaling,
+                              lora_dropout=rate, attn_impl="flash", seed=0)
+    state0 = ts.TrainState(trainable, tx.init(trainable), 0)
+    n = sum(v.numel() for v in lora.values())
+    log(f"[peft] lora preset on idefics2-8b-base: {n / 1e6:.3f} M fp32 adapter parameters "
+        f"(r {peft.lora.r}, alpha {peft.lora.alpha}, dropout {rate}, "
+        f"{', '.join(peft.lora.target_modules)}), Strategy.LM_LOSS: the shift pass alone, "
+        f"{fb['query_ids'].shape[1]} tokens x B{fb['query_ids'].shape[0]} on encoded features")
+
+    def run(state):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, frozen, fb)
+        torch.cuda.synchronize()
+        return state, m, time.perf_counter() - t
+
+    _, m0, secs = run(state0)  # warm-up, and the seed check below
+    _, again, _ = run(state0)
+    log(f"[peft] lora warm-up step {secs:.3f} s, loss {float(m0['loss']):.6f}; the same state and "
+        f"seed again: loss {float(again['loss']):.6f}")
+    if float(again["loss"]) != float(m0["loss"]):
+        raise AssertionError("the lora step's loss differs under the same seed")
+    state, times, per_step = state0, [], []
+    ATTN_PATH_LOG.clear()
+    total = {}
+    for i in range(TRAIN_STEPS):
+        _reset_counts()
+        state, m, secs = run(state)
+        counts = _counts()
+        total = _sum_counts(total, counts)
+        times.append(secs)
+        per_step.append(float(m["loss"]))
+        log(f"[peft] lora step {i + 1}: {secs:.3f} s; loss {float(m['loss']):.6g}, grad_norm "
+            f"{float(m['grad_norm']):.6g}; launches {counts}")
+        # with adapters on q/k/v, layer 0's attention inputs carry gradient too
+        want = {"onepass_fwd": L, "flash_fwd": 0, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"lora step launched {counts}, want {want}")
+        if not (np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0):
+            raise AssertionError(f"lora step metrics {m}")
+    if ATTN_PATH_LOG != ["flash"] * TRAIN_STEPS or len(set(per_step)) != TRAIN_STEPS:
+        raise AssertionError(f"lora steps: paths {ATTN_PATH_LOG}, losses {per_step}")
+    STEP_SECONDS["lora"] = times
+    log(f"[peft] {TRAIN_STEPS} lora steps: mean {sum(times) / len(times):.3f} s/step (min "
+        f"{min(times):.3f}, max {max(times):.3f}); consecutive steps draw other dropout masks: "
+        f"losses {per_step}")
+    profile_run("lora train step", lambda: run(state)[2])
+
+    # the first step's loss and gradients against the plain attention path,
+    # with the same dropout masks (one seed for both)
+    loss_kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=False, rec_ffn=False, mh=True,
+                   ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                   logz2="unmasked", lora_scaling=scaling, lora_dropout=rate)
+    grads, losses = {}, {}
+    for attn_impl in ("flash", "xla"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in lora.items()}
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        with torch.enable_grad():
+            loss, _ = ts.compute_loss({"lora": leaves}, frozen, fb, attn_impl=attn_impl,
+                                      dropout_generator=gen, **loss_kw)
+            grads[attn_impl] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        losses[attn_impl] = float(loss.detach())
+    cos = _grad_cosines(grads["flash"], grads["xla"])
+    rel = abs(losses["flash"] - losses["xla"]) / abs(losses["xla"])
+    log(f"[peft] lora step, kernels vs plain attention: loss {losses['flash']:.6f} vs "
+        f"{losses['xla']:.6f} (relative {rel:.2e}, need <= {PEFT_LOSS_REL}); per-leaf gradient "
+        f"cosine min {min(cos.values()):.6f} (need >= {MIN_GRAD_COSINE}): {cos}")
+    if rel > PEFT_LOSS_REL or min(cos.values()) < MIN_GRAD_COSINE:
+        raise AssertionError("the lora step through the kernels disagrees with the plain path")
+    return total
+
+
+def phase_remat(runner, fb):
+    """(b) The MimIC step with shift_remat against the same step without."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.shift.params import (init_shift_params, multi_head, needs_attn_capture,
+                                               needs_ffn_capture)
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    enc, peft = get_preset("mimic")
+    shift = init_shift_params(enc, cfg.text, torch.Generator(device="cuda").manual_seed(2),
+                              torch.device("cuda"))
+    loss_kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=needs_attn_capture(enc),
+                   rec_ffn=needs_ffn_capture(enc), mh=multi_head(enc),
+                   ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                   logz2="unmasked", attn_impl="flash")
+    grads, losses, stats = {}, {}, {}
+    for remat in (False, True, True, False):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in shift.items()}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.enable_grad():
+            loss, _ = ts.compute_loss({"shift": leaves}, frozen, fb, shift_remat=remat, **loss_kw)
+            g = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        grads[remat], losses[remat] = g, float(loss.detach())
+        stats.setdefault(remat, []).append((secs, peak))
+    tx = build_optimizer({"shift": shift}, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0)
+    launches = {}
+    for remat in (False, True):
+        step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                                  align_loss_weight=peft.align_loss_weight, attn_impl="flash",
+                                  logz2="unmasked", shift_remat=remat)
+        state = ts.TrainState({"shift": shift}, tx.init({"shift": shift}), 0)
+        step(state, frozen, fb)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step(state, frozen, fb)
+        torch.cuda.synchronize()
+        stats[remat].append((time.perf_counter() - t, None))
+        launches[remat] = _counts()
+    cos = _grad_cosines(grads[True], grads[False])
+    log(f"[peft] MimIC step (phase 5's batch on encoded features), shift_remat off / on: loss "
+        f"{losses[False]:.6f} / {losses[True]:.6f}; per-leaf gradient cosine {cos} (need >= "
+        f"{MIN_REMAT_COSINE}); loss + backward s and peak GiB above the resident tree, in turns: "
+        + "; ".join(f"{'on' if r else 'off'} " + ", ".join(
+            f"{s:.3f} s {p:.2f} GiB" for s, p in v if p is not None) for r, v in stats.items())
+        + "; whole step (make_train_step) s: "
+        + ", ".join(f"{'on' if r else 'off'} {v[-1][0]:.3f}" for r, v in stats.items())
+        + f"; launches per step off {launches[False]}, on {launches[True]}")
+    if losses[True] != losses[False] or min(cos.values()) < MIN_REMAT_COSINE:
+        raise AssertionError("the remat step disagrees with the step without remat")
+
+
+def phase_lora_eval(runner, result_dir):
+    """(c) run_train with the lora preset, then the CLI's eval in "int8-w8a8"
+    on a model built anew: the adapters merged into the weights."""
+    import gc
+
+    from mimic_tpu_torch.config import TrainConfig, get_preset
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.factory import build_model
+    from mimic_tpu_torch.pipeline import cli, train_entry
+    from mimic_tpu_torch.shift.lora import merge_lora
+    from mimic_tpu_torch.train.checkpoints import load_trainable
+
+    enc, peft = get_preset("lora")
+    cfg = TrainConfig(runname="smokelora", model_name="idefics2-8b-base", encoder=enc, peft=peft,
+                      epochs=11, batch_size=2, accumulate_grad_batches=1)
+    cfg.data.name, cfg.data.num_query_samples, cfg.data.num_shot = "vqav2", 2, 1
+    cfg.data.max_query_len = 256
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train_entry.run_train(cfg, result_dir=result_dir, runner=runner,
+                                  splits=synthetic_vqa_splits(6, 8))
+    torch.cuda.synchronize()
+    ckpt = os.path.join(result_dir, "ckpt", "smokelora-idefics2-8b-base-vqav2-2-1shot", "epoch-10")
+    log(f"[peft] run_train (lora preset, 1-shot, B2, 11 epochs x 1 step): {state.step} steps in "
+        f"{time.perf_counter() - t0:.1f} s; checkpoint {os.path.relpath(ckpt, result_dir)}")
+    if state.step != 11 or not os.path.exists(os.path.join(ckpt, "encoder.msgpack")):
+        raise AssertionError("run_train with the lora preset wrote no epoch-10 checkpoint")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    ev = build_model("idefics2-8b-base", dtype=torch.bfloat16)
+    L = ev.cfg.text.num_layers
+    splits = synthetic_vqa_splits(6, EVAL_BATCH * EVAL_BATCHES)
+    overrides = [
+        "model_name=idefics2-8b-base", f"ckpt_path={ckpt}", "preset=lora", "quant=int8-w8a8",
+        f"batch_size={EVAL_BATCH}", f"iterations={EVAL_BATCHES}", "data.name=vqav2",
+        f"data.num_query_samples={EVAL_BATCH * EVAL_BATCHES}", "data.num_shot=1",
+        f"data.length_buckets=[{EVAL_BUCKET}]",
+    ]
+
+    def evaluate(tag):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = cli._eval(overrides + [f"result_dir={os.path.join(result_dir, tag)}"],
+                        splits=splits, runner=ev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    _, secs = evaluate("lora-warm")
+    base = ev._unmerged_params
+    if ev.adapters is not None or not ev._lora_merged or base is None:
+        raise AssertionError("the lora eval runner carries live adapters or no pristine base")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ATTN_PATH_LOG.clear()
+    (records, metrics), secs = evaluate("lora-counted")
+    launches = _counts()
+    n = EVAL_BATCH * EVAL_BATCHES
+    steps = MAX_NEW_TOKENS - 1
+    want = {"w8a8_matmul": EVAL_BATCHES * 4 * L, "quantize_rows": EVAL_BATCHES * 4 * L,
+            "int8_matmul": EVAL_BATCHES * (steps * (2 * L + 1) + 1),
+            "fused_mlp_int8": EVAL_BATCHES * steps * L, "prompt_attn_int8": 0}
+    log(f"[peft] python -m mimic_tpu_torch eval {' '.join(overrides[2:4])} ... (LoRA merged into "
+        f"the weights, then quantized): {n} requests in {secs:.3f} s = {n / secs:.3f} q/s; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the pristine bf16 "
+        f"base kept for the next epoch's merge); eval_result {json.dumps(metrics)}; launches "
+        f"{launches}")
+    if ({k: launches[k] for k in want} != want or len(records) != n
+            or ATTN_PATH_LOG != (["flash"] + ["cached"] * steps) * EVAL_BATCHES):
+        raise AssertionError(f"lora eval: launches {launches}, want {want}; paths {ATTN_PATH_LOG}")
+
+    # first-step logits of call A in bf16: the merged tree against live adapters
+    lora = load_trainable(ckpt, template=train_entry.init_trainable(
+        cfg, ev.cfg.text, torch.Generator().manual_seed(0), "cpu"))["lora"]
+    lora = {k: v.cuda() for k, v in lora.items()}
+    images, texts, bucket = serving_calls()["A"]
+    ev.tokenizer.padding_side = "left"
+    batch = ev.process_input(images, texts, pad_to=bucket)
+    with torch.no_grad():
+        merged = merge_lora(base, lora, cfg.peft.lora.scaling())
+        live = tg._prefill(base, ev.cfg, batch, bucket + MAX_NEW_TOKENS, None, "unmasked",
+                           torch.bfloat16, "flash", adapters=lora,
+                           lora_scaling=cfg.peft.lora.scaling())[0]
+        folded = tg._prefill(merged, ev.cfg, batch, bucket + MAX_NEW_TOKENS, None, "unmasked",
+                             torch.bfloat16, "flash")[0]
+        plain = tg._prefill(base, ev.cfg, batch, bucket + MAX_NEW_TOKENS, None, "unmasked",
+                            torch.bfloat16, "flash")[0]
+    cos = _row_cosine(folded, live)
+    moved = (live.float() - plain.float()).abs().max().item()
+    log(f"[peft] call A prefill logits, bf16, merged tree vs live adapters: min row cosine "
+        f"{cos:.6f} (need >= {MIN_LOGIT_COSINE}), max abs diff "
+        f"{(folded.float() - live.float()).abs().max().item():.4f}; the trained adapters move "
+        f"the logits by up to {moved:.4f} from the base's")
+    if cos < MIN_LOGIT_COSINE or not torch.isfinite(live).all():
+        raise AssertionError("merged LoRA logits disagree with the live adapters")
+    del ev, base, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_prefix(runner, fb):
+    """(d) prefix-tuning steps, then beam-3 call A with the prefix; (e) call B
+    without a shift in "int8" with the prefix (the int8 prompt KV)."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.lvlm import encode_images, lvlm_forward
+    from mimic_tpu_torch.shift.prefix import init_prefix_params, prefix_forward_args
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    enc, peft = get_preset("prefix-tuning")
+    prefix = init_prefix_params(peft.prefix, cfg.text, torch.Generator(device="cuda").manual_seed(6),
+                                torch.device("cuda"))
+    P = prefix["k"].shape[1]
+    tx = build_optimizer({"prefix": prefix}, lr=peft.lr, weight_decay=1e-3, warmup_steps=0,
+                         total_steps=1000, grad_clip=1.0)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, attn_impl="flash")
+    state = ts.TrainState({"prefix": prefix}, tx.init({"prefix": prefix}), 0)
+    t0 = time.perf_counter()
+    state, _ = step(state, frozen, fb)  # warm-up
+    log(f"[peft] prefix warm-up step: {_since(t0):.3f} s")
+    ATTN_PATH_LOG.clear()
+    times, total = [], {}
+    for i in range(TRAIN_STEPS):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, frozen, fb)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        counts = _counts()
+        total = _sum_counts(total, counts)
+        if not (np.isfinite(float(m["loss"])) and float(m["grad_norm"]) > 0) or any(counts.values()):
+            raise AssertionError(f"prefix step: metrics {m}, launches {counts}")
+    STEP_SECONDS["prefix"] = times
+    moved = max((state.trainable["prefix"][k] - prefix[k]).abs().max().item() for k in prefix)
+    log(f"[peft] prefix-tuning (P {P}, {2 * prefix['k'].numel() / 1e6:.3f} M fp32 parameters), "
+        f"{TRAIN_STEPS} steps on phase 5's shift pass: {', '.join(f'{t:.3f}' for t in times)} s; "
+        f"the text attention takes the plain cached path ({sorted(set(ATTN_PATH_LOG))}), no kernel "
+        f"launches; prefix max |change| {moved:.3e}")
+    if set(ATTN_PATH_LOG) != {"cached"} or not moved > 0:
+        raise AssertionError(f"prefix steps: paths {ATTN_PATH_LOG}, change {moved}")
+
+    saved = (runner.shift, runner.adapters, runner.lora_scaling, runner.prefix)
+    runner.set_shift(None, prefix=state.trainable["prefix"])
+    calls = serving_calls()
+    out = {}
+    try:
+        # (d) call A: the prompt block through onepass_fwd, the prefix merged in
+        log(f"[peft] prefix warm-up call A: {timed_generate(runner, calls, 'A')[1]:.3f} s")
+        _reset_counts()
+        ATTN_PATH_LOG.clear()
+        text, secs = timed_generate(runner, calls, "A")
+        out["call A"] = _counts()
+        paths = list(ATTN_PATH_LOG)
+        log(f"[peft] beam-3 call A with the prefix: {secs:.3f} s = {4 / secs:.3f} q/s; paths "
+            f"{paths[:2]}...; launches {out['call A']}")
+        # the ViT's rows (one launch per vision layer) and the prompt block's
+        if paths != ["flash+prefix"] + ["cached"] * (MAX_NEW_TOKENS - 1) or \
+                out["call A"]["onepass_fwd"] != cfg.vision.num_layers + L:
+            raise AssertionError(f"prefix call A: paths {paths}, launches {out['call A']}")
+        profile_run("prefix call A", lambda: timed_generate(runner, calls, "A")[1])
+        images, texts, bucket = calls["A"]
+        runner.tokenizer.padding_side = "left"
+        t0 = time.perf_counter()
+        batch = runner.process_input(images, texts, pad_to=bucket)
+        with torch.no_grad():
+            merged = tg._prefill(runner.params, cfg, batch, P + bucket + MAX_NEW_TOKENS, None,
+                                 "unmasked", torch.bfloat16, "flash", prefix=runner.prefix)[0]
+            feats = encode_images(runner.params, cfg, batch.pixel_values, batch.patch_mask,
+                                  attn_impl="flash")
+            pb, pos, cache, total_len = prefix_forward_args(
+                runner.prefix, batch._replace(pixel_values=None, patch_mask=None), torch.bfloat16,
+                extra_len=MAX_NEW_TOKENS)
+            cached = lvlm_forward(runner.params, cfg, pb, image_feats=feats, position_ids=pos,
+                                  kv_cache=cache, kv_total_len=total_len,
+                                  last_logit_only=True).logits[:, -1]
+        cos = _row_cosine(merged, cached)
+        log(f"[peft] call A prefill logits, prefix merged through the kernels vs the plain "
+            f"cached path: min row cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE}), max abs diff "
+            f"{(merged.float() - cached.float()).abs().max().item():.4f} ({_since(t0):.1f} s)")
+        if cos < MIN_LOGIT_COSINE or not torch.isfinite(merged).all():
+            raise AssertionError("the prefix-merge prefill disagrees with the cached path")
+
+        # (e) call B in "int8" without a shift: Sp = P + 4096 prompt slots, int8,
+        # padded to 33 chunks of 128 keys (the last one P real keys; phase 6
+        # holds the kernel to its plain version at that shape)
+        t0 = time.perf_counter()
+        runner.set_quant("int8")
+        log(f"[peft] set_quant('int8'): {_since(t0):.1f} s; warm-up call B with the prefix: "
+            f"{timed_generate(runner, calls, 'B')[1]:.3f} s")
+        _reset_counts()
+        ATTN_PATH_LOG.clear()
+        _, secs = timed_generate(runner, calls, "B")
+        out["call B"] = _counts()
+        paths = list(ATTN_PATH_LOG)
+        Sp = P + calls["B"][2]
+        log(f"[peft] beam-3 call B in 'int8' with the prefix, no shift: {secs:.3f} s = "
+            f"{2 / secs:.3f} q/s; prompt KV {Sp} slots stored int8 as {-(-Sp // 128) * 128}; "
+            f"paths {paths[:3]}...; launches {out['call B']}")
+        want = {"flash_fwd": L, "prompt_attn_int8": (MAX_NEW_TOKENS - 1) * L}
+        if ({k: out["call B"][k] for k in want} != want
+                or paths != ["flash+prefix"] + ["cached", "quant_kv"] * (MAX_NEW_TOKENS - 1)):
+            raise AssertionError(f"prefix call B: paths {paths}, launches {out['call B']}")
+        profile_run("prefix call B, int8", lambda: timed_generate(runner, calls, "B")[1])
+        # the first decode step over the int8 prompt KV against a bf16 prompt KV
+        images, texts, bucket = calls["B"]
+        runner.tokenizer.padding_side = "left"
+        batch = runner.process_input(images, texts, pad_to=bucket)
+        first, tok = {}, runner.tokenizer
+        for quant_kv in (True, False):
+            ATTN_PATH_LOG.clear()
+            with LogitSpy() as spy:
+                tg.beam_generate(runner.params, cfg, batch, max_new_tokens=2, num_beams=NUM_BEAMS,
+                                 eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                                 attn_impl="flash", decode_params=runner.decode_params,
+                                 quant_kv=quant_kv, prefix=runner.prefix)
+            first[quant_kv] = spy.logits[1]
+            if ("quant_kv" in ATTN_PATH_LOG) != quant_kv:
+                raise AssertionError(f"prefix call B, quant_kv {quant_kv}: paths {ATTN_PATH_LOG}")
+        a, b = first[True], first[False]
+        cos = _row_cosine(a, b)
+        log(f"[peft] call B with the prefix, first decode step logits, int8 prompt KV ({Sp} slots "
+            f"stored as {-(-Sp // 128) * 128}) vs bf16 prompt KV: max abs diff "
+            f"{(a - b).abs().max().item():.4f} of max |logit| {b.abs().max().item():.4f}, min row "
+            f"cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+        if (a.shape != (2 * NUM_BEAMS, cfg.text.vocab_size) or not torch.isfinite(a).all()
+                or cos < MIN_LOGIT_COSINE):
+            raise AssertionError("prefix call B: the int8 prompt KV disagrees with the bf16 one")
+    finally:
+        runner.set_quant(None)
+        runner.set_shift(saved[0], saved[1], saved[2], prefix=saved[3])
+    return _sum_counts(total, *out.values())
+
+
+def _since(t0):
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_peft_8b(runner):
+    """Phase 13 on the phase-5 runner: (a)-(e); the launches of the counted
+    LoRA steps, the LoRA eval, the prefix steps and calls."""
+    fb = _feature_batch(runner, make_train_batch(runner.cfg))
+    out = {}
+    t = time.perf_counter()
+    out["lora training"] = phase_lora_steps(runner, fb)
+    log(f"[time] phase 13 lora steps: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_remat(runner, fb)
+    log(f"[time] phase 13 remat: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["prefix"] = phase_prefix(runner, fb)
+    log(f"[time] phase 13 prefix: {time.perf_counter() - t:.1f} s")
+    del fb
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mimic_smoke_lora_") as result_dir:
+        out["lora eval"] = phase_lora_eval(runner, result_dir)
+    log(f"[time] phase 13 lora eval: {time.perf_counter() - t:.1f} s")
+    return out
+
+
 def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
     """One cache-empty prefill of ``batch`` (the generation's first forward)."""
     from mimic_tpu_torch.models.decoder import init_kv_cache
@@ -3007,6 +3522,12 @@ def main() -> int:
         log("[card] partial run (--cache-only): phase 12 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--peft-only"]:
+        runner, _ = phase_main()
+        phase_peft_8b(runner)
+        log("[card] partial run (--peft-only): phase 13 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--eval-only"]:
         from mimic_tpu_torch.models.factory import build_model
 
@@ -3037,6 +3558,7 @@ def main() -> int:
     runner, serve_launches = timed("phase 4 8B serving", phase_main)
     train_launches = timed("phase 5 8B train step", phase_train_8b, runner)
     cache_launches = timed("phase 12 caches, sampling, converter", phase_caches_8b, runner)
+    peft_launches = timed("phase 13 LoRA and prefix", phase_peft_8b, runner)
     with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
         ckpt, trained_shift = timed("phase 11 run_train", phase_train_for_eval, runner,
                                     result_dir)
@@ -3045,10 +3567,11 @@ def main() -> int:
         eval_launches = timed("phase 11 eval", phase_eval_w8a8, ckpt, trained_shift, result_dir)
 
     # launches: each path's counted run (serving, training, the cached train
-    # steps, the warm cached call A, the sampled calls, int8 serving, the W8A8
-    # eval), each driven with the counts at 0 and read just after, summed
+    # steps, the warm cached call A, the sampled calls, the LoRA steps, the
+    # prefix steps and calls, the LoRA eval, int8 serving, the W8A8 eval), each
+    # driven with the counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
-             "int8 serving": int8_launches, "W8A8 eval": eval_launches}
+             **peft_launches, "int8 serving": int8_launches, "W8A8 eval": eval_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

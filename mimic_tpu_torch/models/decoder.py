@@ -12,15 +12,17 @@ cache-empty prefill through the attention kernels (``attn_impl="flash"``), the
 cached two-part decode with a beam-shared prompt region, and the cache append.
 The hidden-state captures of the training step (``capture_attn`` /
 ``capture_ffn``, optionally gathered at ``capture_gather_idx``) are ported;
-the flash path differentiates through ``flash_attention_diff``.
+the flash path differentiates through ``flash_attention_diff``.  LoRA
+adapters (with dropout on their inputs), the prefix-tuning prefill
+(``prefix_flash_len``) and per-layer rematerialisation (``remat``).
 Int8 weights (``ops/quant.py`` handles, fused ``qkv_proj`` / ``gateup_proj``
 or unfused) go through ``qdot`` and ``fused_mlp`` as stacked handles
 ``{"q8", "scale", "layer": l}`` (no per-layer copy); an int8 prompt cache
 (``ops/decode_attention.py``) through ``cached_attention``'s int8 branch.
 Not ported yet (raise ``NotImplementedError``): gated cross-attention
 (idefics1), q/k/v biases (qwen2), qk-layernorms, the sliding window
-(Mistral), LoRA adapters, prefix-merge prefill, ring attention, layer-input
-captures and perturbations, rematerialisation, per-row cache writes.
+(Mistral), ring attention, layer-input captures and perturbations, per-row
+cache writes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
@@ -131,7 +134,39 @@ def init_kv_cache(
 # ---------------------------------------------------------------------------
 
 
-def _project_qkv(lp: Params, x: torch.Tensor, cfg: TextConfig):
+def lora_dropout_keep(
+    generator: torch.Generator, layer: int, slot: int, shape, rate: float
+) -> torch.Tensor:
+    """LoRA dropout's keep mask (bool, ``shape``) for adapter input ``slot``
+    (0-3: q, k, v, o) of ``layer``: each element kept with probability
+    1 - ``rate`` (JAX: ``bernoulli(key[layer, slot], 1 - rate, shape)``),
+    drawn from ``generator`` in call order.  One function of (generator,
+    layer, slot, shape), so that a test can hand in the masks JAX drew."""
+    u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+    return u < 1.0 - rate
+
+
+def _lora_delta(
+    ad: Params, name: str, x: torch.Tensor, scaling: float,
+    keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+) -> Optional[torch.Tensor]:
+    """scaling · B(A(dropout(x))) for one projection, or None (dropout on the
+    adapter input only, peft's semantics).  The adapter math runs in the
+    adapter's dtype (fp32 trainables over a bf16 tower: ``torch.matmul`` does
+    not promote bf16 x fp32 as ``jnp.dot`` does, so x is cast); the delta
+    returns in x's dtype."""
+    a, b = ad.get(f"{name}_a"), ad.get(f"{name}_b")
+    if a is None:
+        return None
+    if keep is not None:
+        x = torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+    return (scaling * torch.matmul(torch.matmul(x.to(a.dtype), a), b)).to(x.dtype)
+
+
+def _project_qkv(
+    lp: Params, ad: Params, x: torch.Tensor, cfg: TextConfig, scaling: float,
+    keeps: Optional[list], rate: float,
+):
     B, T, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
     if "qkv_proj" in lp:
@@ -142,12 +177,40 @@ def _project_qkv(lp: Params, x: torch.Tensor, cfg: TextConfig):
         v = qkv[..., (H + Hkv) * Dh :]
     else:
         q, k, v = (qdot(x, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+    out = []
+    for slot, (name, y) in enumerate((("q", q), ("k", k), ("v", v))):
+        delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate)
+        out.append(y if delta is None else y + delta)
+    q, k, v = out
     return q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
+
+
+def _merge_prefix(q, attn_f, lse_f, lse_u_f, prefix_k, prefix_v, G):
+    """The prefix-tuning prefill's merge (JAX ``decoder.py:232-276``): the
+    block's own cacheless attention (attn_f, lse_f, lse_u_f) and the P prefix
+    slots, all attendable, through a small unmasked sdpa; the two normalized
+    parts are combined by logsumexp in fp32.  Returns (attn, lse, lse_u), lse_u
+    (when lse_u_f is given) the logsumexp of the block's unmasked and the
+    prefix's log-normalizers."""
+    attn_p, lse_p = sdpa_with_lse(q, repeat_kv(prefix_k, G), repeat_kv(prefix_v, G), None)
+    m = torch.maximum(lse_f, lse_p)
+    wf, wp = torch.exp(lse_f - m), torch.exp(lse_p - m)
+    denom = wf + wp
+    attn = (
+        attn_f.float() * (wf / denom)[..., None] + attn_p.float() * (wp / denom)[..., None]
+    ).to(q.dtype)
+    lse = m + torch.log(denom)
+    lse_u = None
+    if lse_u_f is not None:
+        mu = torch.maximum(lse_u_f, lse_p)
+        lse_u = mu + torch.log(torch.exp(lse_u_f - mu) + torch.exp(lse_p - mu))
+    return attn, lse, lse_u
 
 
 def _self_attention(
     lp: Params,
     ls: Params,
+    ad: Params,
     x: torch.Tensor,
     cos: torch.Tensor,
     sin: torch.Tensor,
@@ -160,17 +223,32 @@ def _self_attention(
     logz2: str,
     key_mask: Optional[torch.Tensor],
     use_flash: bool,
+    lora_scaling: float = 1.0,
+    keeps: Optional[list] = None,
+    drop_rate: float = 0.0,
     prompt_k: Optional[torch.Tensor] = None,
     prompt_v: Optional[torch.Tensor] = None,
     prompt_mask: Optional[torch.Tensor] = None,
+    prefix_merge_len: int = 0,
 ):
-    """Returns (attn block output [B,T,D], new k block, new v block)."""
+    """Returns (attn block output [B,T,D], new k block, new v block).
+
+    ``prefix_merge_len`` (P > 0, the prefix-tuning prefill): the cache holds
+    only the P prefix slots; the block takes the cacheless path and
+    ``_merge_prefix`` adds them."""
     B, T, _ = x.shape
-    q, k, v = _project_qkv(lp, x, cfg)
+    q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate)
     q, k = apply_rope(q, k, cos, sin)
     need_unmasked = bool(ls) and logz2 == "unmasked"
 
-    if cache_k is not None:
+    P = prefix_merge_len if cache_k is not None else 0
+    if P:
+        # the block attends itself through the cacheless branches below
+        key_mask = key_mask[:, cache_len:cache_len + T]
+        if not use_flash:
+            causal = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+            mask = causal[None, None] & (key_mask > 0)[:, None, None, :]
+    if cache_k is not None and not P:
         key_mask_new = key_mask[:, cache_len:cache_len + T]
         gen_key_mask = key_mask[:, prompt_kv_len(prompt_k):] if prompt_k is not None else key_mask
         gen_key_mask = gen_key_mask[:, : cache_k.shape[1]]
@@ -191,10 +269,18 @@ def _self_attention(
         v_rep = repeat_kv(v, cfg.num_groups)
         attn, lse = sdpa_with_lse(q, k_rep, v_rep, mask)
         lse_u = unmasked_lse(q, k_rep) if need_unmasked else lse
+    if P:
+        attn, lse, lse_u = _merge_prefix(
+            q, attn, lse, lse_u if need_unmasked else None, cache_k[:, :P], cache_v[:, :P],
+            cfg.num_groups,
+        )
     if ls:
         log_z2 = lse if logz2 == "masked" else lse_u
         attn = apply_attn_shift(ls, q, log_z2, attn, multi_head)
-    return qdot(attn.reshape(B, T, -1), lp["o_proj"]), k, v
+    attn_flat = attn.reshape(B, T, -1)
+    out = qdot(attn_flat, lp["o_proj"])
+    delta = _lora_delta(ad, "o", attn_flat, lora_scaling, keeps[3] if keeps else None, drop_rate)
+    return (out if delta is None else out + delta), k, v
 
 
 def _layer_view(w: Any, l: int) -> Any:
@@ -207,10 +293,9 @@ def _layer_view(w: Any, l: int) -> Any:
 
 
 _UNPORTED_DEFAULTS = {
-    "adapters": None, "lora_scaling": 1.0, "lora_dropout": 0.0, "dropout_rng": None,
     "cross_states": None, "cross_mask": None, "ring_mesh": None,
     "capture_layer_inputs": False, "perturb_attn": None, "perturb_ffn": None,
-    "remat": False, "cache_write_pos": None, "prefix_flash_len": 0,
+    "cache_write_pos": None,
 }
 
 
@@ -222,6 +307,10 @@ def decoder_forward(
     position_ids: torch.Tensor,
     *,
     shift: Optional[Params] = None,
+    adapters: Optional[Params] = None,
+    lora_scaling: float = 1.0,
+    lora_dropout: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
     multi_head: bool = True,
     kv_cache: Optional[Dict[str, Any]] = None,
     logz2: str = "unmasked",
@@ -231,6 +320,8 @@ def decoder_forward(
     capture_attn: bool = False,
     capture_ffn: bool = False,
     capture_gather_idx: Optional[torch.Tensor] = None,
+    remat: bool = False,
+    prefix_flash_len: int = 0,
     **unported: Any,
 ) -> DecoderOutput:
     """Run the decoder stack.
@@ -246,9 +337,24 @@ def decoder_forward(
     rows ``capture_gather_idx`` [B,M] selects (an indexing gather; the JAX
     package's one-hot matmul exists for the TPU and is exact either way).
 
-    The cache's ``k``/``v`` tensors are updated in place (the current block is
-    written at the timeline length) instead of copied; the returned cache dict
-    holds the same tensors with ``length`` advanced by T.
+    adapters: stacked LoRA tree (``shift/lora.py``), added to the q/k/v/o
+    projections (after ``qdot`` and the fused ``qkv_proj`` split of an int8
+    tree) times ``lora_scaling``; with ``lora_dropout`` > 0 and a
+    ``dropout_generator``, each adapter input is dropped by
+    ``lora_dropout_keep``'s mask, drawn before the layer runs.
+    remat: with gradients recorded, each layer's body runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward pass.
+    prefix_flash_len: P > 0 when the cache holds only P prefix-tuning slots
+    (the prefix prefill): the prompt block takes the cacheless path and the
+    prefix part is merged in (``_merge_prefix``); logged as ``"<path>+prefix"``.
+
+    The current block's k/v are written into the cache at the timeline
+    length.  Without gradients they are written in place and the returned
+    cache holds the same tensors; with gradients recorded the returned
+    cache's tensors are new: autograd may hold views of the old ones for the
+    backward pass (``torch.einsum`` saves the cache itself where no permute
+    copies it, as with one KV head), and the prefix train step's cache is
+    made from the trainable prefix.  Its ``length`` is advanced by T.
     """
     for name, value in unported.items():
         if name not in _UNPORTED_DEFAULTS:
@@ -260,6 +366,7 @@ def decoder_forward(
     cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
 
     shift = shift or {}
+    adapters = adapters or {}
     attn_shift_keys = ("attn_v", "attn_logz1_w", "attn_logz1_b")
     layer_shift = {k: v for k, v in shift.items() if k in attn_shift_keys}
     out_shift = {k: v for k, v in shift.items() if k not in attn_shift_keys}
@@ -281,14 +388,25 @@ def decoder_forward(
         B0 = (kv_cache["prompt_k"]["q8"] if prompt_quant else kv_cache["prompt_k"]).shape[1]
         prompt_mask = key_mask[:, :prompt_len].reshape(B0, B // B0, prompt_len)[:, 0]
     attend_cacheless = not use_cache or cache_empty
-    selected = select_attn_path(
-        cfg, attn_impl, T, cacheless=attend_cacheless, has_key_mask=key_mask is not None
+    # the prefix-tuning prefill: the block attends itself cachelessly (through
+    # the kernels) and the prefix part is merged in, instead of
+    # cached_attention's [B,Hkv,G,T,S] fp32 scores at multi-thousand-token prompts
+    prefix_merge = (
+        prefix_flash_len > 0 and use_cache and not cache_empty and not has_prompt
+        and T > 1 and cfg.sliding_window is None
     )
-    ATTN_PATH_LOG.append(selected)
+    selected = select_attn_path(
+        cfg, attn_impl, T, cacheless=attend_cacheless or prefix_merge,
+        has_key_mask=key_mask is not None,
+    )
+    ATTN_PATH_LOG.append(selected + "+prefix" if prefix_merge else selected)
     if prompt_quant:
         ATTN_PATH_LOG.append("quant_kv")  # once per call, as JAX logs it once per trace
     use_flash = selected == "flash"
     layer_key_mask = key_mask[:, :T] if (use_cache and cache_empty) else key_mask
+    drop = dropout_generator is not None and lora_dropout > 0.0 and bool(adapters)
+    in_place = not torch.is_grad_enabled()
+    remat = remat and torch.is_grad_enabled()
 
     layers = params["layers"]
     write_at = cache_len - prompt_len
@@ -299,24 +417,25 @@ def decoder_forward(
         idx = capture_gather_idx.long()[..., None].expand(-1, -1, x.shape[-1])
         return torch.gather(x, 1, idx)
 
-    attn_caps, ffn_caps = [], []
-    h = input_embeds
-    for l in range(cfg.num_layers):
+    def layer_body(h: torch.Tensor, l: int, keeps: Optional[list]):
         lp = {name: _layer_view(w, l) for name, w in layers.items()}
         ls = {name: w[l] for name, w in layer_shift.items()}
         os_ = {name: w[l] for name, w in out_shift.items()}
+        ad = {name: w[l] for name, w in adapters.items()}
         residual = h
         hn = rms_norm(h, lp["input_ln"], cfg.norm_eps)
         attn_out, k_new, v_new = _self_attention(
-            lp, ls, hn, cos, sin, attn_mask, cfg,
+            lp, ls, ad, hn, cos, sin, attn_mask, cfg,
             None if attend_cacheless else kv_cache["k"][l],
             None if attend_cacheless else kv_cache["v"][l],
             cache_len, multi_head, logz2,
             key_mask=layer_key_mask,
             use_flash=use_flash,
+            lora_scaling=lora_scaling, keeps=keeps, drop_rate=lora_dropout,
             prompt_k=_layer_view(kv_cache["prompt_k"], l) if has_prompt else None,
             prompt_v=_layer_view(kv_cache["prompt_v"], l) if has_prompt else None,
             prompt_mask=prompt_mask,
+            prefix_merge_len=prefix_flash_len if prefix_merge else 0,
         )
         attn_out = apply_output_shift(
             attn_out, os_.get("attn_out_shift"), os_.get("attn_out_scale")
@@ -336,21 +455,53 @@ def decoder_forward(
         else:
             ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
         ffn_out = apply_output_shift(ffn_out, os_.get("ffn_shift"), os_.get("ffn_scale"))
-        h = residual + ffn_out
+        return residual + ffn_out, attn_out, ffn_out, k_new, v_new
+
+    attn_caps, ffn_caps, k_blocks, v_blocks = [], [], [], []
+    h = input_embeds
+    for l in range(cfg.num_layers):
+        keeps = None
+        if drop:
+            # drawn outside the rematerialised body: the recompute must see the
+            # same masks, and checkpoint restores only the default generators
+            shapes = ((B, T, D),) * 3 + ((B, T, cfg.num_heads * cfg.head_size),)
+            keeps = [
+                lora_dropout_keep(dropout_generator, l, slot, shape, lora_dropout)
+                if f"{name}_a" in adapters else None
+                for slot, (name, shape) in enumerate(zip("qkvo", shapes))
+            ]
+        if remat:
+            h, attn_out, ffn_out, k_new, v_new = torch.utils.checkpoint.checkpoint(
+                layer_body, h, l, keeps, use_reentrant=False
+            )
+        else:
+            h, attn_out, ffn_out, k_new, v_new = layer_body(h, l, keeps)
         if capture_attn:
             attn_caps.append(capture(attn_out))
         if capture_ffn:
             ffn_caps.append(capture(ffn_out))
-        if use_cache:
+        if use_cache and in_place:
             # the layer read its cache slice above; slots >= the written length
             # are masked there, so appending now changes nothing it saw
             kv_cache["k"][l, :, write_at:write_at + T] = k_new.to(kv_cache["k"].dtype)
             kv_cache["v"][l, :, write_at:write_at + T] = v_new.to(kv_cache["v"].dtype)
+        elif use_cache:
+            k_blocks.append(k_new)
+            v_blocks.append(v_new)
 
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     new_cache = None
     if use_cache:
-        new_cache = {"k": kv_cache["k"], "v": kv_cache["v"], "length": cache_len + T}
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if not in_place:
+            def append(c, blocks):
+                return torch.cat(
+                    [c[:, :, :write_at], torch.stack(blocks).to(c.dtype), c[:, :, write_at + T:]],
+                    dim=2,
+                )
+
+            ck, cv = append(ck, k_blocks), append(cv, v_blocks)
+        new_cache = {"k": ck, "v": cv, "length": cache_len + T}
         if has_prompt:
             new_cache["prompt_k"] = kv_cache["prompt_k"]
             new_cache["prompt_v"] = kv_cache["prompt_v"]

@@ -18,7 +18,11 @@ stores the beam-shared prompt KV int8 (``ops/decode_attention.py``).
 ``image_feats``: encoded image features computed elsewhere (the runner's
 ``VisionFeatureCache``); the prefill then skips the vision tower.
 
-Not ported yet: prefix tuning, LoRA adapters.
+``adapters`` / ``lora_scaling``: live LoRA adapters (``shift/lora.py``), read
+by the prefill and every decode step.  ``prefix``: a prefix-tuning KV
+(``shift/prefix.py``) whose P slots lead the timeline: the prefill writes the
+prompt behind them through the decoder's prefix-merge path
+(``prefix_flash_len``) and positions count from P.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 from ..bridge import tree_leaves
 from ..ops.decode_attention import quantize_prompt_kv
 from .config import ModelConfig
+from ..shift.prefix import prefix_forward_args, prefix_len
 from .decoder import init_kv_cache
 from .lvlm import LVLMBatch, encode_images, lvlm_forward
 
@@ -70,8 +75,11 @@ class GenerateResult(NamedTuple):
 def _prefill(
     params, cfg: ModelConfig, batch: LVLMBatch, total_len: int, shift, logz2: str,
     dtype, attn_impl: str = "xla", image_feats: Optional[torch.Tensor] = None,
+    adapters=None, lora_scaling: float = 1.0, prefix=None,
 ):
-    """Run the prompt through the model (cache-empty prefill).
+    """Run the prompt through the model: a cache-empty prefill, or with a
+    ``prefix`` a prefill into a cache whose slots ``[0, P)`` hold it
+    (``total_len`` includes P).
 
     Returns (last_logits [B,V], cache with the prompt written, image_feats),
     the image features for the decode steps to reuse (``image_feats`` as
@@ -82,17 +90,26 @@ def _prefill(
         image_feats = encode_images(
             params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
         )
-    cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype)
+    if prefix is None:
+        cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype)
+        extra = dict(kv_cache=cache, cache_empty=True)
+    else:
+        P = prefix_len(prefix)
+        batch, pos, cache, _ = prefix_forward_args(
+            prefix, batch, dtype, extra_len=total_len - P - T
+        )
+        extra = dict(kv_cache=cache, position_ids=pos, prefix_flash_len=P)
     out = lvlm_forward(
         params, cfg, batch,
         image_feats=image_feats,
         kv_total_len=total_len,
-        kv_cache=cache,
-        cache_empty=True,
         shift=shift,
+        adapters=adapters,
+        lora_scaling=lora_scaling,
         logz2=logz2,
         attn_impl=attn_impl,
         last_logit_only=True,
+        **extra,
     )
     # left padding → the last position is the prompt end
     return out.logits[:, -1], out.decoder.kv_cache, image_feats
@@ -111,31 +128,38 @@ def greedy_generate(
     attn_impl: str = "xla",
     decode_params=None,
     image_feats: Optional[torch.Tensor] = None,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    lora_scaling: float = 1.0,
+    prefix: Optional[Dict[str, torch.Tensor]] = None,
 ) -> GenerateResult:
     B, T = batch.input_ids.shape
-    total = T + max_new_tokens
+    P = prefix_len(prefix)
+    total = P + T + max_new_tokens
     dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
+    lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
-        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
+        **lora,
     )
     am = batch.attention_mask
     n_real = am.sum(-1)  # [B]
-    mask_full = torch.cat([am, am.new_zeros(B, max_new_tokens)], dim=-1)
+    mask_full = torch.cat([am.new_ones(B, P), am, am.new_zeros(B, max_new_tokens)], dim=-1)
     tok = last_logits.argmax(-1)
     finished = torch.zeros(B, dtype=torch.bool, device=am.device)
     toks = []
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
-        mask_full[:, T + i] = 1
+        mask_full[:, P + T + i] = 1
         out = lvlm_forward(
             dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
             image_feats=image_feats,
-            position_ids=(n_real + i)[:, None],
+            position_ids=(n_real + P + i)[:, None],
             kv_cache=cache,
             kv_total_len=total,
             shift=shift,
             logz2=logz2,
+            **lora,
         )
         cache = out.decoder.kv_cache
         finished = finished | (tok == eos_token_id)
@@ -163,6 +187,9 @@ def beam_generate(
     decode_params=None,
     quant_kv: Optional[bool] = None,
     image_feats: Optional[torch.Tensor] = None,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    lora_scaling: float = 1.0,
+    prefix: Optional[Dict[str, torch.Tensor]] = None,
 ) -> GenerateResult:
     """HF-semantics beam search (do_sample=False, early_stopping=False).
 
@@ -177,15 +204,20 @@ def beam_generate(
     on CUDA, without a shift, a sliding window or a head dim off 128 (JAX's
     gate, with the card in the TPU's place); the prompt region is then
     zero-padded to a multiple of 128 slots, masked out in the timeline.
+
+    ``prefix``: its P slots lead the beam-shared prompt region (Tp = P + T).
     """
     B, T = batch.input_ids.shape
     K = num_beams
-    Tp = T
+    P = prefix_len(prefix)
+    Tp = P + T
     total = Tp + max_new_tokens
     dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
+    lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
-        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
+        **lora,
     )
     V = last_logits.shape[-1]
     dev = last_logits.device
@@ -215,8 +247,11 @@ def beam_generate(
         image_feats = image_feats.repeat_interleave(K, dim=0)
     am = batch.attention_mask
     n_real = am.sum(-1).repeat_interleave(K)  # [B*K]
-    # (Tq - Tp) masked prompt-pad columns, then the generated region
-    mask_full = torch.cat([am, am.new_zeros(B, total - Tp)], dim=-1).repeat_interleave(K, dim=0)
+    # the prefix slots, the prompt, (Tq - Tp) masked prompt-pad columns, then
+    # the generated region
+    mask_full = torch.cat(
+        [am.new_ones(B, P), am, am.new_zeros(B, total - Tp)], dim=-1
+    ).repeat_interleave(K, dim=0)
 
     logprobs0 = F.log_softmax(last_logits.float(), dim=-1)  # [B,V]
     first_scores, first_toks = _top_k(logprobs0, K)  # [B,K]
@@ -246,11 +281,12 @@ def beam_generate(
             dparams, cfg,
             LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full),
             image_feats=image_feats,
-            position_ids=(n_real + i - 1)[:, None],
+            position_ids=(n_real + P + i - 1)[:, None],
             kv_cache=cache,
             kv_total_len=total,
             shift=shift,
             logz2=logz2,
+            **lora,
         )
         logprobs = F.log_softmax(out.logits[:, -1].float(), dim=-1).reshape(B, K, V)
         cand = torch.where(alive[..., None], scores[..., None] + logprobs, NEG)
@@ -346,6 +382,9 @@ def sample_generate(
     attn_impl: str = "xla",
     decode_params=None,
     image_feats: Optional[torch.Tensor] = None,
+    adapters: Optional[Dict[str, torch.Tensor]] = None,
+    lora_scaling: float = 1.0,
+    prefix: Optional[Dict[str, torch.Tensor]] = None,
 ) -> GenerateResult:
     """Ancestral sampling (``do_sample=True``): each step processes the last
     logits (``process_logits``) and draws one token per row as the argmax of
@@ -357,11 +396,14 @@ def sample_generate(
     forward and draws, the last draw unused but scored.
     """
     B, T = batch.input_ids.shape
-    total = T + max_new_tokens
+    P = prefix_len(prefix)
+    total = P + T + max_new_tokens
     dparams = decode_params if decode_params is not None else params
     dtype = _param_dtype(params)
+    lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
-        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats
+        params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
+        **lora,
     )
 
     def draw(logits):
@@ -372,21 +414,22 @@ def sample_generate(
 
     am = batch.attention_mask
     n_real = am.sum(-1)
-    mask_full = torch.cat([am, am.new_zeros(B, max_new_tokens)], dim=-1)
+    mask_full = torch.cat([am.new_ones(B, P), am, am.new_zeros(B, max_new_tokens)], dim=-1)
     tok, lp_sum = draw(last_logits)
     finished = torch.zeros(B, dtype=torch.bool, device=am.device)
     toks = []
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
-        mask_full[:, T + i] = 1
+        mask_full[:, P + T + i] = 1
         out = lvlm_forward(
             dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
             image_feats=image_feats,
-            position_ids=(n_real + i)[:, None],
+            position_ids=(n_real + P + i)[:, None],
             kv_cache=cache,
             kv_total_len=total,
             shift=shift,
             logz2=logz2,
+            **lora,
         )
         cache = out.decoder.kv_cache
         finished = finished | (tok == eos_token_id)

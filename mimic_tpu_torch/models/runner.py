@@ -7,8 +7,8 @@ parameters, tokenizer/processor and prompt template, and exposes
 The parameters live in a ``ParamModule`` on the runner's device.
 ``enable_vision_cache`` keeps encoded image features across ``generate``
 calls (``models/feature_cache.py``); ``generate(do_sample=True)`` samples.
-
-Not ported yet: LoRA adapters and prefix tuning.
+Trained shift, LoRA adapters and a prefix-tuning prefix (``set_shift``) are
+passed into every forward.
 """
 
 from __future__ import annotations
@@ -65,7 +65,9 @@ class LVLMRunner:
         self.template = "idefics2"
         self.processor = LVLMProcessor(cfg, tokenizer, image_size=image_size)
         self.shift = None
-        self.adapters = None  # LoRA adapters: not ported, always None
+        self.adapters = None
+        self.lora_scaling = 1.0
+        self.prefix = None
         self.logz2 = logz2
         self.pad_multiple = pad_multiple
         self.length_buckets = tuple(length_buckets)
@@ -74,17 +76,25 @@ class LVLMRunner:
     def params(self) -> Dict[str, Any]:
         return self.module.tree()
 
+    @params.setter
+    def params(self, tree: Dict[str, Any]) -> None:
+        self.module = ParamModule(tree).to(self.device)
+
     @property
     def model_name(self) -> str:
         return self.cfg.name
 
     def set_shift(self, shift, adapters=None, lora_scaling: float = 1.0, prefix=None) -> None:
-        """Activate trained shift parameters for all later forwards."""
-        if adapters is not None or prefix is not None:
-            raise NotImplementedError("LoRA adapters and prefix tuning are not ported yet")
-        self.shift = (
-            None if shift is None else {k: v.to(self.device) for k, v in shift.items()}
-        )
+        """Activate trained shift / LoRA / prefix parameters for all later
+        forwards (each tree moved to the runner's device)."""
+
+        def to_device(tree):
+            return None if tree is None else {k: v.to(self.device) for k, v in tree.items()}
+
+        self.shift = to_device(shift)
+        self.adapters = to_device(adapters)
+        self.lora_scaling = lora_scaling
+        self.prefix = to_device(prefix)
 
     def enable_vision_cache(self, max_bytes: int = 512 * 1024 * 1024) -> VisionFeatureCache:
         """Cache encoded image features across ``generate`` calls, keyed by
@@ -249,6 +259,9 @@ class LVLMRunner:
             eos_token_id=self.tokenizer.eos_token_id,
             pad_token_id=self.tokenizer.pad_token_id,
             shift=self.shift,
+            adapters=self.adapters,
+            lora_scaling=self.lora_scaling,
+            prefix=self.prefix,
             logz2=self.logz2,
             attn_impl=attn_impl,
             decode_params=self.decode_params,

@@ -4,9 +4,6 @@ The task grid ``product(datasets, num_query_samples, num_shots)`` runs
 in-process on the runner's device: train (skip-if-done) → eval every saved
 epoch checkpoint (skip-if-recorded) → analyze.  ``process_index`` /
 ``process_count`` shard the grid across hosts when the caller gives them.
-
-Shift checkpoints only: LoRA and prefix trees raise ``NotImplementedError``
-(``train_entry.init_trainable``), as elsewhere in the port.
 """
 
 from __future__ import annotations
@@ -21,6 +18,7 @@ import torch
 
 from ..config import EvalConfig, TrainConfig, get_preset
 from ..device import DeviceLike
+from ..shift.lora import merge_lora
 from ..train.checkpoints import existing_ckpt_epochs, load_trainable
 from ..utils import get_expand_runname
 from .analyze import analyze
@@ -74,7 +72,9 @@ def run_pipeline(
 ) -> Dict[str, Any]:
     """Execute the full workflow for every grid task owned by this host.
     Without a ``runner`` each training run builds its model on ``device``
-    (``None`` is the card)."""
+    (``None`` is the card).  After a task's evals merged LoRA adapters into
+    the runner's weights, the runner gets its unmerged base back, so the next
+    task trains on the base (the JAX pipeline trains it on the last merge)."""
     summary: Dict[str, Any] = {"trained": [], "evaluated": [], "analyzed": {}}
     for i, (dataset, n_query, n_shot) in enumerate(task_grid(spec)):
         if i % process_count != process_index:
@@ -106,6 +106,10 @@ def run_pipeline(
                     )
                     if result is not None:
                         summary["evaluated"].append(record_path(eval_cfg, result_dir))
+            if runner is not None and getattr(runner, "_lora_merged", False):
+                # the next task trains on the base, not on this task's merge
+                runner.params = runner._unmerged_params
+                runner._lora_merged = False
 
         if spec.do_analyze:
             summary["analyzed"].update(analyze(spec.runname, result_dir=result_dir))
@@ -116,12 +120,32 @@ def _load_ckpt_into_runner(eval_cfg: EvalConfig, runner) -> None:
     """Load the epoch checkpoint's trainable tree into the runner (the analog
     of register_shift_hooks staying active, src/eval.py:52-61).  The template
     (for the key and shape check) is made on the CPU; ``set_shift`` moves the
-    loaded tree to the runner's device."""
+    loaded tree to the runner's device.
+
+    LoRA adapters are merged into the weights when ``eval_cfg.merge_lora``
+    (the default: no adapter products in any decode step), always onto the
+    pristine base kept as ``runner._unmerged_params``, so a loop over epoch
+    checkpoints merges each onto the same weights; otherwise the base is
+    restored and the adapters stay live.  A prefix is passed through either way.
+    """
     template = init_trainable(
         _as_train_cfg(eval_cfg), runner.cfg.text, torch.Generator().manual_seed(0), "cpu"
     )
     trainable = load_trainable(eval_cfg.ckpt_path, template)
-    runner.set_shift(trainable.get("shift"))
+    lora_scaling = eval_cfg.peft.lora.scaling() if eval_cfg.peft.lora else 1.0
+    lora = trainable.get("lora")
+    base = getattr(runner, "_unmerged_params", runner.params)
+    if lora is not None and eval_cfg.merge_lora:
+        runner._unmerged_params = base
+        with torch.no_grad():
+            runner.params = merge_lora(base, {k: v.to(runner.device) for k, v in lora.items()},
+                                       lora_scaling)
+        runner._lora_merged = True
+        lora, lora_scaling = None, 1.0
+    else:
+        runner.params = base
+        runner._lora_merged = False
+    runner.set_shift(trainable.get("shift"), lora, lora_scaling, prefix=trainable.get("prefix"))
 
 
 def _as_train_cfg(eval_cfg: EvalConfig) -> TrainConfig:

@@ -3,9 +3,10 @@
 
 The training vision-feature cache (``train/vision_cache.py``) is on when
 ``cfg.vision_cache`` is set and the model has an inline-splice vision tower,
-as in the JAX entry.  Differences from the JAX entry, each a later slice's
-work: one process on one device (no mesh, no per-host sharding), shift
-encoders only (LoRA and prefix raise).
+as in the JAX entry.  The trainable tree holds the encoder's shift, LoRA
+adapters and a prefix-tuning KV as the config asks.  Differences from the JAX
+entry, a later slice's work: one process on one device (no mesh, no per-host
+sharding).
 ``attn_impl="auto"`` resolves to ``"flash"`` on CUDA and ``"xla"`` on the
 CPU; on the flash path the collator pads to multiples of 128, the alignment
 the decoder's flash path needs (at the collator's default of 64 a batch
@@ -23,7 +24,9 @@ from ..data.adapters import build_adapter
 from ..data.prefetch import prefetch
 from ..device import DeviceLike, resolve_device
 from ..models.factory import build_model
+from ..shift.lora import init_lora_params
 from ..shift.params import init_shift_params
+from ..shift.prefix import init_prefix_params
 from ..train.collate import TrainCollator
 from ..train.optim import build_optimizer, cosine_warmup_schedule
 from ..train.step import TrainState, make_train_step
@@ -32,11 +35,19 @@ from ..train.vision_cache import TrainVisionCache
 
 
 def init_trainable(cfg: TrainConfig, text_cfg, generator: torch.Generator, device) -> Dict[str, Any]:
-    if cfg.peft.lora is not None or cfg.peft.prefix is not None:
-        raise NotImplementedError("LoRA and prefix-tuning training are not ported yet")
-    if cfg.encoder.kind == "none":
+    """``{"shift", "lora", "prefix"}`` as far as the config asks for each, drawn
+    from ``generator`` in that order."""
+    dev = resolve_device(device)
+    trainable: Dict[str, Any] = {}
+    if cfg.encoder.kind != "none":
+        trainable["shift"] = init_shift_params(cfg.encoder, text_cfg, generator, dev)
+    if cfg.peft.lora is not None:
+        trainable["lora"] = init_lora_params(cfg.peft.lora, text_cfg, generator, dev)
+    if cfg.peft.prefix is not None:
+        trainable["prefix"] = init_prefix_params(cfg.peft.prefix, text_cfg, generator, dev)
+    if not trainable:
         raise ValueError("Nothing to train: encoder kind 'none' and no LoRA/prefix config")
-    return {"shift": init_shift_params(cfg.encoder, text_cfg, generator, resolve_device(device))}
+    return trainable
 
 
 def resolve_attn_impl(attn_impl: str, device: torch.device) -> str:
@@ -52,7 +63,7 @@ def run_train(
     splits=None,
     device: Optional[DeviceLike] = None,
 ) -> TrainState:
-    """Train ``cfg``'s shift on ``runner`` (built from ``cfg.model_name`` on
+    """Train ``cfg``'s trainable tree on ``runner`` (built from ``cfg.model_name`` on
     ``device`` when not given; ``None`` is the card) and write
     ``<result_dir>/ckpt/<runname>/``."""
     if runner is None:
@@ -88,7 +99,10 @@ def run_train(
         runner.cfg, cfg.encoder, tx,
         ce_loss_weight=cfg.peft.ce_loss_weight,
         align_loss_weight=cfg.peft.align_loss_weight,
+        lora_scaling=cfg.peft.lora.scaling() if cfg.peft.lora else 1.0,
+        lora_dropout=cfg.peft.lora.dropout if cfg.peft.lora else 0.0,
         attn_impl=attn_impl,
+        seed=cfg.seed,
     )
     # demo images resample from the fixed train set and the tower is frozen:
     # cache their encoded features instead of encoding them every step

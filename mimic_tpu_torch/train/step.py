@@ -9,21 +9,25 @@ are made leaf tensors that require grad for the step's autograd graph.  On
 CUDA with ``attn_impl="flash"`` both passes run the attention kernels and the
 shift pass's backward runs the backward kernels.
 
-Not ported yet (raise ``NotImplementedError``): LoRA and prefix trees, LoRA
-dropout, rematerialisation of the shift pass, ring attention.
+The trainable tree may hold a MimIC / LIVE ``shift``, LoRA adapters
+(``lora``, with dropout on their inputs) and a prefix-tuning KV (``prefix``,
+riding as a pre-written cache of length P through the cached attention).
+Not ported yet (raises ``NotImplementedError``): ring attention.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import EncoderConfig, Strategy
 from ..models.config import ModelConfig
+from ..models.generate import _param_dtype
 from ..models.lvlm import LVLMBatch, lvlm_forward
 from ..shift.params import multi_head, needs_attn_capture, needs_ffn_capture
+from ..shift.prefix import prefix_forward_args
 from .losses import layer_wise_cos, layer_wise_mse, lm_cross_entropy, logits_kl
 from .optim import Optimizer, apply_updates, flatten, global_norm, unflatten
 
@@ -77,10 +81,14 @@ def compute_loss(
     align_loss_weight: float,
     logz2: str,
     attn_impl: str = "xla",
+    lora_scaling: float = 1.0,
+    lora_dropout: float = 0.0,
+    dropout_generator: Optional[torch.Generator] = None,
+    shift_remat: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if trainable.get("lora") or trainable.get("prefix"):
-        raise NotImplementedError("LoRA and prefix-tuning training are not ported yet")
     shift = trainable.get("shift") or None
+    lora = trainable.get("lora") or None
+    prefix = trainable.get("prefix") or None
     loss = torch.zeros((), dtype=torch.float32, device=batch["query_ids"].device)
     metrics: Dict[str, torch.Tensor] = {}
 
@@ -102,11 +110,21 @@ def compute_loss(
         prefix_attn = out1.decoder.attn_capture
         prefix_ffn = out1.decoder.ffn_capture
 
+    qb = _query_lvlm_batch(batch)
+    prefix_kwargs = {}
+    if prefix is not None:
+        # the learned KV rides as a pre-written cache of length P and the
+        # forward takes the cached attention: every query attends the P slots,
+        # causal within the real block (HF past_key_values semantics)
+        qb, pos, cache, total = prefix_forward_args(prefix, qb, _param_dtype(frozen))
+        prefix_kwargs = dict(position_ids=pos, kv_cache=cache, kv_total_len=total)
     out2 = lvlm_forward(
-        frozen, cfg, _query_lvlm_batch(batch),
+        frozen, cfg, qb,
         image_feats=batch.get("query_feats"),
-        shift=shift, multi_head=mh, capture_attn=rec_attn, capture_ffn=rec_ffn,
-        logz2=logz2, attn_impl=attn_impl,
+        shift=shift, adapters=lora, lora_scaling=lora_scaling,
+        lora_dropout=lora_dropout, dropout_generator=dropout_generator,
+        multi_head=mh, capture_attn=rec_attn, capture_ffn=rec_ffn,
+        logz2=logz2, attn_impl=attn_impl, remat=shift_remat, **prefix_kwargs,
         capture_gather_idx=batch.get("shift_q_idx") if layer_wise else None,
     )
 
@@ -160,22 +178,26 @@ def make_train_step(
     *,
     ce_loss_weight: float,
     align_loss_weight: float,
+    lora_scaling: float = 1.0,
+    lora_dropout: float = 0.0,
     logz2: str = "unmasked",
     attn_impl: str = "xla",
-    lora_dropout: float = 0.0,
+    seed: int = 0,
     shift_remat: bool = False,
 ):
     """Build the ``(state, frozen, batch) → (state, metrics)`` step.
 
     Gradient accumulation follows the optimizer (``build_optimizer``'s
     ``accumulate_steps``), as in the JAX package.  ``metrics["grad_norm"]``
-    is the global norm of the raw gradients.  LoRA dropout, shift-pass remat
-    and ``attn_impl="ring"`` are not ported and raise.
+    is the global norm of the raw gradients.  With ``lora_dropout`` > 0 each
+    step draws its dropout masks from a generator seeded with
+    (``seed``, ``state.step``): two runs give the same losses, consecutive
+    steps different masks (JAX: ``fold_in(PRNGKey(seed), step)``).
+    ``shift_remat`` recomputes each shift-pass layer in the backward pass.
+    ``attn_impl="ring"`` is not ported and raises.
     """
     if attn_impl == "ring":
         raise NotImplementedError("ring attention is not ported yet")
-    if lora_dropout > 0.0 or shift_remat:
-        raise NotImplementedError("LoRA dropout and shift-pass remat are not ported yet")
     loss_kwargs = dict(
         cfg=cfg,
         strategy=encoder_cfg.strategy(),
@@ -186,12 +208,20 @@ def make_train_step(
         align_loss_weight=align_loss_weight,
         logz2=logz2,
         attn_impl=attn_impl,
+        lora_scaling=lora_scaling,
+        lora_dropout=lora_dropout,
+        shift_remat=shift_remat,
     )
 
     def step_fn(state: TrainState, frozen: Tree, batch: Dict[str, Any]):
         live = {p: x.detach().requires_grad_(True) for p, x in flatten(state.trainable).items()}
+        generator = None
+        if lora_dropout > 0.0:
+            generator = torch.Generator(device=batch["query_ids"].device)
+            generator.manual_seed(int(np.random.SeedSequence([seed, state.step]).generate_state(1)[0]))
         with torch.enable_grad():
-            loss, metrics = compute_loss(unflatten(live), frozen, batch, **loss_kwargs)
+            loss, metrics = compute_loss(unflatten(live), frozen, batch,
+                                         dropout_generator=generator, **loss_kwargs)
             raw = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
         grads = unflatten({
             p: torch.zeros_like(x) if g is None else g

@@ -16,9 +16,9 @@ import pytest
 import torch
 from flax import serialization
 
-from mimic_tpu.config import get_preset
+from mimic_tpu.config import TrainConfig, get_preset
 from mimic_tpu.models.config import get_model_config
-from mimic_tpu.shift.params import init_shift_params
+from mimic_tpu.pipeline.train_entry import init_trainable
 from mimic_tpu.train import checkpoints as jck
 from mimic_tpu.train.trainer import make_save_when as jax_save_when
 from mimic_tpu_torch.bridge import to_numpy, to_torch
@@ -27,12 +27,15 @@ from mimic_tpu_torch.train.trainer import make_save_when
 
 
 def _trainable(preset):
-    enc, _ = get_preset(preset)
-    cfg = get_model_config("tiny-idefics2").text
-    return {"shift": jax.tree.map(np.asarray, init_shift_params(enc, cfg, jax.random.PRNGKey(7)))}
+    """The preset's trainable tree as JAX's train entry makes it: a shift,
+    LoRA adapters or a prefix."""
+    enc, peft = get_preset(preset)
+    cfg = TrainConfig(encoder=enc, peft=peft)
+    text = get_model_config("tiny-idefics2").text
+    return jax.tree.map(np.asarray, init_trainable(cfg, text, jax.random.PRNGKey(7)))
 
 
-PRESETS = ["mimic", "mimic_attn_mse", "licv"]
+PRESETS = ["mimic", "mimic_attn_mse", "licv", "lora", "prefix-tuning"]
 
 
 @pytest.mark.parametrize("preset", PRESETS)
@@ -59,6 +62,23 @@ def test_checkpoints_cross_load(writer, tmp_path):
         got = jck.load_trainable(str(tmp_path), tree)
         for k, v in tree["shift"].items():
             np.testing.assert_array_equal(np.asarray(got["shift"][k]), v)
+
+
+@pytest.mark.parametrize("preset", ["lora", "mini_lora", "prefix-tuning"])
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_lora_and_prefix_checkpoints_cross_load(writer, preset, tmp_path):
+    tree = _trainable(preset)
+    (kind,) = tree
+    if writer == "jax":
+        jck.save_trainable(str(tmp_path), tree)
+        got = tck.load_trainable(str(tmp_path), template=to_torch(tree, "cpu"))
+    else:
+        tck.save_trainable(str(tmp_path), to_torch(tree, "cpu"))
+        got = to_torch(jax.tree.map(np.asarray, jck.load_trainable(str(tmp_path), tree)), "cpu")
+    assert set(got) == {kind} and set(got[kind]) == set(tree[kind])
+    for k, v in tree[kind].items():
+        assert got[kind][k].dtype == torch.float32
+        np.testing.assert_array_equal(got[kind][k].numpy(), v)
 
 
 def test_bf16_and_scalar_leaves_round_trip_with_flax(tmp_path):

@@ -24,6 +24,16 @@ B, T, NEW = 2, 128, 4
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models run many small ops: one thread each, not a pool that every
+    op must wake (beside the other test workers the pool's wake-ups dominate)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = tiny_text("idefics2", head_dim=128).text
@@ -133,10 +143,7 @@ def test_masks_and_positions():
         np.asarray(jd.make_causal_mask(jnp.asarray(mask), sliding_window=2)))
 
 
-@pytest.mark.parametrize("kwarg", [
-    {"remat": True}, {"adapters": {}}, {"prefix_flash_len": 4},
-    {"cross_states": torch.zeros(1, 2, 3)},
-])
+@pytest.mark.parametrize("kwarg", [{"cross_states": torch.zeros(1, 2, 3)}], ids=["cross_states"])
 def test_unported_features_raise(setup, kwarg):
     cfg, params, _, embeds, _, mask = setup
     mask_t = torch.from_numpy(mask)
@@ -145,3 +152,38 @@ def test_unported_features_raise(setup, kwarg):
                            td.positions_from_mask(mask_t), key_mask=mask_t, **kwarg)
     with pytest.raises(NotImplementedError):
         td.select_attn_path(cfg, "ring", 128, cacheless=True, has_key_mask=True)
+
+
+@pytest.mark.parametrize("feature", ["remat", "adapters", "prefix_flash_len"])
+def test_ported_features(setup, feature):
+    """remat: the same hidden states and shift gradients (1e-6) as without;
+    adapters: B = 0 changes nothing (peft's convention), B != 0 does;
+    prefix_flash_len: without a cache there is no prefix to merge, so the
+    forward and its logged path are those without it (as in JAX)."""
+    cfg, params, shift, embeds, _, mask = setup
+    params_t, mask_t = to_torch(params, "cpu"), torch.from_numpy(mask)
+
+    def run(**kw):
+        sh = {k: v.clone().requires_grad_(True) for k, v in to_torch(shift, "cpu").items()}
+        td.ATTN_PATH_LOG.clear()
+        h = td.decoder_forward(params_t, cfg, torch.from_numpy(embeds), td.make_causal_mask(mask_t),
+                               td.positions_from_mask(mask_t), shift=sh, key_mask=mask_t,
+                               attn_impl="flash", **kw).hidden
+        grads = torch.autograd.grad(h.square().sum(), list(sh.values()))
+        return h.detach(), grads, list(td.ATTN_PATH_LOG)
+
+    h0, g0, paths0 = run()
+    if feature == "remat":
+        h1, g1, paths1 = run(remat=True)
+    elif feature == "adapters":
+        L, D, r = cfg.num_layers, cfg.hidden_size, 4
+        zero_b = {"q_a": torch.ones(L, D, r), "q_b": torch.zeros(L, r, cfg.num_heads * cfg.head_size)}
+        h1, g1, paths1 = run(adapters=zero_b)
+        moved = {"q_a": zero_b["q_a"], "q_b": torch.full_like(zero_b["q_b"], 0.01)}
+        assert (run(adapters=moved)[0] - h0).abs().max() > 1e-3
+    else:
+        h1, g1, paths1 = run(prefix_flash_len=4)
+    assert paths1 == paths0 == ["flash"]
+    torch.testing.assert_close(h1, h0, rtol=1e-6, atol=1e-6)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)

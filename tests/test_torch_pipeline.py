@@ -50,6 +50,16 @@ RUN = "pipe-tiny-idefics2-vqav2-4-1shot"
 RECORD_KEYS = ("question_id", "raw_output", "prediction", "answers")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models run many small ops: one thread each, not a pool that every
+    op must wake (beside the other test workers the pool's wake-ups dominate)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tiny():
     tk = SimpleTokenizer(padding_side="left")
     cfg = get_model_config("tiny-idefics2").replace(
@@ -253,11 +263,57 @@ def test_non_icl_eval_without_trained_parameters_raises(tmp_path):
 
 
 @pytest.mark.parametrize("preset", ["lora", "prefix-tuning"])
-def test_unported_checkpoint_kinds_raise(preset, tmp_path):
+def test_lora_and_prefix_checkpoints_load(preset, tmp_path):
+    """A LoRA checkpoint is merged into the weights (the base kept pristine,
+    no live adapters); a prefix checkpoint reaches the runner as its prefix."""
+    from mimic_tpu_torch.shift.lora import merge_lora
+    from mimic_tpu_torch.train.checkpoints import save_trainable
+
     cfg = tconfig.EvalConfig(model_name="tiny-idefics2", ckpt_path=str(tmp_path / "r" / "epoch-0"))
     cfg.encoder, cfg.peft = tconfig.get_preset(preset)
-    with pytest.raises((NotImplementedError, ValueError)):
-        tpipeline._load_ckpt_into_runner(cfg, _torch_runner())
+    runner = _torch_runner()
+    base = runner.params
+    tree = ttrain.init_trainable(tpipeline._as_train_cfg(cfg), runner.cfg.text,
+                                 torch.Generator().manual_seed(3), "cpu")
+    if preset == "lora":
+        tree["lora"] = {k: v + 0.01 if k.endswith("_b") else v for k, v in tree["lora"].items()}
+    save_trainable(cfg.ckpt_path, tree)
+    tpipeline._load_ckpt_into_runner(cfg, runner)
+    if preset == "lora":
+        want = merge_lora(base, tree["lora"], cfg.peft.lora.scaling())
+        got = runner.params["lm"]["decoder"]["layers"]
+        assert runner._lora_merged and runner.adapters is None and runner.prefix is None
+        pristine = runner._unmerged_params["lm"]["decoder"]["layers"]
+        assert all(v is base["lm"]["decoder"]["layers"][k] for k, v in pristine.items())
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            assert torch.equal(got[name], want["lm"]["decoder"]["layers"][name])
+            assert not torch.equal(got[name], base["lm"]["decoder"]["layers"][name])
+        # the eval quantizes the merged tree; the base stays for the next merge
+        runner.set_quant("int8-memory")
+        assert "qkv_proj" in runner.params["lm"]["decoder"]["layers"]
+        assert all(v is base["lm"]["decoder"]["layers"][k] for k, v in pristine.items())
+    else:
+        assert runner.shift is None and runner.adapters is None and not runner._lora_merged
+        assert all(torch.equal(runner.prefix[k], v) for k, v in tree["prefix"].items())
+        assert runner.params["lm"]["decoder"]["layers"]["q_proj"] is \
+            base["lm"]["decoder"]["layers"]["q_proj"]
+
+
+@pytest.mark.parametrize("preset", ["lora", "mini_lora", "prefix-tuning"])
+def test_cli_train_and_eval_with_peft_presets(preset, tmp_path):
+    """``python -m mimic_tpu_torch train`` and ``eval`` with the preset on the
+    CPU (``device=cpu``, tiny idefics2 with random weights)."""
+    common = ["model_name=tiny-idefics2", f"preset={preset}", "dtype=float32", "device=cpu",
+              "batch_size=2", "data.name=vqav2", "data.num_query_samples=4", "data.num_shot=1",
+              f"result_dir={tmp_path}"]
+    state = tcli._train(common + ["runname=peft", "epochs=1", "accumulate_grad_batches=1"],
+                        splits=synthetic_vqa_splits())
+    assert state.step == 2 and set(state.trainable) == ({"prefix"} if preset == "prefix-tuning"
+                                                        else {"lora"})
+    ckpt = tmp_path / "ckpt" / "peft-tiny-idefics2-vqav2-4-1shot" / "epoch-0"
+    records, metrics = tcli._eval(common + [f"ckpt_path={ckpt}", "iterations=1"],
+                                  splits=synthetic_vqa_splits())
+    assert len(records) == 2 and "overall" in metrics
 
 
 # ---------------------------------------------------------------------------

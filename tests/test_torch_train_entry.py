@@ -19,6 +19,7 @@ import torch
 from mimic_tpu.models.config import get_model_config, tiny_text
 from mimic_tpu.models.lvlm import init_lvlm_params
 from mimic_tpu.models.tokenizer import SimpleTokenizer
+from mimic_tpu.pipeline import train_entry as jte
 from mimic_tpu.train import checkpoints as jck
 from mimic_tpu.train import trainer as jtrainer
 from mimic_tpu_torch.bridge import to_torch
@@ -30,6 +31,16 @@ from mimic_tpu_torch.train import trainer as ttrainer
 from test_eval_e2e import synthetic_vqa_splits
 
 RUNNAME = "torchtrain-tiny-idefics2-vqav2-4-1shot"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tiny models run many small ops: one thread each, not a pool that every
+    op must wake (beside the other test workers the pool's wake-ups dominate)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _runner(head_dim=None):
@@ -86,15 +97,22 @@ def test_flash_path_collates_to_128_aligned_batches(tmp_path):
     assert td.ATTN_PATH_LOG == ["flash"] * 4
 
 
-def test_attn_impl_auto_and_unported_trainables():
+def test_attn_impl_auto_and_trainables():
     assert te.resolve_attn_impl("auto", torch.device("cpu")) == "xla"
     assert te.resolve_attn_impl("auto", torch.device("cuda", 0)) == "flash"
     assert te.resolve_attn_impl("xla", torch.device("cuda", 0)) == "xla"
     text = get_model_config("tiny-idefics2").text
-    for preset in ("lora", "prefix-tuning"):
+    # the trees' keys and shapes are JAX's init_trainable's
+    for preset in ("lora", "mini_lora", "prefix-tuning"):
         enc, peft = get_preset(preset)
-        with pytest.raises((NotImplementedError, ValueError)):
-            te.init_trainable(TrainConfig(encoder=enc, peft=peft), text, torch.Generator(), "cpu")
+        cfg = TrainConfig(encoder=enc, peft=peft)
+        tree = te.init_trainable(cfg, text, torch.Generator().manual_seed(0), "cpu")
+        want = jax.tree.map(np.shape, jte.init_trainable(cfg, text, jax.random.PRNGKey(0)))
+        assert jax.tree.map(lambda t: tuple(t.shape), tree) == want
+    enc, peft = get_preset("lora")
+    peft.lora = None
+    with pytest.raises(ValueError, match="Nothing to train"):
+        te.init_trainable(TrainConfig(encoder=enc, peft=peft), text, torch.Generator(), "cpu")
     tree = te.init_trainable(_train_cfg(), text, torch.Generator().manual_seed(0), "cpu")
     assert set(tree["shift"]) == {"attn_v", "attn_logz1_w", "attn_logz1_b"}
 

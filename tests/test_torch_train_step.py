@@ -48,6 +48,18 @@ KL_ATOL = 1e-7
 STEPS = 5
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Tiny models run many small ops: one thread, not a pool that every op
+    must wake (beside the other test workers the pool's wake-ups dominate).
+    Only for the cases that compare the port with itself: the cases held to
+    JAX keep the default pool, whose summation order their bounds were set on."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _preset(name):
     if name == "lm_only":
         enc = EncoderConfig(model_strategy="Strategy.LM_LOSS")
@@ -197,10 +209,71 @@ def test_frozen_weights_stay_frozen_and_shift_moves():
     assert all(moved) and float(m["grad_norm"]) > 0
 
 
-@pytest.mark.parametrize("kwargs", [{"lora_dropout": 0.1}, {"shift_remat": True},
-                                    {"attn_impl": "ring"}], ids=["lora-dropout", "remat", "ring"])
+@pytest.mark.parametrize("kwargs", [{"attn_impl": "ring"}], ids=["ring"])
 def test_unported_options_raise(kwargs):
     cfg, enc, peft, _, trainable, _ = setup("mimic", False)
     tx = to.build_optimizer(to_torch(trainable, "cpu"), **_opt_kwargs(peft))
     with pytest.raises(NotImplementedError):
         ts.make_train_step(cfg, port_enc(enc), tx, ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
+
+
+def _grads_of_one_step(preset, flash, trainable, **step_kw):
+    """The raw gradients of one step (the optimizer records what it is given)."""
+    cfg, enc, peft, frozen, _, tb = setup(preset, flash)
+    tree = to_torch(trainable, "cpu")
+    tx = to.build_optimizer(tree, **_opt_kwargs(peft))
+    seen = []
+
+    def update(grads, state, params):
+        seen.append(grads)
+        return tx.update(grads, state, params)
+
+    step = ts.make_train_step(cfg, port_enc(enc), to.Optimizer(init=tx.init, update=update),
+                              ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight,
+                              attn_impl="flash" if flash else "xla", **step_kw)
+    _, metrics = step(ts.TrainState(tree, tx.init(tree), 0), to_torch(frozen, "cpu"),
+                      ts.to_device_batch(tb, "cpu"))
+    return metrics, to.flatten(seen[0])
+
+
+def _lora_trainable(cfg):
+    from mimic_tpu.shift.lora import init_lora_params
+
+    _, peft = get_preset("lora")
+    lora = init_lora_params(peft.lora, cfg.text, jax.random.PRNGKey(2))
+    # B off zero, so that A's gradient is not zero
+    return {"lora": {k: np.asarray(v + 0.05 if k.endswith("_b") else v) for k, v in lora.items()}}
+
+
+@pytest.mark.parametrize("preset,flash", [("mimic", True), ("lora", False)],
+                         ids=["mimic-flash", "lora"])
+def test_shift_remat_gives_the_same_gradients(preset, flash, one_torch_thread):
+    """``shift_remat`` recomputes each shift-pass layer in the backward pass:
+    the same loss and gradients (1e-6) as the step without it."""
+    cfg, _, _, _, shift, _ = setup("mimic", flash)
+    trainable = shift if preset == "mimic" else _lora_trainable(cfg)
+    want_m, want = _grads_of_one_step(preset, flash, trainable)
+    got_m, got = _grads_of_one_step(preset, flash, trainable, shift_remat=True)
+    assert float(got_m["loss"]) == pytest.approx(float(want_m["loss"]), rel=1e-6)
+    assert set(got) == set(want)
+    for p, g in got.items():
+        torch.testing.assert_close(g, want[p], rtol=1e-6, atol=1e-6)
+        assert g.abs().max() > 0, p
+
+
+def test_lora_dropout_draws_masks_per_step(one_torch_thread):
+    """``lora_dropout`` > 0: the step draws fresh masks each step from
+    (seed, step); a step of the same state repeats its loss."""
+    cfg = setup("mimic", False)[0]
+    _, enc, peft, frozen, _, tb = setup("lora", False)
+    trainable = to_torch(_lora_trainable(cfg), "cpu")
+    tx = to.build_optimizer(trainable, **dict(_opt_kwargs(peft), lr=0.0))
+    step = ts.make_train_step(cfg, port_enc(enc), tx, ce_loss_weight=1.0, align_loss_weight=0.0,
+                              lora_scaling=2.0, lora_dropout=0.1, seed=3)
+    state0 = ts.TrainState(trainable, tx.init(trainable), 0)
+    frozen_t, batch = to_torch(frozen, "cpu"), ts.to_device_batch(tb, "cpu")
+    state1, m0 = step(state0, frozen_t, batch)
+    _, m1 = step(state1, frozen_t, batch)
+    _, again = step(state0, frozen_t, batch)
+    assert float(again["loss"]) == float(m0["loss"]) != float(m1["loss"])
