@@ -152,6 +152,27 @@ Phases (any failure propagates: non-zero exit, no result line):
              call A's prefill logits of the merged bf16 tree against live
              adapters (row cosine >= 0.99).
 
+14. idefics-9b — after phase 11, once every idefics2-8b runner is gone:
+             build_model("idefics-9b") at full width and depth (32 text layers,
+             8 gated cross-attention layers, a 32-layer CLIP ViT-H/14 at head dim
+             80, a 6-layer resampler with 64 latents), random bf16 weights, the
+             cross-attention gates opened.  (b) Config 1's few-shot ICL call:
+             4 requests x 16 shots, 17 images at 224 px each, beam 3, 10 new
+             tokens through LVLMRunner.generate: exact launches (onepass_fwd
+             32 ViT + 32 prefill layers), wall, busy, peak memory; the prefill
+             logits against the plain attention path (row cosine >= 0.99).
+             (d) 3 counted steps each of the licv preset and the mimic preset on
+             the collator's idefics1 batch (B2, 8 shots, 9 images at 224 px):
+             the backward pair 31 times a step, s/step, busy, peak memory, the
+             shift gradient against the plain path (cosine >= 0.99).  (c) The
+             ICL call in "int8-w8a8": exact launches, the cross layers' 2-D
+             int8_matmul launches counted by shape, the first decode step's
+             logits against the bf16 tree and a dequantized one (row cosine >=
+             0.97).  Then the kernels against their plain versions at the shapes
+             idefics-9b gives them (MHA, the 2-D cross products, F 11008, the
+             W8A8 prefill).  Phase 2 holds the ViT's attention at head dim 80
+             (B68, 384 slots, 257 keys) in bf16 and fp32.
+
 Every phase prints its seconds ("[time]").
 
 Every kernel's entry in the next-to-last line carries its time, its plain
@@ -159,11 +180,14 @@ version's, the least time the card could take (bound_ms, bound_by) and the time
 of the one PyTorch call that computes the same function where there is one
 (library_ms: timed here, never used by the port).
 The build fails the run where ptxas serializes a wgmma (a "Performance Loss" line)
-in w8a8_matmul.cu, prompt_attn_int8.cu or quantize_rows.cu.
+in w8a8_matmul.cu, prompt_attn_int8.cu or quantize_rows.cu, or in the head-dim-80
+instantiations of the bf16 attention forward (attn_mma.cuh).
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...}.
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
+    python3 chip_smoke.py --idefics1-only  # build, phase 2's head-dim-80 cases and phase 14:
+                                           # exit 3, no result line
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
@@ -521,6 +545,7 @@ def phase_kernels():
          lp(1, 4096, [250]), True, True, 10, 2, False),
         ("vit by flash_fwd", "flash_fwd", 0, 1, 4992, 4992, 16, 16, 72, vit_mask,
          False, False, 10, 3, False),
+        CLIP_VIT_CASE,
     ]
     # per kernel: the worst error over its shapes, the times at its main-path shape
     summary = {}
@@ -530,7 +555,61 @@ def phase_kernels():
         s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
         if main_shape:
             s.update({k: r[k] for k in TIMING_KEYS})
+    for case in CLIP_FP32_CASES:
+        check_kernel_fp32(*case)
     return summary
+
+
+def clip_vit_mask(B):
+    """The idefics-9b CLIP tower's key mask: the class token and 16 x 16
+    patches of a 224 px image (257 keys), padded to 384."""
+    km = np.zeros((B, 384), np.int32)
+    km[:, :257] = 1
+    return km
+
+
+# the idefics-9b ViT's attention (CLIP ViT-H/14, head dim 80) at phase 14's ICL
+# batch: 4 requests x 17 images, 16 heads, 384 slots with 257 real keys
+CLIP_VIT_CASE = ("clip-vit-d80", "onepass_fwd", 16, 68, 384, 384, 16, 16, 80, clip_vit_mask(68),
+                 False, False, 10, 3, False)
+# fp32 at D80, each entry point (the scalar kernels): (label, kernel, seed, B, T, S, H, Hkv,
+# D, key mask, causal, need_unmasked)
+CLIP_FP32_CASES = [
+    ("clip-vit-d80-fp32", "onepass_fwd", 17, 68, 384, 384, 16, 16, 80, clip_vit_mask(68),
+     False, False),
+    ("clip-vit-d80-fp32 by flash_fwd", "flash_fwd", 18, 8, 384, 384, 16, 16, 80,
+     clip_vit_mask(8), False, True),
+]
+# fp32 kernels against the plain version: summation order only
+TOL_OUT_FP32, TOL_LSE_FP32 = 2e-5, 1e-5
+
+
+def check_kernel_fp32(label, name, seed, B, T, S, H, Hkv, D, key_mask, causal, need_unmasked):
+    """A forward kernel's fp32 instantiation against the plain version on the
+    same inputs: out on every row it must agree on, lse and lse_u."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, km = (x.float() if x.is_floating_point() else x
+                   for x in kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask))
+    got = tfa._launch(name, q, k, v, km, causal, None, need_unmasked)
+    want = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
+    torch.cuda.synchronize()
+    valid = (km[:, None, :] > 0).any(-1).expand(B, T)
+    every_key = name == "onepass_fwd" or need_unmasked
+    errs = {}
+    for field, a, b, rows, tol in (
+            ("out", got[0], want[0], None if every_key else valid, TOL_OUT_FP32),
+            ("lse", got[1], want[1], valid, TOL_LSE_FP32),
+            ("lse_u", got[2], want[2], None if need_unmasked else valid, TOL_LSE_FP32)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{label}: {field} has non-finite values")
+        d = (a - b).abs()
+        errs[field] = (d if rows is None else d[rows]).max().item()
+        if errs[field] > tol:
+            raise AssertionError(f"{label}: {field} max abs err {errs[field]} > {tol}")
+    log(f"[kernels] {label}: {name} fp32 B{B} T{T} S{S} H{H}/{Hkv} D{D} causal={causal} "
+        f"need_unmasked={need_unmasked}: max abs err out {errs['out']:.3e} (tol {TOL_OUT_FP32}), "
+        f"lse {errs['lse']:.3e} lse_u {errs['lse_u']:.3e} (tol {TOL_LSE_FP32})")
 
 
 def sass_counts(library: str, kernels, ops, instantiations: int) -> None:
@@ -557,11 +636,12 @@ def sass_counts(library: str, kernels, ops, instantiations: int) -> None:
             raise AssertionError(f"{fn}: an opcode of {ops} is missing from its SASS")
 
 
-def ptxas_lines(info: dict, kernels, strict_sources=()) -> None:
+def ptxas_lines(info: dict, kernels, strict_sources=(), strict_kernels=()) -> None:
     """What ``-Xptxas=-v`` said of the registers, spills and shared memory of
     the kernels whose mangled name holds one of ``kernels``; a "Performance
-    Loss" line (wgmma serialized) in the output of one of ``strict_sources``
-    fails the run."""
+    Loss" line (wgmma serialized) in the output of one of ``strict_sources``,
+    or one that names a kernel whose mangled name holds one of
+    ``strict_kernels``, fails the run."""
     lines = info["ptxas"].splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and any(k in line for k in kernels):
@@ -574,6 +654,9 @@ def ptxas_lines(info: dict, kernels, strict_sources=()) -> None:
                if "Performance Loss" in x]
         if bad:
             raise AssertionError(f"ptxas serializes in {src}: {bad}")
+    bad = [x for x in lines if "Performance Loss" in x and any(k in x for k in strict_kernels)]
+    if bad:
+        raise AssertionError(f"ptxas serializes {strict_kernels}: {bad}")
 
 
 def backward_launcher(args, name, split=None):
@@ -1387,9 +1470,9 @@ def check_int8(label, kernel, plain, layers, layer, reps, fields=None):
 
 
 def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
-    """int8_matmul (stacked when ``layers``) at [M, K] x [K, N]; ``n_real``:
-    the lm head's handle, N 128-padded in storage and sliced back by qdot,
-    fp32 logits out."""
+    """int8_matmul (stacked when ``layers``, else on a 2-D weight) at [M, K] x
+    [K, N]; ``n_real``: the lm head's handle, N 128-padded in storage and
+    sliced back by qdot, fp32 logits out."""
     from mimic_tpu_torch.ops import quant as tq
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -1400,6 +1483,9 @@ def check_int8_matmul(label, seed, M, K, N, layers, layer, n_real, reps):
         handle = {"q8": wq, "scale": scale[:n_real].contiguous()}
         kernel = lambda _: tq.qdot(x, handle, preferred_element_type=torch.float32)
         plain = lambda _: tq.int8_matmul_plain(x, wq[:, :n_real], handle["scale"], torch.float32)
+    elif not layers:  # a 2-D handle (idefics1's cross layers, sliced per layer)
+        kernel = lambda _: tq.int8_matmul(x, wq, scale)
+        plain = lambda _: tq.int8_matmul_plain(x, wq, scale)
     else:
         kernel = lambda l: tq.int8_matmul_stacked(x, wq, scale, l)
         plain = lambda l: tq.int8_matmul_plain(x, wq[l], scale[l])
@@ -3428,6 +3514,361 @@ def phase_peft_8b(runner):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: idefics-9b (the idefics1 family)
+# ---------------------------------------------------------------------------
+
+ICL_SHOTS = 16  # BASELINE.json config 1's few-shot ICL eval (scripts/run_icl.sh)
+ICL_REQUESTS = 4
+TRAIN_SHOTS_9B = 8  # config 3's LIVE step and the MimIC step: 8 demos + the query image
+
+
+def small_image(seed: int, size: int = 224) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, size=(size, size, 3), dtype=np.uint8)
+
+
+def _shot(rng) -> str:
+    return (f"Image:<image> Question: what is {' '.join(rng.choice(WORDS, size=4))}? "
+            f"Answer: {rng.choice(WORDS)}\n")
+
+
+def icl_call():
+    """Config 1's shape: 4 requests of 16 shots and a query, 17 images at 224 px each."""
+    images, texts = [], []
+    for r in range(ICL_REQUESTS):
+        rng = np.random.default_rng(500 + r)
+        images.append([small_image(600 + 17 * r + i) for i in range(ICL_SHOTS + 1)])
+        texts.append("".join(_shot(rng) for _ in range(ICL_SHOTS))
+                     + "Image:<image> Question: what is in the image? Answer:")
+    return images, texts
+
+
+def icl_train_batch(cfg, preset):
+    """The collator's idefics1 batch of B2: 8 demos then the query, 9 images at
+    224 px per row, with image attention masks, as device tensors."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.processor import LVLMProcessor
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.train.collate import TrainCollator
+    from mimic_tpu_torch.train.step import to_device_batch
+
+    enc, _ = get_preset(preset)
+    rows = []
+    for r in range(2):
+        rng = np.random.default_rng(700 + r)
+        rows.append(("".join(_shot(rng) for _ in range(TRAIN_SHOTS_9B)),
+                     "Image:<image> Question: what is in the image? Answer:",
+                     str(rng.choice(WORDS)),
+                     [small_image(800 + 9 * r + i) for i in range(TRAIN_SHOTS_9B + 1)]))
+    prefixes, queries, answers, images = (list(x) for x in zip(*rows))
+    collator = TrainCollator(LVLMProcessor(cfg, SimpleTokenizer(padding_side="right")),
+                             enc.strategy(), num_image_in_query=1, pad_multiple=128)
+    tb = collator({"prefix_texts": prefixes, "query_texts": queries, "answers": answers,
+                   "images": images})
+    return to_device_batch(tb, torch.device("cuda"))
+
+
+def phase_icl_serving(runner):
+    """(b) config 1's ICL call in bf16: launches, wall, busy, peak memory; the
+    prefill logits through the kernels against the plain attention path."""
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    cfg = runner.cfg
+    images, texts = icl_call()
+    width = runner.processor(None, texts)["input_ids"].shape[1]
+    bucket = -(-width // runner.pad_multiple) * runner.pad_multiple
+    calls = {"ICL": (images, texts, bucket)}
+    _, secs = timed_generate(runner, calls, "ICL")
+    log(f"[9b] warm-up ICL call: {secs:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ATTN_PATH_LOG.clear()
+    out, secs = timed_generate(runner, calls, "ICL")
+    launches = _counts()
+    paths = list(ATTN_PATH_LOG)
+    n_img = ICL_REQUESTS * (ICL_SHOTS + 1)
+    log(f"[9b] ICL call (bf16): {ICL_REQUESTS} requests x {ICL_SHOTS} shots, {n_img} images at "
+        f"{cfg.vision.image_size} px, prompt bucket {bucket} ({width} tokens), beam {NUM_BEAMS}, "
+        f"{MAX_NEW_TOKENS} new tokens: {secs:.3f} s = {ICL_REQUESTS / secs:.3f} q/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; decoded {json.dumps(out)}")
+    # the ViT's 32 layers over the 68 images, then the 32 prefill layers; flash_fwd
+    # only for a bucket above ONEPASS_MAX_S
+    long = bucket > tfa.ONEPASS_MAX_S
+    want = {"onepass_fwd": cfg.vision.num_layers + (0 if long else cfg.text.num_layers),
+            "flash_fwd": cfg.text.num_layers if long else 0}
+    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"ICL call launches {launches}, want {want}")
+    if paths != ["flash"] + ["cached"] * (MAX_NEW_TOKENS - 1):
+        raise AssertionError(f"ICL call attention paths {paths}")
+    profile_run("9b ICL call", lambda: timed_generate(runner, calls, "ICL")[1])
+
+    runner.tokenizer.padding_side = "left"  # as generate() pads
+    batch = runner.process_input(images, texts, pad_to=bucket)
+    logits = {impl: tg._prefill(runner.params, cfg, batch, bucket + MAX_NEW_TOKENS, None,
+                                "unmasked", torch.bfloat16, impl)[0]
+              for impl in ("flash", "xla")}
+    a, b = logits["flash"], logits["xla"]
+    if a.shape != (ICL_REQUESTS, cfg.text.vocab_size) or not torch.isfinite(a).all():
+        raise AssertionError(f"9B prefill logits: shape {tuple(a.shape)} or non-finite values")
+    cos = _row_cosine(a, b)
+    log(f"[9b] first-step logits (the prefill's last), kernels vs plain attention (ViT and "
+        f"text): max abs diff {(a - b).abs().max().item():.4f} of max |logit| "
+        f"{b.abs().max().item():.4f}, min row cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if cos < MIN_LOGIT_COSINE:
+        raise AssertionError("9B prefill logits through the kernels disagree with the plain path")
+    return launches, (batch, bucket, calls)
+
+
+def phase_icl_w8a8(runner, batch, calls):
+    """(c) the same call in "int8-w8a8": the cross layers' 2-D weight-only
+    handles take int8_matmul at decode M, the self layers' stacked ones
+    int8_matmul_stacked / fused_mlp_int8, and the prefill w8a8_matmul; launches
+    counted exactly, the 2-D ones by a spy; first decode step's logits against
+    the bf16 tree and against a bf16 tree dequantized from the same handles."""
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.ops import quant as tq
+
+    cfg = runner.cfg
+    L, G = cfg.text.num_layers, cfg.text.num_cross_layers
+    tok = runner.tokenizer
+
+    def first_step(params):
+        with LogitSpy() as spy:
+            tg.beam_generate(params, cfg, batch, max_new_tokens=2, num_beams=NUM_BEAMS,
+                             eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                             attn_impl="flash")
+        return spy.logits[1]
+
+    bf16 = first_step(runner.params)
+    t0 = time.perf_counter()
+    runner.set_quant("int8-w8a8")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[9b] set_quant('int8-w8a8'): {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    _, secs = timed_generate(runner, calls, "ICL")
+    log(f"[9b] warm-up ICL call (int8-w8a8): {secs:.3f} s")
+    shapes = {}
+    orig = tq.int8_matmul
+
+    def spy(x, wq, scale, out_dtype=None):
+        key = (x.shape[0], x.shape[1], scale.shape[-1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return orig(x, wq, scale, out_dtype=out_dtype)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tq.int8_matmul = spy
+    try:
+        out, secs = timed_generate(runner, calls, "ICL")
+    finally:
+        tq.int8_matmul = orig
+    launches = _counts()
+    steps = MAX_NEW_TOKENS - 1
+    # decode: per self layer qkv and o stacked (the MLP fused), per cross layer q,
+    # o, gate, up and down 2-D (k/v over the B x 1088 image rows take the
+    # dequantized product), the lm head 2-D; the prefill: the lm head, and four
+    # W8A8 products per self layer
+    want = {"int8_matmul": steps * (2 * L + 5 * G + 1) + 1, "fused_mlp_int8": steps * L,
+            "w8a8_matmul": 4 * L, "quantize_rows": 4 * L}
+    two_d = sum(shapes.values())
+    log(f"[9b] ICL call (int8-w8a8): {secs:.3f} s = {ICL_REQUESTS / secs:.3f} q/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; 2-D int8_matmul launches {two_d} by "
+        f"(M, K, N) {dict(sorted(shapes.items()))}; decoded {json.dumps(out)}")
+    if {k: launches[k] for k in want} != want or two_d != steps * (5 * G + 1) + 1:
+        raise AssertionError(f"int8-w8a8 ICL call launches {launches} (2-D {two_d}), want {want}")
+    profile_run("9b ICL call int8-w8a8", lambda: timed_generate(runner, calls, "ICL")[1])
+
+    a = first_step(runner.params)
+    deq = dequantized_tree(runner.params)
+    b = first_step(deq)
+    del deq
+    torch.cuda.empty_cache()
+    cos_deq, cos_bf16 = _row_cosine(a, b), _row_cosine(a, bf16)
+    log(f"[9b] first decode step logits in int8-w8a8 (beam {NUM_BEAMS}): against a bf16 tree "
+        f"dequantized from the same handles min row cosine {cos_deq:.6f}, against the bf16 tree "
+        f"{cos_bf16:.6f} (need >= {MIN_W8A8_COSINE} each); max abs diff to the bf16 tree "
+        f"{(a - bf16).abs().max().item():.4f} of max |logit| {bf16.abs().max().item():.4f}")
+    if not torch.isfinite(a).all() or min(cos_deq, cos_bf16) < MIN_W8A8_COSINE:
+        raise AssertionError("9B int8-w8a8 logits disagree with the bf16 tree")
+    return launches, shapes
+
+
+def phase_9b_train(runner, preset):
+    """(d) 3 counted steps of ``preset`` on the collator's idefics1 batch:
+    launches (the backward pair L - 1 times a step), s/step, busy, peak memory;
+    loss finite; the shift gradient against the plain attention path."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.lvlm import encode_images
+    from mimic_tpu_torch.shift.params import (init_shift_params, multi_head, needs_attn_capture,
+                                               needs_ffn_capture)
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    enc, peft = get_preset(preset)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    shift = init_shift_params(enc, cfg.text, gen, torch.device("cuda"))
+    trainable = {"shift": shift}
+    tx = build_optimizer(trainable, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0, scale_lr=peft.scale_lr)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, attn_impl="flash")
+    state = ts.TrainState(trainable, tx.init(trainable), 0)
+    batch = icl_train_batch(cfg, preset)
+    T_full = batch["full_ids"].shape[1] if "full_ids" in batch else 0
+    log(f"[9b] {preset} step: {sum(v.numel() for v in shift.values()) / 1e6:.3f} M fp32 shift "
+        f"parameters; batch B2, record pass {T_full} tokens with "
+        f"{batch['full_pixels'].shape[1] if 'full_pixels' in batch else 0} images, shift pass "
+        f"{batch['query_ids'].shape[1]} tokens with {batch['query_pixels'].shape[1]} image")
+
+    def run_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_step()  # warm-up
+    _reset_counts()
+    ATTN_PATH_LOG.clear()
+    times, rows = [], []
+    for _ in range(TRAIN_STEPS):
+        m, secs = run_step()
+        times.append(secs)
+        rows.append({k: float(v) for k, v in m.items()})
+    launches = _counts()
+    paths = list(ATTN_PATH_LOG)
+    log(f"[9b] {preset}: {TRAIN_STEPS} counted steps {', '.join(f'{t:.3f}' for t in times)} s "
+        f"(mean {sum(times) / len(times):.3f} s/step); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; metrics {rows[-1]}")
+    n_pass = 2 if T_full else 1
+    if paths != ["flash"] * (n_pass * TRAIN_STEPS):
+        raise AssertionError(f"{preset}: a decoder call left the flash path: {paths}")
+    # the cross layer before layer 0 is frozen and the shift enters at or after
+    # layer 0's attention, so layer 0's q/k/v carry no gradient: L - 1 a step
+    want_bwd = (L - 1) * TRAIN_STEPS
+    if (launches["flash_bwd_dq"] != want_bwd or launches["flash_bwd_dkv"] != want_bwd
+            or launches["onepass_fwd"] == 0):
+        raise AssertionError(f"{preset}: launches {launches}, want {want_bwd} of each backward")
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values()) or not row["grad_norm"] > 0:
+            raise AssertionError(f"{preset}: metrics not finite or zero gradient: {row}")
+    profile_run(f"9b {preset} step", lambda: run_step()[1])
+
+    # the shift gradient through the kernels against the plain attention path, on
+    # the same image features (the ViT's own kernel path is held in (b))
+    with torch.no_grad():
+        feats = {f"{p}_feats": encode_images(frozen, cfg, batch[f"{p}_pixels"], None,
+                                             attn_impl="flash")
+                 for p in ("full", "query") if f"{p}_pixels" in batch}
+    fb = {k: v for k, v in batch.items() if "pixels" not in k}
+    fb.update(feats)
+    loss_kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=needs_attn_capture(enc),
+                   rec_ffn=needs_ffn_capture(enc), mh=multi_head(enc),
+                   ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                   logz2="unmasked")
+    grads, losses = {}, {}
+    for attn_impl in ("flash", "xla"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in state.trainable["shift"].items()}
+        with torch.enable_grad():
+            loss, _ = ts.compute_loss({"shift": leaves}, frozen, fb, attn_impl=attn_impl, **loss_kw)
+            grads[attn_impl] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        losses[attn_impl] = float(loss.detach())
+    cos = _grad_cosines(grads["flash"], grads["xla"])
+    log(f"[9b] {preset}: one step's shift gradient, kernels vs plain attention: loss "
+        f"{losses['flash']:.6f} vs {losses['xla']:.6f}; per-leaf cosine {cos} "
+        f"(need >= {MIN_GRAD_COSINE})")
+    if not np.isfinite(losses["flash"]) or min(cos.values()) < MIN_GRAD_COSINE:
+        raise AssertionError(f"{preset}: 9B gradients through the kernels disagree with the "
+                             f"plain path")
+    return launches, batch
+
+
+def phase_9b_kernel_shapes(prefill_rows, bucket, batches):
+    """The kernels against their plain versions at the shapes idefics-9b gives
+    them that no earlier phase holds: MHA (group 1) at the ICL prefill and the
+    train steps' record and shift passes, the backward pair at the shift pass,
+    the 2-D int8 products of the cross layers, the fused MLP at F 11008 and the
+    W8A8 products of the prefill.  Returns the results (errors and times)."""
+    out = []
+    B = prefill_rows
+    out.append(check_kernel("9b-prefill-mha", "onepass_fwd", 50, B, bucket, bucket, 32, 32, 128,
+                            np.ones((B, bucket), np.int32), True, True, 5, 1))
+    for name, b in batches.items():
+        for p in ("full", "query"):
+            if f"{p}_ids" not in b:
+                continue
+            km = b[f"{p}_mask"].cpu().numpy()
+            Bp, T = km.shape
+            out.append(check_kernel(f"9b-{name}-{p}-mha", "onepass_fwd", 51, Bp, T, T, 32, 32,
+                                    128, km, True, True, 5, 1))
+            if p == "query":
+                out.extend(check_backward(f"9b-{name}-bwd-mha", 52, Bp, T, T, 32, 32, km, True,
+                                          True, 5))
+    out += [
+        check_int8_matmul("9b-cross-q-o-12", 53, 12, 4096, 4096, 0, 0, 0, reps=16),
+        check_int8_matmul("9b-cross-gate-up-12", 54, 12, 4096, 11008, 0, 0, 0, reps=16),
+        check_int8_matmul("9b-cross-down-12", 55, 12, 11008, 4096, 0, 0, 0, reps=16),
+        check_fused_mlp("9b-mlp-12", 56, 12, 4096, 11008, reps=8),
+    ]
+    M = B * bucket
+    for label, K, N in (("qkv", 4096, 3 * 4096), ("o", 4096, 4096), ("gateup", 4096, 2 * 11008),
+                        ("down", 11008, 4096)):
+        out.append(check_w8a8(f"9b-{label}-{M}", 57, M, K, N, 2, 1, reps=0, timed=False))
+    return out
+
+
+def phase_idefics_9b():
+    """Phase 14: idefics-9b at full width and depth, random bf16 weights."""
+    import gc
+
+    from mimic_tpu_torch.models.factory import build_model
+
+    t = time.perf_counter()
+    runner = build_model("idefics-9b", device="cuda", dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    # the gates start at 0 (HF's init): open them, so that the images reach the logits
+    for name, value in (("alpha_attn", 0.5), ("alpha_dense", 0.5)):
+        runner.params["lm"]["decoder"]["cross"][name].fill_(value)
+    n = sum(x.numel() for x in runner.module.buffers())
+    log(f"[9b] idefics-9b: {n / 1e9:.3f} B random bf16 parameters made on the card in "
+        f"{time.perf_counter() - t:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
+        f"allocated")
+    out = {}
+    t = time.perf_counter()
+    out["9b ICL serving"], (batch, bucket, calls) = phase_icl_serving(runner)
+    log(f"[time] phase 14 ICL serving: {time.perf_counter() - t:.1f} s")
+    batches = {}
+    for preset in ("licv", "mimic"):
+        t = time.perf_counter()
+        out[f"9b {preset} training"], batches[preset] = phase_9b_train(runner, preset)
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] phase 14 {preset} steps: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out["9b ICL int8-w8a8"], _ = phase_icl_w8a8(runner, batch, calls)
+    log(f"[time] phase 14 int8-w8a8: {time.perf_counter() - t:.1f} s")
+    del runner, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    results = phase_9b_kernel_shapes(ICL_REQUESTS, bucket, batches)
+    log(f"[time] phase 14 kernel shapes: {time.perf_counter() - t:.1f} s")
+    return out, results
+
+
 def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
     """One cache-empty prefill of ``batch`` (the generation's first forward)."""
     from mimic_tpu_torch.models.decoder import init_kv_cache
@@ -3476,7 +3917,9 @@ def main() -> int:
     # wgmma (or mma) in the kernels redesigned last fails the run
     ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp",
                        "w8a8", "prompt_attn_mma", "quantize_rows"),
-                ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"))
+                ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"),
+                # the bf16 forward's head-dim-80 instantiations (the CLIP ViT-H tower)
+                ("attn_fwd_mma_kernelILi80",))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:
@@ -3528,6 +3971,17 @@ def main() -> int:
         log("[card] partial run (--peft-only): phase 13 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--idefics1-only"]:
+        check_kernel(*CLIP_VIT_CASE[:-1])
+        for case in CLIP_FP32_CASES:
+            check_kernel_fp32(*case)
+        t = time.perf_counter()
+        phase_idefics_9b()
+        log(f"[time] phase 14 idefics-9b: {time.perf_counter() - t:.1f} s")
+        log("[card] partial run (--idefics1-only): phase 2's head-dim-80 cases and phase 14 "
+            "passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--eval-only"]:
         from mimic_tpu_torch.models.factory import build_model
 
@@ -3565,13 +4019,22 @@ def main() -> int:
         int8_launches = timed("phase 8 8B int8", phase_int8_8b, runner)
         del runner  # the eval entry builds its own model
         eval_launches = timed("phase 11 eval", phase_eval_w8a8, ckpt, trained_shift, result_dir)
+    torch.cuda.empty_cache()
+    idefics_launches, idefics_kernels = timed("phase 14 idefics-9b", phase_idefics_9b)
+    # the kernels at idefics-9b's shapes: their errors count, the times stay those
+    # of the main-path shapes above
+    for r in idefics_kernels:
+        summary[r["name"]]["max_abs_err"] = max(summary[r["name"]]["max_abs_err"],
+                                                r["max_abs_err"])
 
     # launches: each path's counted run (serving, training, the cached train
     # steps, the warm cached call A, the sampled calls, the LoRA steps, the
-    # prefix steps and calls, the LoRA eval, int8 serving, the W8A8 eval), each
-    # driven with the counts at 0 and read just after, summed
+    # prefix steps and calls, the LoRA eval, int8 serving, the W8A8 eval, the
+    # idefics-9b ICL calls and train steps), each driven with the counts at 0
+    # and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
-             **peft_launches, "int8 serving": int8_launches, "W8A8 eval": eval_launches}
+             **peft_launches, "int8 serving": int8_launches, "W8A8 eval": eval_launches,
+             **idefics_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

@@ -13,12 +13,14 @@ Layout notes:
 - torch ``nn.Linear.weight`` is ``[out, in]``; the tree's kernels are ``[in, out]``;
 - per-layer weights are stacked along a leading ``[L]`` axis;
 - conv patch embeddings ``[D, C, p, p]`` become dense kernels ``[p*p*C, D]``
-  matching ``vision.patchify``'s ``[p, p, C]`` row-major flattening.
+  matching ``vision.patchify``'s ``[p, p, C]`` row-major flattening;
+- IDEFICS-1's decoupled embeddings (base + additional trainable rows) are
+  merged into one embedding / lm-head matrix.
 
 Neither ``safetensors`` nor ``transformers`` is needed: ``load_safetensors``
 reads the format itself (an 8-byte little-endian header length, a JSON header,
-then the raw little-endian buffers).  Only idefics2 is ported; the other
-families' converters raise.
+then the raw little-endian buffers).  idefics2 and idefics1 are ported; the
+other families' converters raise.
 
 Run: ``python -m mimic_tpu_torch.models.convert <model_name> <hf_checkpoint_dir>``.
 """
@@ -231,6 +233,77 @@ def _convert_idefics2_connector(sd: StateDict, cfg: ModelConfig) -> Dict:
     }
 
 
+def convert_idefics1(sd: StateDict, cfg: ModelConfig) -> Dict:
+    """IDEFICS-1: the decoder, its gated cross layers (one per
+    ``cross_attn_interval`` layers), the CLIP tower and the perceiver
+    resampler; DecoupledEmbedding / DecoupledLinear extra rows merged."""
+    text = cfg.text
+    lm = convert_decoder(sd, "model.", text, attn_bias=False)
+    embed = sd["model.embed_tokens.weight"]
+    if "model.embed_tokens.additional_embedding.weight" in sd:
+        embed = torch.cat([embed, sd["model.embed_tokens.additional_embedding.weight"]], 0)
+    head = _t(sd["lm_head.weight"])
+    if "lm_head.additional_fc.weight" in sd:
+        head = torch.cat([head, _t(sd["lm_head.additional_fc.weight"])], 1)
+
+    G = text.num_cross_layers
+    pre = "model.gated_cross_attn_layers.{i}."
+    cross = {
+        "input_ln": _stack(sd, pre + "input_layernorm.weight", G, _identity),
+        "q_proj": _stack(sd, pre + "cross_attn.q_proj.weight", G),
+        "k_proj": _stack(sd, pre + "cross_attn.k_proj.weight", G),
+        "v_proj": _stack(sd, pre + "cross_attn.v_proj.weight", G),
+        "o_proj": _stack(sd, pre + "cross_attn.o_proj.weight", G),
+        "post_ln": _stack(sd, pre + "post_attention_layernorm.weight", G, _identity),
+        "gate_proj": _stack(sd, pre + "mlp.gate_proj.weight", G),
+        "up_proj": _stack(sd, pre + "mlp.up_proj.weight", G),
+        "down_proj": _stack(sd, pre + "mlp.down_proj.weight", G),
+        "alpha_attn": _stack(sd, pre + "alpha_cross_attn", G, lambda w: w.reshape(())),
+        "alpha_dense": _stack(sd, pre + "alpha_dense", G, lambda w: w.reshape(())),
+    }
+    if text.cross_qk_layernorm:
+        cross["q_ln"] = _stack(sd, pre + "cross_attn.q_layer_norm.weight", G, _identity)
+        cross["k_ln"] = _stack(sd, pre + "cross_attn.k_layer_norm.weight", G, _identity)
+    lm["cross"] = cross
+
+    # HF IdeficsPerceiverResampler: blocks.{i}.0 the attention (context / latents
+    # layer norms, q/k/v/output_proj, optional qk layer norms), blocks.{i}.1 the
+    # ReLU MLP (ln, fc, c_proj), then a final layer_norm
+    pv = "model.perceiver_resampler."
+    blk = pv + "blocks.{i}."
+    L = cfg.perceiver.num_layers
+    layers = {
+        "ln_context_w": _stack(sd, blk + "0.context_layer_norm.weight", L, _identity),
+        "ln_context_b": _stack(sd, blk + "0.context_layer_norm.bias", L, _identity),
+        "ln_latents_w": _stack(sd, blk + "0.latents_layer_norm.weight", L, _identity),
+        "ln_latents_b": _stack(sd, blk + "0.latents_layer_norm.bias", L, _identity),
+        "q_proj": _stack(sd, blk + "0.q_proj.weight", L),
+        "k_proj": _stack(sd, blk + "0.k_proj.weight", L),
+        "v_proj": _stack(sd, blk + "0.v_proj.weight", L),
+        "o_proj": _stack(sd, blk + "0.output_proj.weight", L),
+        "mlp_ln_w": _stack(sd, blk + "1.ln.weight", L, _identity),
+        "mlp_ln_b": _stack(sd, blk + "1.ln.bias", L, _identity),
+        "fc": _stack(sd, blk + "1.fc.weight", L),
+        "c_proj": _stack(sd, blk + "1.c_proj.weight", L),
+    }
+    if pv + "blocks.0.0.q_layer_norm.weight" in sd:
+        layers["q_ln_w"] = _stack(sd, blk + "0.q_layer_norm.weight", L, _identity)
+        layers["q_ln_b"] = _stack(sd, blk + "0.q_layer_norm.bias", L, _identity)
+        layers["k_ln_w"] = _stack(sd, blk + "0.k_layer_norm.weight", L, _identity)
+        layers["k_ln_b"] = _stack(sd, blk + "0.k_layer_norm.bias", L, _identity)
+    perceiver = {
+        "latents": sd[pv + "latents"],
+        "layers": layers,
+        "final_ln_w": sd[pv + "layer_norm.weight"],
+        "final_ln_b": sd[pv + "layer_norm.bias"],
+    }
+    return {
+        "lm": {"embed": embed, "decoder": lm, "lm_head": head},
+        "vision": convert_vit(sd, "model.vision_model.", cfg.vision),
+        "perceiver": perceiver,
+    }
+
+
 def _not_ported(family: str) -> Callable:
     def convert(sd: StateDict, cfg: ModelConfig) -> Dict:
         raise NotImplementedError(
@@ -242,7 +315,7 @@ def _not_ported(family: str) -> Callable:
 _CONVERTERS = {
     "idefics2": convert_idefics2,
     "llava-interleave": _not_ported("llava-interleave"),
-    "idefics1": _not_ported("idefics1"),
+    "idefics1": convert_idefics1,
     "text": _not_ported("text"),
 }
 

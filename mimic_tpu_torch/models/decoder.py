@@ -1,4 +1,5 @@
-"""Functional decoder stack: the idefics2 text tower (Mistral-style).
+"""Functional decoder stack: the idefics2 text tower (Mistral-style) and the
+idefics1 text tower (LLaMA-style, with gated cross-attention).
 
 Counterpart of ``mimic_tpu/models/decoder.py``.  Parameters are stacked
 ``[L, ...]`` tensors (the JAX pytree); the JAX ``lax.scan`` over layers is a
@@ -19,10 +20,14 @@ Int8 weights (``ops/quant.py`` handles, fused ``qkv_proj`` / ``gateup_proj``
 or unfused) go through ``qdot`` and ``fused_mlp`` as stacked handles
 ``{"q8", "scale", "layer": l}`` (no per-layer copy); an int8 prompt cache
 (``ops/decode_attention.py``) through ``cached_attention``'s int8 branch.
-Not ported yet (raise ``NotImplementedError``): gated cross-attention
-(idefics1), q/k/v biases (qwen2), qk-layernorms, the sliding window
-(Mistral), ring attention, layer-input captures and perturbations, per-row
-cache writes.
+IDEFICS-1's gated cross-attention (``cross_states`` / ``cross_mask``): one
+cross layer before each group of ``cross_attn_interval`` self layers, q from
+the text, k/v from the image states, plain ``sdpa_with_lse`` and
+tanh-gated residuals; its weights are sliced per layer as 2-D tensors or 2-D
+int8 handles (as ``jax.tree.map(lambda a: a[g], ...)`` does).
+Not ported yet (raise ``NotImplementedError``): q/k/v biases (qwen2),
+self-attention qk-layernorms, the sliding window (Mistral), ring attention,
+layer-input captures and perturbations, per-row cache writes.
 """
 
 from __future__ import annotations
@@ -80,7 +85,6 @@ def dense_init(
 
 def _check_text_cfg(cfg: TextConfig) -> None:
     for name, value in (
-        ("gated cross-attention", cfg.cross_attn_interval),
         ("q/k/v biases", cfg.attn_bias),
         ("qk-layernorms", cfg.qk_layernorm),
         ("the sliding window", cfg.sliding_window),
@@ -115,7 +119,28 @@ def init_decoder_params(
         "up_proj": dense(L, D, F),
         "down_proj": dense(L, F, D),
     }
-    return {"layers": layers, "final_ln": ones(D)}
+    params: Params = {"layers": layers, "final_ln": ones(D)}
+    G = cfg.num_cross_layers
+    if G:
+        # gated cross-attention (IDEFICS-1): q from the text, k/v from image states
+        kv_dim = cfg.cross_kv_dim or D
+        params["cross"] = {
+            "input_ln": ones(G, D),
+            "q_proj": dense(G, D, H * Dh),
+            "k_proj": dense(G, kv_dim, Hkv * Dh),
+            "v_proj": dense(G, kv_dim, Hkv * Dh),
+            "o_proj": dense(G, H * Dh, D),
+            "post_ln": ones(G, D),
+            "gate_proj": dense(G, D, F),
+            "up_proj": dense(G, D, F),
+            "down_proj": dense(G, F, D),
+            "alpha_attn": torch.zeros(G, dtype=dtype, device=device),
+            "alpha_dense": torch.zeros(G, dtype=dtype, device=device),
+        }
+        if cfg.cross_qk_layernorm:
+            params["cross"]["q_ln"] = ones(G, Dh)
+            params["cross"]["k_ln"] = ones(G, Dh)
+    return params
 
 
 def init_kv_cache(
@@ -283,6 +308,45 @@ def _self_attention(
     return (out if delta is None else out + delta), k, v
 
 
+def _cross_attention(
+    cp: Params,
+    x: torch.Tensor,
+    cross_states: torch.Tensor,
+    cross_mask: Optional[torch.Tensor],
+    cfg: TextConfig,
+) -> torch.Tensor:
+    """IDEFICS-1 gated cross-attention and gated MLP of one cross layer (JAX
+    ``_cross_attention``).  ``cross_mask`` [B,1,T,S] (True = attend) or None.
+    A text row before the first image has an all-false mask row: the plain
+    ``sdpa_with_lse`` gives it the mean of v, never NaN, as in JAX."""
+    B, T, _ = x.shape
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    S = cross_states.shape[1]
+    h = rms_norm(x, cp["input_ln"], cfg.norm_eps)
+    q = qdot(h, cp["q_proj"]).reshape(B, T, H, Dh)
+    k = qdot(cross_states, cp["k_proj"]).reshape(B, S, Hkv, Dh)
+    v = qdot(cross_states, cp["v_proj"]).reshape(B, S, Hkv, Dh)
+    if cfg.cross_qk_layernorm:
+        q = rms_norm(q, cp["q_ln"], cfg.norm_eps)
+        k = rms_norm(k, cp["k_ln"], cfg.norm_eps)
+    attn, _ = sdpa_with_lse(
+        q, repeat_kv(k, cfg.num_groups), repeat_kv(v, cfg.num_groups), cross_mask
+    )
+    attn_out = qdot(attn.reshape(B, T, -1), cp["o_proj"])
+    h = x + torch.tanh(cp["alpha_attn"]).to(x.dtype) * attn_out
+    m = rms_norm(h, cp["post_ln"], cfg.norm_eps)
+    mlp_out = swiglu_mlp(m, cp["gate_proj"], cp["up_proj"], cp["down_proj"])
+    return h + torch.tanh(cp["alpha_dense"]).to(x.dtype) * mlp_out
+
+
+def _cross_view(w: Any, g: int) -> Any:
+    """Cross layer ``g`` of a stacked leaf; a quantized handle becomes a 2-D
+    handle (its ``q8`` / ``scale`` sliced), as the JAX package slices it."""
+    if isinstance(w, dict):
+        return {name: t[g] for name, t in w.items()}
+    return w[g]
+
+
 def _layer_view(w: Any, l: int) -> Any:
     """Layer ``l`` of a stacked leaf: a view of a tensor, or for a quantized
     handle (weights or prompt KV) the stacked handle with ``layer`` set, which
@@ -293,7 +357,7 @@ def _layer_view(w: Any, l: int) -> Any:
 
 
 _UNPORTED_DEFAULTS = {
-    "cross_states": None, "cross_mask": None, "ring_mesh": None,
+    "ring_mesh": None,
     "capture_layer_inputs": False, "perturb_attn": None, "perturb_ffn": None,
     "cache_write_pos": None,
 }
@@ -322,6 +386,8 @@ def decoder_forward(
     capture_gather_idx: Optional[torch.Tensor] = None,
     remat: bool = False,
     prefix_flash_len: int = 0,
+    cross_states: Optional[torch.Tensor] = None,
+    cross_mask: Optional[torch.Tensor] = None,
     **unported: Any,
 ) -> DecoderOutput:
     """Run the decoder stack.
@@ -347,6 +413,10 @@ def decoder_forward(
     prefix_flash_len: P > 0 when the cache holds only P prefix-tuning slots
     (the prefix prefill): the prompt block takes the cacheless path and the
     prefix part is merged in (``_merge_prefix``); logged as ``"<path>+prefix"``.
+    cross_states [B,S,Dkv] / cross_mask [B,1,T,S]: the image states of a
+    gated cross-attention tower (idefics1) and which of them each row
+    attends; cross layer g runs before self layer g·``cross_attn_interval``
+    (without ``cross_states`` the cross layers are skipped, as in JAX).
 
     The current block's k/v are written into the cache at the timeline
     length.  Without gradients they are written in place and the returned
@@ -458,8 +528,13 @@ def decoder_forward(
         return residual + ffn_out, attn_out, ffn_out, k_new, v_new
 
     attn_caps, ffn_caps, k_blocks, v_blocks = [], [], [], []
+    cross = params.get("cross") if cfg.cross_attn_interval else None
     h = input_embeds
     for l in range(cfg.num_layers):
+        if cross is not None and cross_states is not None and l % cfg.cross_attn_interval == 0:
+            g = l // cfg.cross_attn_interval
+            cp = {name: _cross_view(w, g) for name, w in cross.items()}
+            h = _cross_attention(cp, h, cross_states, cross_mask, cfg)
         keeps = None
         if drop:
             # drawn outside the rematerialised body: the recompute must see the

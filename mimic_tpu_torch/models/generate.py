@@ -16,7 +16,11 @@ read by every decode step while the prefill reads ``params``; ``quant_kv``
 stores the beam-shared prompt KV int8 (``ops/decode_attention.py``).
 
 ``image_feats``: encoded image features computed elsewhere (the runner's
-``VisionFeatureCache``); the prefill then skips the vision tower.
+``VisionFeatureCache``); the prefill then skips the vision tower.  The
+prefill's features (idefics1: the cross-attention states) are reused by every
+decode step; an idefics1 decode step attends the image of the last prompt
+token (``_decode_image_rows``) and re-projects the cross k/v, as the JAX loop
+does (there is no cross k/v cache).
 
 ``adapters`` / ``lora_scaling``: live LoRA adapters (``shift/lora.py``), read
 by the prefill and every decode step.  ``prefix``: a prefix-tuning KV
@@ -65,6 +69,17 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B,N,M], idx [B,J] → x[b, idx[b, j], :] as [B,J,M]."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _decode_image_rows(batch: LVLMBatch, beams: int = 1) -> dict:
+    """What a decode step's batch carries of the prompt's images (idefics1):
+    the last prompt token's ``image_attention_mask`` row [B,1,N] and the
+    ``pixel_mask``, each tiled per beam; nothing for the other families."""
+    if batch.image_attention_mask is None:
+        return {}
+    rows = dict(image_attention_mask=batch.image_attention_mask[:, -1:, :],
+                pixel_mask=batch.pixel_mask)
+    return {k: None if v is None else v.repeat_interleave(beams, dim=0) for k, v in rows.items()}
 
 
 class GenerateResult(NamedTuple):
@@ -147,12 +162,14 @@ def greedy_generate(
     mask_full = torch.cat([am.new_ones(B, P), am, am.new_zeros(B, max_new_tokens)], dim=-1)
     tok = last_logits.argmax(-1)
     finished = torch.zeros(B, dtype=torch.bool, device=am.device)
+    images = _decode_image_rows(batch)
     toks = []
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
         mask_full[:, P + T + i] = 1
         out = lvlm_forward(
-            dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
+            dparams, cfg,
+            LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
             image_feats=image_feats,
             position_ids=(n_real + P + i)[:, None],
             kv_cache=cache,
@@ -245,6 +262,7 @@ def beam_generate(
     }
     if image_feats is not None:
         image_feats = image_feats.repeat_interleave(K, dim=0)
+    images = _decode_image_rows(batch, K)
     am = batch.attention_mask
     n_real = am.sum(-1).repeat_interleave(K)  # [B*K]
     # the prefix slots, the prompt, (Tq - Tp) masked prompt-pad columns, then
@@ -279,7 +297,8 @@ def beam_generate(
         mask_full[:, Tq + i - 1] = 1
         out = lvlm_forward(
             dparams, cfg,
-            LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full),
+            LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full,
+                      **images),
             image_feats=image_feats,
             position_ids=(n_real + P + i - 1)[:, None],
             kv_cache=cache,
@@ -417,12 +436,14 @@ def sample_generate(
     mask_full = torch.cat([am.new_ones(B, P), am, am.new_zeros(B, max_new_tokens)], dim=-1)
     tok, lp_sum = draw(last_logits)
     finished = torch.zeros(B, dtype=torch.bool, device=am.device)
+    images = _decode_image_rows(batch)
     toks = []
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
         mask_full[:, P + T + i] = 1
         out = lvlm_forward(
-            dparams, cfg, LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full),
+            dparams, cfg,
+            LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
             image_feats=image_feats,
             position_ids=(n_real + P + i)[:, None],
             kv_cache=cache,

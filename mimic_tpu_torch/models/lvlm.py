@@ -1,9 +1,14 @@
 """LVLM assembly: vision tower + connector + text decoder as one function.
 
-Counterpart of ``mimic_tpu/models/lvlm.py`` for the idefics2 family: SigLIP
-features → perceiver connector → 64 tokens per image spliced into the
-``<image>`` positions of the text embedding sequence.  The llava and idefics1
-families are not ported yet.
+Counterpart of ``mimic_tpu/models/lvlm.py`` for two families:
+
+- **idefics2**: SigLIP features → perceiver connector → 64 tokens per image
+  spliced into the ``<image>`` positions of the text embedding sequence;
+- **idefics1**: CLIP features → perceiver resampler → 64 latents per image,
+  read by the decoder's gated cross-attention (no inline tokens); each text
+  row attends the images its ``image_attention_mask`` row names.
+
+The llava family is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,8 +27,11 @@ from .vision import init_perceiver_params, init_vit_params, perceiver_forward, v
 Params = Dict[str, Any]
 
 
+PORTED_FAMILIES = ("idefics2", "idefics1")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "idefics2":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
 
 
@@ -35,10 +43,16 @@ def init_lvlm_params(
     params: Params = {"lm": init_lm_params(cfg.text, generator, device, dtype)}
     if cfg.vision is not None:
         params["vision"] = init_vit_params(cfg.vision, generator, device, dtype)
-        params["connector"] = init_perceiver_params(
-            cfg.perceiver, cfg.vision.hidden_size, cfg.text.hidden_size, generator,
-            device, dtype, project_first=True,
-        )
+        if cfg.family == "idefics2":
+            params["connector"] = init_perceiver_params(
+                cfg.perceiver, cfg.vision.hidden_size, cfg.text.hidden_size, generator,
+                device, dtype, project_first=True,
+            )
+        else:
+            params["perceiver"] = init_perceiver_params(
+                cfg.perceiver, cfg.vision.hidden_size, cfg.vision.hidden_size, generator,
+                device, dtype, project_first=False,
+            )
     return params
 
 
@@ -49,7 +63,8 @@ def encode_images(
     patch_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
 ) -> torch.Tensor:
-    """pixel_values [B,N,H,W,C] → image tokens [B, N*latents, D_text]."""
+    """pixel_values [B,N,H,W,C] → image tokens [B, N*latents, D_text]
+    (idefics2), or cross-attention states [B, N*latents, D_vision] (idefics1)."""
     _check_family(cfg)
     B, N = pixel_values.shape[:2]
     flat = pixel_values.reshape((B * N,) + tuple(pixel_values.shape[2:]))
@@ -62,10 +77,16 @@ def encode_images(
         params["vision"], cfg.vision, flat, patch_mask=flat_patch, attn_impl=attn_impl
     )
     ctx_mask = flat_patch.reshape(B * N, -1) if flat_patch is not None else None
-    feats = perceiver_forward(
-        params["connector"], cfg.perceiver, feats,
-        norm_eps=cfg.text.norm_eps, context_mask=ctx_mask,
-    )
+    if cfg.family == "idefics2":
+        feats = perceiver_forward(
+            params["connector"], cfg.perceiver, feats,
+            norm_eps=cfg.text.norm_eps, context_mask=ctx_mask,
+        )
+    else:
+        # HF IdeficsPerceiverResampler uses torch's LayerNorm default eps 1e-5
+        feats = perceiver_forward(
+            params["perceiver"], cfg.perceiver, feats, norm_eps=1e-5, context_mask=ctx_mask,
+        )
     S = feats.shape[1]
     return feats.reshape(B, N * S, feats.shape[-1])
 
@@ -93,6 +114,20 @@ class LVLMBatch(NamedTuple):
     attention_mask: torch.Tensor                  # [B,T]
     pixel_values: Optional[torch.Tensor] = None   # [B,N,H,W,C]
     patch_mask: Optional[torch.Tensor] = None     # [B,N,nh,nw] (idefics2 aspect)
+    pixel_mask: Optional[torch.Tensor] = None     # [B,N] real image slots
+    image_attention_mask: Optional[torch.Tensor] = None  # [B,T,N] (idefics1)
+
+
+def cross_attention_mask(batch: LVLMBatch, latents: int) -> Optional[torch.Tensor]:
+    """idefics1: [B,1,T,N·latents] (True = attend) from the batch's
+    ``image_attention_mask`` [B,T,N] and ``pixel_mask`` [B,N], each image's
+    column repeated over its latents; None without an image attention mask."""
+    if batch.image_attention_mask is None:
+        return None
+    m = batch.image_attention_mask.bool()
+    if batch.pixel_mask is not None:
+        m = m & batch.pixel_mask[:, None, :].bool()
+    return m.repeat_interleave(latents, dim=-1)[:, None]
 
 
 def lvlm_forward(
@@ -109,7 +144,12 @@ def lvlm_forward(
 ) -> LMOutput:
     """Full forward.  ``image_feats`` may be precomputed (generation reuses
     them).  With a kv_cache, ``batch.attention_mask`` covers the cached and
-    current keys; without one, a causal mask over the sequence is built."""
+    current keys; without one, a causal mask over the sequence is built.
+
+    idefics1: the image features are the decoder's ``cross_states``; each
+    image's latents count as ``image_feats.shape[1] // N``, N the image axis of
+    ``batch.image_attention_mask`` (the JAX package reads N off
+    ``pixel_values``, which a decode step would then have to carry)."""
     _check_family(cfg)
     input_ids = batch.input_ids
     embeds = embed_tokens(params["lm"], input_ids)
@@ -119,7 +159,13 @@ def lvlm_forward(
             attn_impl=decoder_kwargs.get("attn_impl", "xla"),
         )
     if image_feats is not None:
-        embeds = splice_image_embeds(embeds, image_feats, input_ids, cfg.image_token_id)
+        if cfg.family == "idefics1":
+            decoder_kwargs["cross_states"] = image_feats
+            if batch.image_attention_mask is not None:
+                latents = image_feats.shape[1] // batch.image_attention_mask.shape[-1]
+                decoder_kwargs["cross_mask"] = cross_attention_mask(batch, latents)
+        else:
+            embeds = splice_image_embeds(embeds, image_feats, input_ids, cfg.image_token_id)
 
     if kv_cache is not None and not cache_empty:
         # cached two-part attention: a 2D slot-validity mask over the timeline

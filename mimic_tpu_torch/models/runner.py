@@ -25,8 +25,11 @@ from ..data.templates import apply_prompt_template as render_template
 from .config import ModelConfig
 from .feature_cache import VisionFeatureCache, image_key
 from .generate import beam_generate, greedy_generate, sample_generate
-from .lvlm import LVLMBatch
+from .lvlm import PORTED_FAMILIES, LVLMBatch
 from .processor import LVLMProcessor
+
+# the prompt template of each family (JAX runner.py's table, ported families only)
+_FAMILY_TEMPLATE = {"idefics1": "idefics1", "idefics2": "idefics2"}
 
 
 def _round_up(n: int, m: int) -> int:
@@ -52,7 +55,7 @@ class LVLMRunner:
         quant: Optional[str] = None,
         image_size: Optional[int] = None,
     ):
-        if cfg.family != "idefics2":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(f"model family {cfg.family!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -62,7 +65,7 @@ class LVLMRunner:
         if quant:
             self.set_quant(quant)
         self.tokenizer = tokenizer
-        self.template = "idefics2"
+        self.template = _FAMILY_TEMPLATE[cfg.family]
         self.processor = LVLMProcessor(cfg, tokenizer, image_size=image_size)
         self.shift = None
         self.adapters = None
@@ -100,7 +103,10 @@ class LVLMRunner:
         """Cache encoded image features across ``generate`` calls, keyed by
         the source images' content: each support image of an ICL eval is
         encoded once per eval instead of once per occurrence.  A cached
-        feature is the encode function's own output."""
+        feature is the encode function's own output.  Inline-splice families
+        only: idefics1 raises ``ValueError``, as in the JAX package."""
+        if self.cfg.family == "idefics1":
+            raise ValueError("vision cache does not support cross-attention families")
         self.vision_cache = VisionFeatureCache(max_bytes=max_bytes)
         return self.vision_cache
 
@@ -163,6 +169,8 @@ class LVLMRunner:
             attention_mask=t("attention_mask"),
             pixel_values=t("pixel_values") if pixels else None,
             patch_mask=t("patch_mask") if pixels else None,
+            pixel_mask=t("pixel_mask") if pixels else None,
+            image_attention_mask=t("image_attention_mask"),
         )
 
     def process_input(self, images, text, pad_to: Optional[int] = None) -> LVLMBatch:

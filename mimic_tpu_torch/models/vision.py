@@ -1,11 +1,14 @@
-"""Vision tower and the idefics2 perceiver connector.
+"""Vision towers and the perceiver connectors.
 
 Counterpart of ``mimic_tpu/models/vision.py``: ``vit_forward`` (the SigLIP
-tower, variable-aspect patch masks) and ``perceiver_forward`` (the idefics2
-connector: modality projection, then a GQA perceiver in text width).  The
-position-embedding lookup is real indexing (the JAX package's one-hot matmul
-is a TPU workaround).  Not ported yet: CLIP-style towers (class token,
-pre-norm, no post-norm), the idefics1 resampler and the llava projector.
+tower with variable-aspect patch masks, and the CLIP-style tower of idefics1:
+class token, pre-layernorm, ``quick_gelu``) and ``perceiver_forward`` (the
+idefics2 connector: modality projection, then a GQA perceiver in text width;
+the idefics1 resampler: LayerNorm with bias, a ReLU MLP and per-head q/k
+layernorms in the vision width).  The position-embedding lookup is real
+indexing (the JAX package's one-hot matmul is a TPU workaround).  Not ported
+yet: towers without their post-layernorm (llava-interleave) and the llava
+projector.
 """
 
 from __future__ import annotations
@@ -29,8 +32,8 @@ Params = Dict[str, Any]
 
 
 def _check_vision_cfg(cfg: VisionConfig) -> None:
-    if cfg.use_class_token or not cfg.post_layernorm:
-        raise NotImplementedError("CLIP-style vision towers are not ported yet")
+    if not cfg.post_layernorm:
+        raise NotImplementedError("vision towers without the post-layernorm are not ported yet")
 
 
 def init_vit_params(
@@ -73,6 +76,10 @@ def init_vit_params(
         "post_ln_w": ones(D),
         "post_ln_b": zeros(D),
     }
+    if cfg.use_class_token:
+        params["class_embed"] = dense(D)
+        params["pre_ln_w"] = ones(D)
+        params["pre_ln_b"] = zeros(D)
     return params
 
 
@@ -114,7 +121,8 @@ def vit_forward(
     patch_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
 ) -> torch.Tensor:
-    """pixels [B,H,W,C] → features [B, N, D] (post-layernorm applied).
+    """pixels [B,H,W,C] → features [B, N, D] (post-layernorm applied; N counts
+    the class token first in a CLIP-style tower).
 
     Pixels are cast to the tower's parameter dtype (JAX promotes an fp32 pixel
     batch through a bf16 tower in fp32; in fp32 the two agree).
@@ -129,12 +137,17 @@ def vit_forward(
     x = patchify(pixels.to(w_dtype), cfg.patch_size) @ params["patch_embed"]["kernel"]
     x = x + params["patch_embed"]["bias"]
     B = x.shape[0]
+    if cfg.use_class_token:
+        cls = params["class_embed"][None, None].expand(B, 1, cfg.hidden_size)
+        x = torch.cat([cls, x.to(cls.dtype)], dim=1)
     if patch_mask is not None:
         x = x + params["pos_embed"][bucket_position_ids(patch_mask)]
         key_mask = (patch_mask.reshape(B, -1) > 0)[:, None, None, :]  # [B,1,1,N]
     else:
         x = x + params["pos_embed"][None]
         key_mask = None
+    if cfg.use_class_token:
+        x = layer_norm(x, params["pre_ln_w"], params["pre_ln_b"], cfg.norm_eps)
 
     H = cfg.num_heads
     Dh = cfg.hidden_size // H
@@ -148,6 +161,8 @@ def vit_forward(
             x = F.pad(x, (0, 0, 0, n_pad))
         if patch_mask is not None:
             valid = patch_mask.reshape(B, -1) > 0
+            if cfg.use_class_token:  # the class token is always a key
+                valid = F.pad(valid, (1, 0), value=True)
         else:
             valid = torch.ones(B, n_tokens, dtype=torch.bool, device=x.device)
         flash_kmask = F.pad(valid.to(torch.int32), (0, n_pad))
@@ -179,7 +194,7 @@ def vit_forward(
 
 
 # ---------------------------------------------------------------------------
-# idefics2 perceiver connector
+# perceiver resampler (idefics1) / connector (idefics2)
 # ---------------------------------------------------------------------------
 
 
@@ -192,11 +207,12 @@ def init_perceiver_params(
     dtype=torch.float32,
     project_first: bool = False,
 ) -> Params:
-    """IDEFICS-2 connector (``project_first=True``): vision features are
+    """IDEFICS-1 style (``pcfg.style == "idefics1"``, ``project_first=False``):
+    latents live in ``vision_dim``; LayerNorm + ReLU MLP + optional per-head
+    qk-layernorms (HF ``IdeficsPerceiverResampler``).
+    IDEFICS-2 connector (``project_first=True``): vision features are
     MLP-projected to ``out_dim`` and the perceiver runs in ``out_dim`` with
     RMSNorm + gated-SiLU MLP (HF ``Idefics2PerceiverResampler``)."""
-    if pcfg.style != "idefics2":
-        raise NotImplementedError("the idefics1 perceiver resampler is not ported yet")
     H = pcfg.num_heads
     Hkv = pcfg.num_kv_heads or H
     width = out_dim if project_first else vision_dim
@@ -210,6 +226,35 @@ def init_perceiver_params(
     def ones(*shape):
         return torch.ones(shape, dtype=dtype, device=device)
 
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    if pcfg.style == "idefics1":
+        layers = {
+            "ln_latents_w": ones(L, width),
+            "ln_latents_b": zeros(L, width),
+            "ln_context_w": ones(L, width),
+            "ln_context_b": zeros(L, width),
+            "q_proj": dense(L, width, H * Dh),
+            "k_proj": dense(L, width, Hkv * Dh),
+            "v_proj": dense(L, width, Hkv * Dh),
+            "o_proj": dense(L, H * Dh, width),
+            "mlp_ln_w": ones(L, width),
+            "mlp_ln_b": zeros(L, width),
+            "fc": dense(L, width, Fd),
+            "c_proj": dense(L, Fd, width),
+        }
+        if pcfg.qk_layernorm:
+            layers["q_ln_w"] = ones(L, Dh)
+            layers["q_ln_b"] = zeros(L, Dh)
+            layers["k_ln_w"] = ones(L, Dh)
+            layers["k_ln_b"] = zeros(L, Dh)
+        return {
+            "latents": dense(pcfg.num_latents, width),
+            "layers": layers,
+            "final_ln_w": ones(width),
+            "final_ln_b": zeros(width),
+        }
     params: Params = {
         "latents": dense(pcfg.num_latents, width),
         "layers": {
@@ -248,8 +293,8 @@ def perceiver_forward(
     both with residuals.  ``context_mask`` [B, N] masks padded patches out of
     the keys.  Attention is plain ``sdpa_with_lse``, as in the JAX package.
     """
-    if pcfg.style != "idefics2":
-        raise NotImplementedError("the idefics1 perceiver resampler is not ported yet")
+    if pcfg.style == "idefics1":
+        return _perceiver_idefics1(params, pcfg, vision_feats, norm_eps, context_mask)
     if "modality_proj" in params:
         mp = params["modality_proj"]
         vision_feats = (F.silu(vision_feats @ mp["gate"]) * (vision_feats @ mp["up"])) @ mp["down"]
@@ -262,13 +307,7 @@ def perceiver_forward(
     n_lat = params["latents"].shape[0]
     latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
 
-    kv_mask = None
-    if context_mask is not None:
-        full = torch.cat(
-            [context_mask.bool(), torch.ones(B, n_lat, dtype=torch.bool, device=latents.device)],
-            dim=1,
-        )
-        kv_mask = full[:, None, None, :]  # [B,1,1,N+latents]
+    kv_mask = _context_key_mask(context_mask, n_lat)
 
     layers = params["layers"]
     for l in range(pcfg.num_layers):
@@ -287,3 +326,49 @@ def perceiver_forward(
         ln = rms_norm(latents, lp["post_ln"], norm_eps)
         latents = residual + (F.silu(ln @ lp["gate_proj"]) * (ln @ lp["up_proj"])) @ lp["down_proj"]
     return rms_norm(latents, params["final_ln"], norm_eps)
+
+
+def _context_key_mask(context_mask: Optional[torch.Tensor], n_lat: int) -> Optional[torch.Tensor]:
+    """[B, N] patch mask → [B,1,1,N+latents] key mask (the latents always attend)."""
+    if context_mask is None:
+        return None
+    B = context_mask.shape[0]
+    ones = torch.ones(B, n_lat, dtype=torch.bool, device=context_mask.device)
+    return torch.cat([context_mask.bool(), ones], dim=1)[:, None, None, :]
+
+
+def _perceiver_idefics1(
+    params: Params,
+    pcfg: PerceiverConfig,
+    vision_feats: torch.Tensor,
+    norm_eps: float,
+    context_mask: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """HF IdeficsPerceiverResampler semantics: per layer,
+    latents += attn(q=ln(latents), kv=ln(context) ⊕ ln(latents));
+    latents += ReLU-MLP(ln(latents)); then a final LayerNorm."""
+    B, _, width = vision_feats.shape
+    H = pcfg.num_heads
+    Dh = pcfg.head_dim or width // H
+    n_lat = params["latents"].shape[0]
+    latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
+    kv_mask = _context_key_mask(context_mask, n_lat)
+
+    layers = params["layers"]
+    for l in range(pcfg.num_layers):
+        lp = {name: w[l] for name, w in layers.items()}
+        ctx_n = layer_norm(vision_feats, lp["ln_context_w"], lp["ln_context_b"], norm_eps)
+        lat_n = layer_norm(latents, lp["ln_latents_w"], lp["ln_latents_b"], norm_eps)
+        kv_in = torch.cat([ctx_n, lat_n], dim=1)
+        nq, nk = lat_n.shape[1], kv_in.shape[1]
+        q = (lat_n @ lp["q_proj"]).reshape(B, nq, H, Dh)
+        k = (kv_in @ lp["k_proj"]).reshape(B, nk, H, Dh)
+        v = (kv_in @ lp["v_proj"]).reshape(B, nk, H, Dh)
+        if "q_ln_w" in lp:
+            q = layer_norm(q, lp["q_ln_w"], lp["q_ln_b"], norm_eps)
+            k = layer_norm(k, lp["k_ln_w"], lp["k_ln_b"], norm_eps)
+        attn, _ = sdpa_with_lse(q, k, v, kv_mask)
+        latents = latents + attn.reshape(B, nq, H * Dh) @ lp["o_proj"]
+        m = layer_norm(latents, lp["mlp_ln_w"], lp["mlp_ln_b"], norm_eps)
+        latents = latents + torch.relu(m @ lp["fc"]) @ lp["c_proj"]
+    return layer_norm(latents, params["final_ln_w"], params["final_ln_b"], norm_eps)

@@ -12,7 +12,7 @@
 // Design (Hopper: wgmma + TMA + mbarrier, warp-specialised).
 //  * A CTA is NWG consumer warpgroups (2: 128 query rows) and one producer
 //    warp.  Each warpgroup owns 64 query rows and walks the key axis in tiles of
-//    BN keys (64 at D72; 128 at D128, where the longer tile took 6-10 % off by
+//    BN keys (64 at D72 and D80; 128 at D128, where the longer tile took 6-10 % off by
 //    halving the per-tile costs); all warpgroups of a CTA share the K/V tiles.
 //  * Products.  S = Q.K^T is wgmma m64nBNk16 with both operands read from shared
 //    memory; the fp32 accumulator fragment (per warp, the C layout of
@@ -23,18 +23,22 @@
 //    lie in device memory, d contiguous.
 //  * Shared-memory layout.  Q, K and V stay bf16.  A row is cut into 64-column
 //    blocks stored [row][128 B] with the 128-byte swizzle (TMA writes it, wgmma
-//    reads it, no bank conflicts, no padding).  D = 128 is two blocks.  D = 72 is
-//    one block and an 8-column tail: for Q.K^T the tail of Q and K is a
-//    [row][32 B] tile with the 32-byte swizzle holding columns 64..79, which one
-//    more k16 step consumes -- TMA fills columns 72..79 with zeros because they
-//    lie outside the tensor; for P.V the tail of V is a [row][16 B] tile
-//    (no swizzle) consumed by an n8 wgmma beside the n64 one.  The descriptor
+//    reads it, no bank conflicts, no padding).  D = 128 is two blocks.  D = 72
+//    (SigLIP) and D = 80 (CLIP ViT-H) are one block and a tail of 8 or 16
+//    columns: for Q.K^T the tail of Q and K is a [row][32 B] tile with the
+//    32-byte swizzle holding columns 64..79, which one more k16 step consumes --
+//    at D = 72 TMA fills columns 72..79 with zeros because they lie outside the
+//    tensor, at D = 80 all 16 are real; for P.V the tail of V is one [row][16 B]
+//    tile (no swizzle) per 8 columns, each consumed by an n8 wgmma beside the
+//    n64 one (one at D = 72, two at D = 80: the 16-column tail of the output is
+//    two n8 atoms, each read through the descriptor convention checked at
+//    D = 72; at D = 80 nothing is zero-filled).  The descriptor
 //    conventions (which offset is which, per layout) are written down in
 //    attn_wgmma_ops.cuh; each was checked on the card against a host product.
 //  * Loads.  The producer warp's lane 0 issues one TMA box per tile and block
 //    (cp.async.bulk.tensor.4d over the [B, rows, heads, D] array: batch and head
 //    are coordinates, rows beyond T or S arrive as zeros) into a ring of STAGES
-//    slots (3 at D72, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
+//    slots (3 at D72 and D80, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
 //    producer waits for empty, arms full with the slot's byte count and issues;
 //    a consumer warp waits for full, and arrives on empty after the last wgmma
 //    that reads the slot has been waited for.  There is no __syncthreads in the
@@ -70,10 +74,13 @@
 //    over the visited tiles: the documented difference of flash_fwd).
 //  * Causal CTAs are scheduled heaviest first (blockIdx.x reversed).
 //
-// Registers per consumer thread: 4 * D/8 output accumulators (64 at D128, 36 at
-// D72) and BN / 2 for the score tile, which become the BN / 4 of P.  D72 runs
-// two CTAs of 288 threads per SM (96 registers, 80 KB of shared memory each),
-// D128 one (about 160 registers, 162 KB).
+// Registers per consumer thread: 4 * D/8 output accumulators (64 at D128, 40 at
+// D80, 36 at D72) and BN / 2 for the score tile, which become the BN / 4 of P.
+// D72 runs two CTAs of 288 threads per SM (96 registers, 80 KB of shared memory
+// each).  D80 runs one (84 KB): capped for two it also gets 96 registers, and
+// there its four more accumulators make ptxas serialize every wgmma (C7512, seen
+// with -Xptxas=-v on the card; chip_smoke.py fails the build on that line).
+// D128 runs one (about 160 registers, 162 KB).
 
 #pragma once
 
@@ -91,35 +98,40 @@ constexpr float HALF_NEG = 0.5f * NEG;  // a running max below this has seen no 
 
 template <int D>
 struct Cfg {
-  static_assert(D == 72 || D == 128, "one or two 64-column blocks, and an 8-column tail at 72");
+  static_assert(D == 72 || D == 80 || D == 128,
+                "one or two 64-column blocks, and a tail of 8 (D72) or 16 (D80) columns");
   // warpgroups per CTA, 64 query rows each; one more warp feeds them
   static constexpr int NWG = 2;
   static constexpr int BM = 64 * NWG;
-  static constexpr int BN = D <= 72 ? 64 : 128;  // keys per tile
+  static constexpr int BN = D <= 80 ? 64 : 128;  // keys per tile
   static_assert(BN == 64 || BN == 128, "the score tile is one wgmma of n = BN");
   static constexpr int NW = BN / 32;  // 32-bit words of a tile's key mask
   static constexpr int THREADS = 128 * NWG + 32;
   static constexpr int NBLK = D / 64;       // 64-column blocks of a row (128-byte swizzle)
-  static constexpr bool TAIL = D % 64 != 0; // D = 72: columns 64..71
+  static constexpr bool TAIL = D % 64 != 0; // D = 72: columns 64..71; D = 80: 64..79
+  static constexpr int VT = (D % 64) / 8;   // 8-column tail tiles of V (1 at D72, 2 at D80)
   static constexpr int NATOMS = D / 8;      // n8 atoms of the output
-  static constexpr int STAGES = D <= 72 ? 3 : 2;  // slots of the K/V ring
-  static constexpr int MINB = D <= 72 ? 2 : 1;    // CTAs per SM the registers are capped for
+  static constexpr int STAGES = D <= 80 ? 3 : 2;  // slots of the K/V ring
+  // CTAs per SM the registers are capped for: two at D72; at D80 two would cap a
+  // thread at 96 registers, where ptxas serializes the wgmmas (C7512), so one
+  static constexpr int MINB = D <= 72 ? 2 : 1;
   // shared tiles, each 1024-byte aligned: 64-column blocks [rows][128 B]; the tail
-  // of Q and K as [rows][32 B] (columns 64..79, 72..79 zero), of V as [rows][16 B]
+  // of Q and K as [rows][32 B] (columns 64..79; at D72 72..79 are zero), of V as
+  // VT tiles [rows][16 B]
   static constexpr int Q_MAIN = NBLK * BM * 128;
   static constexpr int Q_BYTES = Q_MAIN + (TAIL ? BM * 32 : 0);
   static constexpr int K_MAIN = NBLK * BN * 128;
   static constexpr int K_BYTES = K_MAIN + (TAIL ? BN * 32 : 0);
   static constexpr int V_MAIN = NBLK * BN * 128;
-  static constexpr int V_BYTES = V_MAIN + (TAIL ? BN * 16 : 0);
+  static constexpr int V_BYTES = V_MAIN + VT * BN * 16;
   static constexpr int SLOT_BYTES = K_BYTES + V_BYTES;
   static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && SLOT_BYTES % 1024 == 0, "alignment");
   static constexpr int BAR_BYTES = (2 * STAGES + 1) * 8;
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * SLOT_BYTES + BAR_BYTES;  // 1024: alignment slack
 };
 
-// the TMA descriptors of one launch: the 64-column blocks of q, k, v and, at D = 72,
-// their tails
+// the TMA descriptors of one launch: the 64-column blocks of q, k, v and, at D = 72
+// and 80, their tails (v_tail is one 8-column tile, loaded once per tail tile)
 struct TensorMaps {
   CUtensorMap q, k, v, q_tail, k_tail, v_tail;
 };
@@ -292,7 +304,10 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
         }
         if (C::TAIL) {
           tma_load(sK + C::K_MAIN, &maps.k_tail, bar, C::NBLK * 64, hk, it * BN, b);
-          tma_load(sV + C::V_MAIN, &maps.v_tail, bar, C::NBLK * 64, hk, it * BN, b);
+#pragma unroll
+          for (int vt = 0; vt < C::VT; ++vt)
+            tma_load(sV + C::V_MAIN + vt * BN * 16, &maps.v_tail, bar, C::NBLK * 64 + 8 * vt, hk,
+                     it * BN, b);
         }
         if (++slot == C::STAGES) {
           slot = 0;
@@ -540,8 +555,11 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
           wg::wgmma_rs_n128(of, pa[ks], dv, 1);
         } else {
           wg::wgmma_rs_n64(reinterpret_cast<float(&)[32]>(o), pa[ks], dv, 1);
-          wg::wgmma_rs_n8(reinterpret_cast<float(&)[4]>(o[8]), pa[ks],
-                          wg::make_desc(sV + C::V_MAIN + ks * 16 * 16, 128, 128), 1);
+#pragma unroll
+          for (int vt = 0; vt < C::VT; ++vt)
+            wg::wgmma_rs_n8(o[8 + vt], pa[ks],
+                            wg::make_desc(sV + C::V_MAIN + vt * BN * 16 + ks * 16 * 16, 128, 128),
+                            1);
         }
       }
       wg::commit();
@@ -630,11 +648,14 @@ cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the bf16 forward for head dims 72 and 128; other head dims -> cudaErrorInvalidValue
+// the bf16 forward for head dims 72, 80 and 128; other head dims -> cudaErrorInvalidValue
 inline cudaError_t launch_bf16(int D, const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
   if (D == 72)
     return a.need_unmasked ? launch_one<72, true>(a, skip_tiles, stream)
                            : launch_one<72, false>(a, skip_tiles, stream);
+  if (D == 80)
+    return a.need_unmasked ? launch_one<80, true>(a, skip_tiles, stream)
+                           : launch_one<80, false>(a, skip_tiles, stream);
   if (D == 128)
     return a.need_unmasked ? launch_one<128, true>(a, skip_tiles, stream)
                            : launch_one<128, false>(a, skip_tiles, stream);

@@ -101,6 +101,8 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
     e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/need_unmasked ? 0 : 1, st);
   } else if (dtype == 0 && D == 72) {
     e = mimic::FlashLauncher<float, 72>::run(a, st);
+  } else if (dtype == 0 && D == 80) {
+    e = mimic::FlashLauncher<float, 80>::run(a, st);
   } else if (dtype == 0 && D == 128) {
     e = mimic::FlashLauncher<float, 128>::run(a, st);
   }
@@ -111,10 +113,19 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
 // warpgroup and keys per tile.  ops/flash_attention.py::attention_tiled_plain
 // walks the same tiles on the CPU; a test on the card holds the two together.
 extern "C" int mimic_attn_fwd_tiling(int D, int* block_m, int* group_rows, int* block_n) {
-  if (D != 72 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
-  *block_m = D == 72 ? mimic::mma::Cfg<72>::BM : mimic::mma::Cfg<128>::BM;
   *group_rows = 64;
-  *block_n = D == 72 ? mimic::mma::Cfg<72>::BN : mimic::mma::Cfg<128>::BN;
+  if (D == 72) {
+    *block_m = mimic::mma::Cfg<72>::BM;
+    *block_n = mimic::mma::Cfg<72>::BN;
+  } else if (D == 80) {
+    *block_m = mimic::mma::Cfg<80>::BM;
+    *block_n = mimic::mma::Cfg<80>::BN;
+  } else if (D == 128) {
+    *block_m = mimic::mma::Cfg<128>::BM;
+    *block_n = mimic::mma::Cfg<128>::BN;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return 0;
 }
 

@@ -100,6 +100,8 @@ extern "C" int mimic_onepass_fwd(const void* q, const void* k, const void* v,
     e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/0, st);
   } else if (dtype == 0 && D == 72) {
     e = mimic::OnepassLauncher<float, 72>::run(a, st);
+  } else if (dtype == 0 && D == 80) {
+    e = mimic::OnepassLauncher<float, 80>::run(a, st);
   } else if (dtype == 0 && D == 128) {
     e = mimic::OnepassLauncher<float, 128>::run(a, st);
   }

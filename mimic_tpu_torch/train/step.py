@@ -54,6 +54,8 @@ def _query_lvlm_batch(b: Dict[str, Any]) -> LVLMBatch:
         input_ids=b["query_ids"],
         attention_mask=b["query_mask"],
         pixel_values=b.get("query_pixels"),
+        pixel_mask=b.get("query_pixel_mask"),
+        image_attention_mask=b.get("query_img_attn"),
         patch_mask=b.get("query_patch_mask"),
     )
 
@@ -63,6 +65,8 @@ def _full_lvlm_batch(b: Dict[str, Any]) -> LVLMBatch:
         input_ids=b["full_ids"],
         attention_mask=b["full_mask"],
         pixel_values=b.get("full_pixels"),
+        pixel_mask=b.get("full_pixel_mask"),
+        image_attention_mask=b.get("full_img_attn"),
         patch_mask=b.get("full_patch_mask"),
     )
 

@@ -2,8 +2,8 @@
 
 ``attention_tiled_plain`` (mimic_tpu_torch/ops/flash_attention.py) is what
 ``csrc/attn_mma.cuh`` computes at its own granularity: CTAs of 128 query rows,
-warpgroups of 64 rows that decide together, key tiles of 64 (head dim 72) or
-128 (head dim 128), scores scaled
+warpgroups of 64 rows that decide together, key tiles of 64 (head dims 72 and
+80) or 128 (head dim 128), scores scaled
 after the product, an online softmax in the log2 domain, bf16-rounded p with
 fp32 row sums, and the two tile-visiting rules (``onepass_fwd``: every tile is
 looked at; ``flash_fwd`` without ``need_unmasked``: the sweep ends at the
@@ -151,6 +151,31 @@ def test_tiled_algorithm_matches_jax_pallas_kernels(kernel, causal, need_unmaske
     # attendable key, under either flag: compare its out on the other rows
     _check(got, [np.asarray(x) for x in ref], km, causal, need_unmasked,
            kernel == "onepass_fwd", JAX_OUT_ATOL)
+
+
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_at_clip_head_dim(kernel, causal, need_unmasked):
+    """Head dim 80 (the idefics-9b CLIP tower: 16 columns past the 64-column
+    block, none of them zero-filled) at the tower's own rows: the class token and
+    256 patches of a 224 px image, padded to 384 keys, the pad keys masked."""
+    rng = np.random.default_rng(80)
+    q = rng.normal(size=(2, 384, 2, 80)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 384, 2, 80)).astype(np.float32) for _ in range(2))
+    km = np.zeros((2, 384), np.int32)
+    km[:, :257] = 1
+    skip_tiles = kernel == "flash_fwd" and not need_unmasked
+    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
+    plain = [x.numpy() for x in tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                                     need_unmasked=need_unmasked)]
+    jax_ref = [np.asarray(x) for x in _jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                jnp.asarray(km), causal, None, need_unmasked)]
+    if not need_unmasked:
+        jax_ref[2] = jax_ref[1]
+    _check(got, plain, km, causal, need_unmasked, not skip_tiles, ATOL)
+    _check(got, jax_ref, km, causal, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
 
 
 def test_rows_without_keys_follow_each_kernels_rule():

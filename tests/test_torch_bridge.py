@@ -38,6 +38,25 @@ def test_lvlm_params_round_trip_bit_exact(dtype):
     _assert_bit_equal(to_numpy(tree_t, bfloat16=jnp.bfloat16), params)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_idefics1_params_round_trip_bit_exact(dtype):
+    """The idefics1 tree (cross layers with scalar gates, the resampler, the
+    CLIP tower's class token and pre-layernorm) crosses both ways, and the
+    port's own initialiser gives the same keys and shapes."""
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params as torch_init
+
+    cfg = get_model_config("tiny-idefics1")
+    params = _np_tree(init_lvlm_params(cfg, jax.random.PRNGKey(0), dtype=dtype))
+    assert {"cross", "layers"} <= set(params["lm"]["decoder"])
+    assert {"class_embed", "pre_ln_w", "pre_ln_b"} <= set(params["vision"])
+    assert "perceiver" in params and "connector" not in params
+    tree_t = to_torch(params, device="cpu")
+    assert tree_t["lm"]["decoder"]["cross"]["alpha_attn"].shape == (cfg.text.num_cross_layers,)
+    _assert_bit_equal(to_numpy(tree_t, bfloat16=jnp.bfloat16), params)
+    mine = torch_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.map(lambda t: tuple(t.shape), mine) == jax.tree.map(np.shape, params)
+
+
 def test_bf16_values_cross_unchanged():
     x = np.asarray(jnp.asarray([1.0, -2.5, 3.140625, 1e-3], jnp.bfloat16))
     t = to_torch({"x": x}, device="cpu")["x"]

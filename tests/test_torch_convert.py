@@ -136,7 +136,7 @@ def test_shared_converters_match_jax(variant):
     _assert_same_tree(got, to_torch(want, "cpu"))
 
 
-@pytest.mark.parametrize("family", ["llava-interleave", "idefics1", "text"])
+@pytest.mark.parametrize("family", ["llava-interleave", "text"])
 def test_unported_families_raise(family):
     with pytest.raises(NotImplementedError, match="A6"):
         tconvert._CONVERTERS[family]({}, tiny_text(family))

@@ -172,6 +172,12 @@ KERNEL_CASES = [
     # D72 under the causal mask, with and without lse_u
     ("onepass_fwd", 2, 500, 500, 4, 4, 72, True, False, 77),
     ("flash_fwd", 2, 500, 500, 4, 4, 72, True, True, 150),
+    # D80 (the idefics-9b CLIP tower): its rows, the class token and 256 patches
+    # padded to 384 keys, under both entry points; causal with lse_u; a ragged S
+    ("onepass_fwd", 2, 384, 384, 4, 4, 80, False, False, 0, ((257, 384),)),
+    ("flash_fwd", 2, 384, 384, 4, 4, 80, False, False, 0, ((257, 384),)),
+    ("onepass_fwd", 2, 500, 500, 4, 4, 80, True, True, 77),
+    ("flash_fwd", 2, 1000, 1000, 4, 4, 80, False, True, 0),
 ]
 
 
@@ -219,7 +225,7 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [72, 128])
+@pytest.mark.parametrize("D", [72, 80, 128])
 def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
     """attention_tiled_plain (the CPU tests' model of the bf16 forward) and the
     compiled kernel name the same tiling."""

@@ -124,8 +124,9 @@ def _check_tree(got, want):
 
 
 CONFIGS = [("mimic", False), ("mimic", True), ("mimic_attn_mse", False), ("lm_only", False),
-           ("licv", False)]
-IDS = ["mimic", "mimic-flash", "mimic_attn_mse", "lm_only", "licv-kl"]
+           ("licv", False), ("attn_shift_ffn_mse", False), ("attn_shift_ffn_mse", True)]
+IDS = ["mimic", "mimic-flash", "mimic_attn_mse", "lm_only", "licv-kl", "attn_shift_ffn_mse",
+       "attn_shift_ffn_mse-flash"]
 
 
 @pytest.mark.parametrize("preset,flash", CONFIGS, ids=IDS)
@@ -169,6 +170,34 @@ def test_train_steps_match_jax(preset, flash):
         state_t, m_t = step_t(state_t, frozen_t, batch_t)
         _check_metrics(m_t, m_j)
     assert state_t.step == int(state_j.step) == STEPS
+    _check_tree(state_t.trainable, state_j.trainable)
+
+
+def test_int8_tower_steps_match_jax():
+    """The mimic step on an int8-quantized frozen tower (the tower of the 8B
+    train benchmark; JAX gates it in tests/test_train_int8_tower.py): both
+    packages quantize the same fp32 tree, then 3 steps, metrics and shift tree
+    within the bounds above."""
+    from mimic_tpu.ops.quant import quantize_lm_params as jax_quantize
+    from mimic_tpu_torch.ops.quant import quantize_lm_params
+
+    cfg, enc, peft, frozen, trainable, tb = setup("mimic", False)
+    frozen_j = jax.tree.map(np.asarray, jax_quantize(frozen))
+    frozen_t = quantize_lm_params(to_torch(frozen, "cpu"))
+    assert "qkv_proj" in frozen_t["lm"]["decoder"]["layers"]
+    common = dict(ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight)
+    tx_j = build_optimizer(trainable, **_opt_kwargs(peft))
+    step_j = make_train_step(cfg, enc, tx_j, donate=False, **common)
+    state_j = TrainState(trainable, tx_j.init(trainable), jnp.zeros((), jnp.int32))
+    tree = to_torch(trainable, "cpu")
+    tx_t = to.build_optimizer(tree, **_opt_kwargs(peft))
+    step_t = ts.make_train_step(cfg, port_enc(enc), tx_t, **common)
+    state_t = ts.TrainState(tree, tx_t.init(tree), 0)
+    batch_j, batch_t = _to_device_batch(tb), ts.to_device_batch(tb, "cpu")
+    for _ in range(3):
+        state_j, m_j = step_j(state_j, frozen_j, batch_j)
+        state_t, m_t = step_t(state_t, frozen_t, batch_t)
+        _check_metrics(m_t, m_j)
     _check_tree(state_t.trainable, state_j.trainable)
 
 
