@@ -172,6 +172,32 @@ Phases (any failure propagates: non-zero exit, no result line):
              idefics-9b gives them (MHA, the 2-D cross products, F 11008, the
              W8A8 prefill).  Phase 2 holds the ViT's attention at head dim 80
              (B68, 384 slots, 257 keys) in bf16 and fp32.
+15. llava — after phase 14: (a) build_model("llava-interleave-7b") at full width
+             and depth (a Qwen2 text tower with q/k/v biases, 28 query heads on 4
+             KV heads, a 26-layer SigLIP tower without its post-layernorm, the MLP
+             projector), random bf16 weights, a MimIC shift: 4 requests with one
+             384 px image each (729 image tokens), bucket 1024, beam 3, 10 new
+             tokens, warm-up then the counted and timed call (exact launches), the
+             prefill logits against the plain attention path, one call under
+             torch.profiler; the same call in "int8" (exact launches; the first
+             decode step against a bf16 tree dequantized from the same handles)
+             and without a shift, where the int8 prompt KV takes prompt_attn_int8
+             at 21 folded rows (3 beams x G 7); the MimIC step (B2, 4 shots: a
+             4096-token record pass with 5 images, a 1024-token shift pass; the
+             backward pair 27 times a step, frozen weights bit-unchanged, the
+             shift changed); run_train (the training cache) and the CLI's eval in
+             "int8-w8a8" on 2 x 4 requests (both caches on); the call in
+             "int8-w8a8" (exact launches; first-step logits against a dequantized
+             tree).  (b) build_model("llava-1.5-7b") (LLaMA, a 23-layer CLIP
+             ViT-L/14-336 at head dim 64, the class token dropped): one bf16 call,
+             4 requests x one 336 px image, bucket 1024, beam 3; onepass_fwd
+             launched at head dim 64 in the tower, counted.  (c) A tiny qwen2-like
+             tower (G 7) and a tiny mistral-like one with a window narrower than T
+             in fp32: beam tokens on the card equal the CPU's, prefill logits
+             within 1e-4.  Then the kernels at the shapes llava gives them (G 7
+             forward and backward, the int8 and W8A8 widths).  Phase 2 holds the
+             attention forward at head dim 64 (the CLIP ViT-L rows, a wholly
+             masked first tile, fp32); phase 6 prompt_attn_int8 at G 7.
 
 Every phase prints its seconds ("[time]").
 
@@ -180,14 +206,16 @@ version's, the least time the card could take (bound_ms, bound_by) and the time
 of the one PyTorch call that computes the same function where there is one
 (library_ms: timed here, never used by the port).
 The build fails the run where ptxas serializes a wgmma (a "Performance Loss" line)
-in w8a8_matmul.cu, prompt_attn_int8.cu or quantize_rows.cu, or in the head-dim-80
-instantiations of the bf16 attention forward (attn_mma.cuh).
+in w8a8_matmul.cu, prompt_attn_int8.cu or quantize_rows.cu, or in the head-dim-64
+and head-dim-80 instantiations of the bf16 attention forward (attn_mma.cuh).
 The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...}.
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
     python3 chip_smoke.py --idefics1-only  # build, phase 2's head-dim-80 cases and phase 14:
                                            # exit 3, no result line
+    python3 chip_smoke.py --llava-only     # build, phase 2's head-dim-64 cases, phase 6's G 7
+                                           # case and phase 15: exit 3, no result line
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
@@ -546,6 +574,7 @@ def phase_kernels():
         ("vit by flash_fwd", "flash_fwd", 0, 1, 4992, 4992, 16, 16, 72, vit_mask,
          False, False, 10, 3, False),
         CLIP_VIT_CASE,
+        *D64_CASES,
     ]
     # per kernel: the worst error over its shapes, the times at its main-path shape
     summary = {}
@@ -555,9 +584,32 @@ def phase_kernels():
         s["max_abs_err"] = max(s["max_abs_err"], r["max_abs_err"])
         if main_shape:
             s.update({k: r[k] for k in TIMING_KEYS})
-    for case in CLIP_FP32_CASES:
+    for case in CLIP_FP32_CASES + D64_FP32_CASES:
         check_kernel_fp32(*case)
+    d64_device_times()
     return summary
+
+
+def d64_device_times():
+    """The CLIP ViT-L rows at head dim 64 take tens of microseconds, as long as a
+    launch from Python: onepass_fwd and scaled_dot_product_attention again as
+    device time through CUDA graphs, in turns."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    *_, B, T, S, H, Hkv, D, key_mask = CLIP_L_VIT_CASE_ARGS
+    q, k, v, km = kernel_inputs(19, B, T, S, H, Hkv, D, key_mask)
+    allowed = (km > 0)[:, None, None, :]
+    runs = {
+        "onepass_fwd": lambda: tfa._launch("onepass_fwd", q, k, v, km, False, None, False),
+        "scaled_dot_product_attention": lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=allowed),
+    }
+    times = {name: [] for name in runs}
+    for name in ("onepass_fwd", "scaled_dot_product_attention") * 2:
+        times[name].append(cuda_ms(runs[name], 50, graph=True))
+    log(f"[kernels] clip-l-vit-d64 as device time through CUDA graphs (B{B} T{T} S{S} H{H} "
+        f"D{D}, 577 keys), in turns: " + "; ".join(
+            f"{name} {', '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()))
 
 
 def clip_vit_mask(B):
@@ -579,6 +631,36 @@ CLIP_FP32_CASES = [
      False, False),
     ("clip-vit-d80-fp32 by flash_fwd", "flash_fwd", 18, 8, 384, 384, 16, 16, 80,
      clip_vit_mask(8), False, True),
+]
+
+
+def clip_l_vit_mask(B):
+    """The llava-1.5 CLIP ViT-L/14-336 tower's key mask: the class token and
+    24 x 24 patches of a 336 px image (577 keys), padded to 640."""
+    km = np.zeros((B, 640), np.int32)
+    km[:, :577] = 1
+    return km
+
+
+# the attention forward at head dim 64 (one 64-column block, no tail): the llava-1.5
+# ViT's rows at phase 15's call (4 requests x 1 image, 16 heads, 640 slots, 577
+# keys); a wholly masked first key tile under both entry points; causal with lse_u
+CLIP_L_VIT_CASE_ARGS = ("clip-l-vit-d64", "onepass_fwd", 19, 4, 640, 640, 16, 16, 64,
+                        clip_l_vit_mask(4))
+D64_CASES = [
+    (*CLIP_L_VIT_CASE_ARGS, False, False, 20, 5, False),
+    ("first-tile-masked-d64", "onepass_fwd", 20, 2, 640, 640, 16, 16, 64,
+     left_padded_mask(2, 640, [100, 70]), False, False, 10, 3, False),
+    ("first-tile-masked-d64 by flash_fwd", "flash_fwd", 21, 2, 640, 640, 16, 16, 64,
+     left_padded_mask(2, 640, [100, 70]), False, False, 10, 3, False),
+    ("causal-d64-lse_u", "flash_fwd", 22, 2, 1000, 1000, 16, 16, 64,
+     left_padded_mask(2, 1000, [0, 150]), True, True, 10, 3, False),
+]
+D64_FP32_CASES = [
+    ("clip-l-vit-d64-fp32", "onepass_fwd", 23, 4, 640, 640, 16, 16, 64, clip_l_vit_mask(4),
+     False, False),
+    ("clip-l-vit-d64-fp32 by flash_fwd", "flash_fwd", 24, 4, 640, 640, 16, 16, 64,
+     clip_l_vit_mask(4), False, True),
 ]
 # fp32 kernels against the plain version: summation order only
 TOL_OUT_FP32, TOL_LSE_FP32 = 2e-5, 1e-5
@@ -1253,8 +1335,10 @@ def make_train_batch(cfg, B=2, T_rec=2048, T_shift=256, n_demo_img=8, M=64):
     hi = min(32000, cfg.text.vocab_size)
     lo = min(300, hi // 2)
     full_ids = torch.randint(lo, hi, (B, T_rec), generator=gen, device=dev)
+    # 128 text tokens after each image where they fit (idefics2's 64-token images)
+    gap = min(128, (T_rec - 4 - M - (n_demo_img + 1) * S) // (n_demo_img + 1))
     for i in range(n_demo_img + 1):
-        pos = 4 + i * (S + 128)
+        pos = 4 + i * (S + gap)
         full_ids[:, pos:pos + S] = cfg.image_token_id
     query_ids = torch.randint(lo, hi, (B, T_shift), generator=gen, device=dev)
     query_ids[:, 4:4 + S] = cfg.image_token_id
@@ -1679,6 +1763,14 @@ def int8_split_sweep():
                 for ks, t in times.items()))
 
 
+def check_llava_prompt_attn():
+    """llava-interleave-7b's call in "int8" without a shift (phase 15): 4 requests x
+    3 beams, 4 KV heads of G 7, so 21 folded rows a (request, KV head): the kernel's
+    two-m16-tile template; Tp 1024."""
+    return check_prompt_attn("llava-G7", 32, 4, NUM_BEAMS, 4, 7, 1024, (0, 37, 130, 300),
+                             reps=32)
+
+
 def phase_int8_kernels(split_sweep=False):
     """The int8 kernels at idefics2-8b's decode shapes (D 4096, 32 heads / 8 kv
     heads, F 14336, vocab 32003): M = 12 is call A's decode (4 requests x 3
@@ -1699,6 +1791,7 @@ def phase_int8_kernels(split_sweep=False):
         # call B with a 16-slot prefix (phase 13e): 4112 slots padded to 4224
         check_prompt_attn("call-B-prefix", 31, 2, NUM_BEAMS, 8, 4, 4096, (0, 250), reps=32,
                           prefix=16),
+        check_llava_prompt_attn(),
     ]
     summary = {}
     for r in results:
@@ -3869,6 +3962,494 @@ def phase_idefics_9b():
     return out, results
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the llava family and the text-only towers
+# ---------------------------------------------------------------------------
+
+LLAVA_REQUESTS = 4
+LLAVA_BUCKET = 1024
+LLAVA_SHOTS = 4  # the MimIC step's demos: 5 images of 729 tokens in a 4096-token record pass
+LLAVA_EVAL_BUCKET = 2048  # a 1-shot eval prompt: two images of 729 tokens and their text
+
+
+def llava_calls(cfg):
+    """The serving call: 4 requests, each one image at the tower's size (729 or
+    576 image tokens) and a short question, in one 1024 bucket."""
+    size = cfg.vision.image_size
+    images = [[small_image(900 + i, size)] for i in range(LLAVA_REQUESTS)]
+    texts = [f"<image>\n{synthetic_text(920 + i, 100 + 40 * i)}Question: what is in the image? "
+             f"Answer:" for i in range(LLAVA_REQUESTS)]
+    return {"llava": (images, texts, LLAVA_BUCKET)}
+
+
+def llava_counted_call(runner, calls, tag, want):
+    """Warm-up, then the counted and timed call: every kernel launched exactly
+    ``want`` times (the others not at all); returns the launches."""
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+
+    _, secs = timed_generate(runner, calls, "llava")
+    log(f"[llava] warm-up call ({tag}): {secs:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    ATTN_PATH_LOG.clear()
+    out, secs = timed_generate(runner, calls, "llava")
+    launches, paths = _counts(), list(ATTN_PATH_LOG)
+    images, texts, bucket = calls["llava"]
+    log(f"[llava] {runner.cfg.name} call ({tag}): {len(texts)} requests x one "
+        f"{runner.cfg.vision.image_size} px image, bucket {bucket}, beam {NUM_BEAMS}, "
+        f"{MAX_NEW_TOKENS} new tokens: {secs:.3f} s = {len(texts) / secs:.3f} q/s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; decoded {json.dumps(out)}")
+    full = {k: want.get(k, 0) for k in launches}
+    if launches != full or len(out) != len(texts):
+        raise AssertionError(f"{tag} call: launches {launches}, want {full}")
+    if [p for p in paths if p != "quant_kv"] != ["flash"] + ["cached"] * (MAX_NEW_TOKENS - 1):
+        raise AssertionError(f"{tag} call: attention paths {paths}")
+    return launches, secs
+
+
+def llava_first_steps(runner, params, batch, **kw):
+    """The prefill's last logits and the first decode step's, through beam_generate."""
+    from mimic_tpu_torch.models import generate as tg
+
+    tok = runner.tokenizer
+    with LogitSpy() as spy:
+        tg.beam_generate(params, runner.cfg, batch, max_new_tokens=2, num_beams=NUM_BEAMS,
+                         eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+                         shift=runner.shift, logz2=runner.logz2, attn_impl="flash", **kw)
+    return spy.logits[:2]
+
+
+def llava_prefill_check(runner, calls, label):
+    """The bucket's prefill logits through the kernels against the plain
+    attention path (tower and text), row cosine >= MIN_LOGIT_COSINE."""
+    from mimic_tpu_torch.models import generate as tg
+
+    images, texts, bucket = calls["llava"]
+    runner.tokenizer.padding_side = "left"  # as generate() pads
+    batch = runner.process_input(images, texts, pad_to=bucket)
+    logits = {impl: tg._prefill(runner.params, runner.cfg, batch, bucket + MAX_NEW_TOKENS,
+                                runner.shift, "unmasked", torch.bfloat16, impl)[0]
+              for impl in ("flash", "xla")}
+    a, b = logits["flash"], logits["xla"]
+    if a.shape != (LLAVA_REQUESTS, runner.cfg.text.vocab_size) or not torch.isfinite(a).all():
+        raise AssertionError(f"{label} prefill logits: shape {tuple(a.shape)} or non-finite")
+    cos = _row_cosine(a, b)
+    log(f"[llava] {label} prefill last logits, kernels vs plain attention (tower and text): "
+        f"max abs diff {(a - b).abs().max().item():.4f} of max |logit| "
+        f"{b.abs().max().item():.4f}, min row cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if cos < MIN_LOGIT_COSINE:
+        raise AssertionError(f"{label} prefill logits through the kernels disagree")
+    return batch
+
+
+def phase_llava_train(runner):
+    """The MimIC dual-pass step on llava-interleave-7b, 3 counted steps."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.shift.params import init_shift_params
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    enc, peft = get_preset("mimic")
+    shift = init_shift_params(enc, cfg.text, torch.Generator(device="cuda").manual_seed(14),
+                              torch.device("cuda"))
+    initial = {k: v.clone() for k, v in shift.items()}
+    trainable = {"shift": shift}
+    tx = build_optimizer(trainable, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, attn_impl="flash",
+                              logz2="unmasked")
+    state = ts.TrainState(trainable, tx.init(trainable), 0)
+    # 4 demo images and the query image (5 x 729 tokens) in a 4096-token record
+    # pass; llava's processor makes no patch masks
+    batch = {k: v for k, v in make_train_batch(cfg, T_rec=4096, T_shift=1024,
+                                               n_demo_img=LLAVA_SHOTS).items()
+             if "patch" not in k}
+    torch.cuda.synchronize()
+    before = frozen_fingerprint(frozen)
+
+    def run_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        torch.cuda.synchronize()
+        return m, time.perf_counter() - t
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m, secs = run_step()
+    log(f"[llava] MimIC step warm-up: {secs:.3f} s, loss {float(m['loss']):.6f}")
+    _reset_counts()
+    ATTN_PATH_LOG.clear()
+    times, rows = [], []
+    for _ in range(TRAIN_STEPS):
+        m, secs = run_step()
+        times.append(secs)
+        rows.append({k: float(v) for k, v in m.items()})
+    launches, paths = _counts(), list(ATTN_PATH_LOG)
+    log(f"[llava] MimIC step (B2, {LLAVA_SHOTS} shots: record pass "
+        f"{batch['full_ids'].shape[1]} tokens with {batch['full_pixels'].shape[1]} images, shift "
+        f"pass {batch['query_ids'].shape[1]} tokens): {TRAIN_STEPS} counted steps "
+        f"{', '.join(f'{t:.3f}' for t in times)} s (mean {sum(times) / len(times):.3f} s/step); "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; metrics {rows[-1]}")
+    if paths != ["flash"] * (2 * TRAIN_STEPS):
+        raise AssertionError(f"llava step: a decoder call left the flash path: {paths}")
+    # the record pass (4096 > ONEPASS_MAX_S) takes flash_fwd at every layer; the
+    # towers (2 passes x 26 layers) and the shift pass take onepass_fwd; layer 0's
+    # q/k/v carry no gradient
+    want = {"flash_bwd_dq": (L - 1) * TRAIN_STEPS, "flash_bwd_dkv": (L - 1) * TRAIN_STEPS,
+            "flash_fwd": L * TRAIN_STEPS,
+            "onepass_fwd": (2 * cfg.vision.num_layers + L) * TRAIN_STEPS}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"llava step launches {launches}, want {want}")
+    for row in rows:
+        if not all(np.isfinite(v) for v in row.values()) or not row["grad_norm"] > 0:
+            raise AssertionError(f"llava step: metrics not finite or zero gradient: {row}")
+    if frozen_fingerprint(frozen) != before:
+        raise AssertionError("llava step: a frozen parameter changed")
+    moved = {k: (state.trainable["shift"][k] - v).abs().max().item() for k, v in initial.items()}
+    log(f"[llava] frozen parameters bit-unchanged; shift max |change| {moved}")
+    if not all(x > 0 for x in moved.values()):
+        raise AssertionError(f"llava step: a shift leaf did not change: {moved}")
+    return launches, times
+
+
+def phase_llava_eval(runner, result_dir):
+    """run_train (mimic, 1-shot, B2, 6 one-step epochs: the llava window saves
+    epoch-5) through the training cache, then the CLI's eval in "int8-w8a8" on
+    2 x 4 requests with the eval's cache, on the same runner."""
+    from mimic_tpu_torch.config import TrainConfig, get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.pipeline import cli, train_entry
+
+    name = runner.cfg.name
+    enc, peft = get_preset("mimic")
+    cfg = TrainConfig(runname="smoke", model_name=name, encoder=enc, peft=peft, epochs=6,
+                      batch_size=2, accumulate_grad_batches=1)
+    cfg.data.name, cfg.data.num_query_samples, cfg.data.num_shot = "vqav2", 2, 1
+    # a query row holds 729 image tokens: within 1024, 128-aligned
+    cfg.data.max_query_len = 1024
+    made = []
+
+    class CountedCache(train_entry.TrainVisionCache):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    splits = synthetic_vqa_splits(6, EVAL_BATCH * EVAL_BATCHES, size=runner.cfg.vision.image_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train_entry.TrainVisionCache = CountedCache
+    try:
+        state = train_entry.run_train(cfg, result_dir=result_dir, runner=runner, splits=splits)
+    finally:
+        train_entry.TrainVisionCache = CountedCache.__base__
+    torch.cuda.synchronize()
+    run_dir = os.path.join(result_dir, "ckpt", f"smoke-{name}-vqav2-2-1shot")
+    saved = sorted(d for d in os.listdir(run_dir) if d.startswith("epoch"))
+    log(f"[llava] run_train (mimic, 1-shot, B2, 6 epochs x 1 step): {state.step} steps in "
+        f"{time.perf_counter() - t0:.1f} s; saved {saved}; training cache "
+        f"{made[0].cache.hits if made else 0} hits, {made[0].cache.misses if made else 0} misses")
+    if state.step != 6 or len(made) != 1 or saved != ["epoch-5"]:
+        raise AssertionError(f"llava run_train: {state.step} steps, caches {len(made)}, saved {saved}")
+    overrides = [
+        f"model_name={name}", f"ckpt_path={os.path.join(run_dir, 'epoch-5')}", "preset=mimic",
+        "quant=int8-w8a8", f"batch_size={EVAL_BATCH}", f"iterations={EVAL_BATCHES}",
+        "data.name=vqav2", f"data.num_query_samples={EVAL_BATCH * EVAL_BATCHES}",
+        "data.num_shot=1", f"data.length_buckets=[{LLAVA_EVAL_BUCKET}]",
+    ]
+    L = runner.cfg.text.num_layers
+    steps = MAX_NEW_TOKENS - 1
+    want = {"w8a8_matmul": EVAL_BATCHES * 4 * L, "quantize_rows": EVAL_BATCHES * 4 * L,
+            "int8_matmul": EVAL_BATCHES * (steps * (2 * L + 1) + 1),
+            "fused_mlp_int8": EVAL_BATCHES * steps * L, "prompt_attn_int8": 0}
+    out = {}
+    for tag in ("warm", "counted"):
+        _reset_counts()
+        ATTN_PATH_LOG.clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        records, metrics = cli._eval(overrides + [f"result_dir={os.path.join(result_dir, tag)}"],
+                                     splits=splits, runner=runner)
+        torch.cuda.synchronize()
+        secs, launches = time.perf_counter() - t, _counts()
+        n = EVAL_BATCH * EVAL_BATCHES
+        vc = runner.vision_cache
+        log(f"[llava] python -m mimic_tpu_torch eval ({tag}) quant=int8-w8a8, {n} requests "
+            f"(batch {EVAL_BATCH}, bucket {LLAVA_EVAL_BUCKET}, beam {NUM_BEAMS}, shift active): "
+            f"{secs:.3f} s = {n / secs:.3f} q/s; metrics {json.dumps(metrics)}; launches "
+            f"{ {k: v for k, v in launches.items() if v} }; vision cache {vc.hits if vc else 0} "
+            f"hits, {vc.misses if vc else 0} misses")
+        if (len(records) != n or "overall" not in metrics or vc is None
+                or {k: launches[k] for k in want} != want or launches["onepass_fwd"] == 0):
+            raise AssertionError(f"llava eval ({tag}): {len(records)} records, launches "
+                                 f"{launches}, want {want}")
+        out = launches
+    return out
+
+
+def phase_llava_interleave():
+    """(a) llava-interleave-7b: bf16, "int8", the MimIC step, the eval, "int8-w8a8"."""
+    import gc
+
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.factory import build_model
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    t = time.perf_counter()
+    runner = build_model("llava-interleave-7b", device="cuda", dtype=torch.bfloat16, seed=0,
+                         length_buckets=(LLAVA_BUCKET,))
+    torch.cuda.synchronize()
+    cfg = runner.cfg
+    Lv, L = cfg.vision.num_layers, cfg.text.num_layers
+    log(f"[llava] llava-interleave-7b: {sum(x.numel() for x in runner.module.buffers()) / 1e9:.3f} "
+        f"B random bf16 parameters made on the card in {time.perf_counter() - t:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text,
+                              torch.Generator(device="cuda").manual_seed(12), torch.device("cuda"))
+    runner.set_shift(shift)
+    calls = llava_calls(cfg)
+    width = runner.processor(None, calls["llava"][1])["input_ids"].shape[1]
+    if not LLAVA_BUCKET // 2 < width <= LLAVA_BUCKET:
+        raise AssertionError(f"llava call: prompt width {width} misses the {LLAVA_BUCKET} bucket")
+    out = {}
+    steps = MAX_NEW_TOKENS - 1
+
+    # bf16: the tower's 26 layers and the 28 prefill layers, all onepass_fwd
+    t = time.perf_counter()
+    out["llava bf16"], _ = llava_counted_call(runner, calls, "bf16", {"onepass_fwd": Lv + L})
+    profile_run("llava call bf16", lambda: timed_generate(runner, calls, "llava")[1])
+    batch = llava_prefill_check(runner, calls, "llava-interleave-7b")
+    log(f"[time] phase 15 llava-interleave bf16: {time.perf_counter() - t:.1f} s")
+
+    # "int8": the bf16 tree prefills, the int8 copy decodes
+    t = time.perf_counter()
+    runner.set_quant("int8")
+    torch.cuda.synchronize()
+    int8_want = {"onepass_fwd": Lv + L, "int8_matmul": steps * (2 * L + 1),
+                 "fused_mlp_int8": steps * L}
+    out["llava int8"], _ = llava_counted_call(runner, calls, "int8, shift", int8_want)
+    a = llava_first_steps(runner, runner.params, batch, decode_params=runner.decode_params)[1]
+    deq = dequantized_tree(runner.decode_params)
+    b = llava_first_steps(runner, runner.params, batch, decode_params=deq)[1]
+    del deq
+    cos = _row_cosine(a, b)
+    log(f"[llava] int8 first decode step, kernels vs a bf16 tree dequantized from the same "
+        f"handles: min row cosine {cos:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if not torch.isfinite(a).all() or cos < MIN_LOGIT_COSINE:
+        raise AssertionError("llava int8 logits disagree with the dequantized tree")
+    # without a shift the 1024-slot prompt takes the int8 prompt KV: G 7 x 3 beams
+    runner.set_shift(None)
+    out["llava int8 prompt KV"], _ = llava_counted_call(
+        runner, calls, "int8, no shift: int8 prompt KV",
+        {**int8_want, "prompt_attn_int8": steps * L})
+    runner.set_shift(shift)
+    runner.set_quant(None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 15 llava-interleave int8: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    out["llava MimIC step"], _ = phase_llava_train(runner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 15 llava-interleave train step: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mimic_smoke_llava_") as result_dir:
+        out["llava eval"] = phase_llava_eval(runner, result_dir)
+    log(f"[time] phase 15 llava-interleave run_train + eval: {time.perf_counter() - t:.1f} s")
+
+    # the eval left the runner in "int8-w8a8" with the trained shift, and its
+    # vision-feature cache on: off, so that the call encodes its images
+    runner.vision_cache = None
+    t = time.perf_counter()
+    out["llava int8-w8a8"], _ = llava_counted_call(
+        runner, calls, "int8-w8a8", {"onepass_fwd": Lv + L, "w8a8_matmul": 4 * L,
+                                     "quantize_rows": 4 * L,
+                                     "int8_matmul": steps * (2 * L + 1) + 1,
+                                     "fused_mlp_int8": steps * L})
+    a = llava_first_steps(runner, runner.params, batch)
+    deq = dequantized_tree(runner.params)
+    b = llava_first_steps(runner, deq, batch)
+    del deq
+    cos = [_row_cosine(x, y) for x, y in zip(a, b)]
+    log(f"[llava] int8-w8a8 against a bf16 tree dequantized from the same handles: prefill "
+        f"logits min row cosine {cos[0]:.6f} (need >= {MIN_LOGIT_COSINE}), first decode step "
+        f"{cos[1]:.6f}")
+    if not all(torch.isfinite(x).all() for x in a) or cos[0] < MIN_LOGIT_COSINE:
+        raise AssertionError("llava int8-w8a8 logits disagree with the dequantized tree")
+    del runner, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[time] phase 15 llava-interleave int8-w8a8: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def phase_llava_15():
+    """(b) llava-1.5-7b: one bf16 call; the CLIP tower's attention at head dim 64."""
+    import gc
+
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.factory import build_model
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    t = time.perf_counter()
+    runner = build_model("llava-1.5-7b", device="cuda", dtype=torch.bfloat16, seed=0,
+                         length_buckets=(LLAVA_BUCKET,))
+    cfg = runner.cfg
+    runner.set_shift(init_shift_params(get_preset("mimic")[0], cfg.text,
+                                       torch.Generator(device="cuda").manual_seed(15),
+                                       torch.device("cuda")))
+    torch.cuda.synchronize()
+    log(f"[llava] llava-1.5-7b: {sum(x.numel() for x in runner.module.buffers()) / 1e9:.3f} B "
+        f"random bf16 parameters made on the card in {time.perf_counter() - t:.1f} s")
+    calls = llava_calls(cfg)
+    by_dim = {}
+    orig = tfa._launch
+
+    def spy(name, q, *args):
+        by_dim[(name, q.shape[-1])] = by_dim.get((name, q.shape[-1]), 0) + 1
+        return orig(name, q, *args)
+
+    tfa._launch = spy
+    try:
+        launches, _ = llava_counted_call(runner, calls, "bf16",
+                                         {"onepass_fwd": cfg.vision.num_layers
+                                          + cfg.text.num_layers})
+    finally:
+        tfa._launch = orig
+    log(f"[llava] llava-1.5-7b launches by (kernel, head dim) over the warm-up and the counted "
+        f"call: {by_dim}")
+    if by_dim != {("onepass_fwd", 64): 2 * cfg.vision.num_layers,
+                  ("onepass_fwd", 128): 2 * cfg.text.num_layers}:
+        raise AssertionError(f"llava-1.5 call: launches by head dim {by_dim}")
+    llava_prefill_check(runner, calls, "llava-1.5-7b")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"llava-1.5 bf16": launches}
+
+
+def phase_tiny_text_towers():
+    """(c) a tiny qwen2-like tower (biases, G 7, head dim 128) and a mistral-like
+    one with a 64-slot window under a 128-token prompt, fp32: beam-3 tokens on
+    the card (kernels) equal to the CPU's (plain), prefill logits within 1e-4."""
+    import dataclasses
+
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.config import tiny_text
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
+
+    tk = SimpleTokenizer(padding_side="left")
+    texts = [synthetic_text(950, 60), synthetic_text(951, 110)]
+    for label, kw, path in (
+            ("qwen2-like", dict(attn_bias=True, num_heads=7, num_kv_heads=1, head_dim=128), "flash"),
+            ("mistral-like", dict(sliding_window=64, head_dim=128), "xla")):
+        cfg = tiny_text("text", **kw)
+        cfg = cfg.replace(pad_token_id=tk.pad_token_id, bos_token_id=tk.bos_token_id,
+                          eos_token_id=tk.eos_token_id,
+                          text=dataclasses.replace(cfg.text, vocab_size=tk.vocab_size))
+        params = init_lvlm_params(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+        layers = params["lm"]["decoder"]["layers"]
+        gen = torch.Generator().manual_seed(1)
+        for name in ("q_bias", "k_bias", "v_bias"):
+            if name in layers:
+                layers[name] = 0.1 * torch.randn(layers[name].shape, generator=gen)
+        logits, tokens, paths = {}, {}, {}
+        reset_launch_counts()
+        for dev in ("cpu", "cuda"):
+            from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+
+            r = LVLMRunner(cfg, params, SimpleTokenizer(padding_side="left"), device=dev)
+            batch = r.process_input(None, texts, pad_to=128)
+            attn_impl = "flash" if dev == "cuda" else "xla"
+            ATTN_PATH_LOG.clear()
+            logits[dev], _, _ = tg._prefill(r.params, cfg, batch, 128 + 6, None, "unmasked",
+                                            torch.float32, attn_impl)
+            paths[dev] = list(ATTN_PATH_LOG)
+            tokens[dev] = tg.beam_generate(
+                r.params, cfg, batch, max_new_tokens=6, num_beams=NUM_BEAMS,
+                eos_token_id=tk.eos_token_id, pad_token_id=tk.pad_token_id,
+                attn_impl=attn_impl).tokens.cpu()
+        torch.cuda.synchronize()
+        got, want = logits["cuda"].cpu(), logits["cpu"]
+        err = (got - want).abs().max().item()
+        close = torch.allclose(got, want, rtol=TOL_TINY_FP32, atol=TOL_TINY_FP32)
+        same = torch.equal(tokens["cuda"], tokens["cpu"])
+        log(f"[llava] tiny {label} text tower, fp32: prefill path on the card {paths['cuda']}, "
+            f"launches {dict(LAUNCHES)}; prefill last logits card vs CPU max abs err {err:.3e} "
+            f"(rtol = atol = {TOL_TINY_FP32}: {close}); beam-3 tokens identical: {same}; "
+            f"tokens {tokens['cuda'].tolist()}")
+        if not close or not same or paths["cuda"] != [path]:
+            raise AssertionError(f"tiny {label}: the card disagrees with the CPU")
+        if path == "flash" and LAUNCHES["onepass_fwd"] == 0:
+            raise AssertionError(f"tiny {label}: no kernel launched")
+
+
+def phase_llava_kernel_shapes():
+    """The kernels against their plain versions at the shapes llava gives them
+    that no earlier phase holds: the SigLIP rows at head dim 72 (729 of 768
+    keys); G 7 in the forward (the prefill, the record and shift passes) and in
+    the backward pair (the shift pass); the int8 products at K 3584 (qkv N 4608,
+    o, the 152128-wide lm head, the MLP at F 18944); the W8A8 products of a
+    4 x 1024-row prefill."""
+    lp = left_padded_mask
+    siglip = np.zeros((4, 768), np.int32)
+    siglip[:, :729] = 1
+    out = [
+        check_kernel("siglip-vit-729", "onepass_fwd", 60, 4, 768, 768, 16, 16, 72, siglip,
+                     False, False, 10, 3),
+        check_kernel("llava-prefill-g7", "onepass_fwd", 61, 4, 1024, 1024, 28, 4, 128,
+                     lp(4, 1024, [0, 40, 80, 120]), True, True, 10, 2),
+        check_kernel("llava-record-g7", "flash_fwd", 62, 2, 4096, 4096, 28, 4, 128,
+                     np.ones((2, 4096), np.int32), True, True, 5, 1),
+        check_kernel("llava-shift-g7", "onepass_fwd", 63, 2, 1024, 1024, 28, 4, 128,
+                     np.ones((2, 1024), np.int32), True, True, 10, 2),
+    ]
+    out.extend(check_backward("llava-shift-bwd-g7", 64, 2, 1024, 1024, 28, 4,
+                              np.ones((2, 1024), np.int32), True, True, 5))
+    out += [
+        check_int8_matmul("llava-qkv-12", 65, 12, 3584, 4608, 28, 5, 0, reps=32),
+        check_int8_matmul("llava-o-12", 66, 12, 3584, 3584, 28, 7, 0, reps=32),
+        check_int8_matmul("llava-lm-head-12", 67, 12, 3584, 152192, 0, 0, 152128, reps=10),
+        check_fused_mlp("llava-mlp-12", 68, 12, 3584, 18944, reps=8),
+    ]
+    M = LLAVA_REQUESTS * LLAVA_BUCKET
+    for label, K, N in (("qkv", 3584, 4608), ("o", 3584, 3584), ("gateup", 3584, 2 * 18944),
+                        ("down", 18944, 3584)):
+        out.append(check_w8a8(f"llava-{label}-{M}", 69, M, K, N, 2, 1, reps=5))
+    return out
+
+
+def phase_llava():
+    """Phase 15: the llava family and the text-only towers."""
+    out = {}
+    t = time.perf_counter()
+    out.update(phase_llava_interleave())
+    log(f"[time] phase 15 llava-interleave-7b: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    out.update(phase_llava_15())
+    log(f"[time] phase 15 llava-1.5-7b: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_tiny_text_towers()
+    log(f"[time] phase 15 tiny text towers: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    results = phase_llava_kernel_shapes()
+    log(f"[time] phase 15 kernel shapes: {time.perf_counter() - t:.1f} s")
+    return out, results
+
+
 def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
     """One cache-empty prefill of ``batch`` (the generation's first forward)."""
     from mimic_tpu_torch.models.decoder import init_kv_cache
@@ -3918,8 +4499,8 @@ def main() -> int:
     ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp",
                        "w8a8", "prompt_attn_mma", "quantize_rows"),
                 ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"),
-                # the bf16 forward's head-dim-80 instantiations (the CLIP ViT-H tower)
-                ("attn_fwd_mma_kernelILi80",))
+                # the bf16 forward's head-dim-64 and -80 instantiations (the CLIP towers)
+                ("attn_fwd_mma_kernelILi64", "attn_fwd_mma_kernelILi80"))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:
@@ -3982,6 +4563,20 @@ def main() -> int:
             "passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--llava-only"]:
+        for case in D64_CASES:
+            check_kernel(*case[:-1])
+        for case in D64_FP32_CASES:
+            check_kernel_fp32(*case)
+        d64_device_times()
+        check_llava_prompt_attn()
+        t = time.perf_counter()
+        phase_llava()
+        log(f"[time] phase 15 llava: {time.perf_counter() - t:.1f} s")
+        log("[card] partial run (--llava-only): phase 2's head-dim-64 cases, phase 6's G 7 case "
+            "and phase 15 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--eval-only"]:
         from mimic_tpu_torch.models.factory import build_model
 
@@ -4021,20 +4616,21 @@ def main() -> int:
         eval_launches = timed("phase 11 eval", phase_eval_w8a8, ckpt, trained_shift, result_dir)
     torch.cuda.empty_cache()
     idefics_launches, idefics_kernels = timed("phase 14 idefics-9b", phase_idefics_9b)
-    # the kernels at idefics-9b's shapes: their errors count, the times stay those
-    # of the main-path shapes above
-    for r in idefics_kernels:
+    llava_launches, llava_kernels = timed("phase 15 llava", phase_llava)
+    # the kernels at idefics-9b's and llava's shapes: their errors count, the times
+    # stay those of the main-path shapes above
+    for r in idefics_kernels + llava_kernels:
         summary[r["name"]]["max_abs_err"] = max(summary[r["name"]]["max_abs_err"],
                                                 r["max_abs_err"])
 
     # launches: each path's counted run (serving, training, the cached train
     # steps, the warm cached call A, the sampled calls, the LoRA steps, the
     # prefix steps and calls, the LoRA eval, int8 serving, the W8A8 eval, the
-    # idefics-9b ICL calls and train steps), each driven with the counts at 0
-    # and read just after, summed
+    # idefics-9b ICL calls and train steps, the llava calls, step and eval),
+    # each driven with the counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
              **peft_launches, "int8 serving": int8_launches, "W8A8 eval": eval_launches,
-             **idefics_launches}
+             **idefics_launches, **llava_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

@@ -19,8 +19,9 @@ Layout notes:
 
 Neither ``safetensors`` nor ``transformers`` is needed: ``load_safetensors``
 reads the format itself (an 8-byte little-endian header length, a JSON header,
-then the raw little-endian buffers).  idefics2 and idefics1 are ported; the
-other families' converters raise.
+then the raw little-endian buffers).  Every family of ``models/config.py``
+has its converter: idefics2, idefics1, llava-interleave (llava-interleave-7b
+and llava-1.5-7b, either transformers key layout) and the text-only towers.
 
 Run: ``python -m mimic_tpu_torch.models.convert <model_name> <hf_checkpoint_dir>``.
 """
@@ -304,19 +305,64 @@ def convert_idefics1(sd: StateDict, cfg: ModelConfig) -> Dict:
     }
 
 
-def _not_ported(family: str) -> Callable:
-    def convert(sd: StateDict, cfg: ModelConfig) -> Dict:
-        raise NotImplementedError(
-            f"the {family} converter is not ported yet (ROADMAP.md queue A, item A6)")
+def _normalize_llava_keys(sd: StateDict) -> StateDict:
+    """Map the newer transformers layout (``model.language_model.*``) onto the
+    released checkpoints' layout (``language_model.model.*``) that
+    ``convert_llava_interleave`` reads."""
+    if "model.language_model.embed_tokens.weight" not in sd:
+        return sd
+    renames = (("model.language_model.", "language_model.model."),
+               ("model.vision_tower.", "vision_tower."),
+               ("model.multi_modal_projector.", "multi_modal_projector."))
+    out = {}
+    for k, v in sd.items():
+        for old, new in renames:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        out[k] = v
+    if "lm_head.weight" in sd:
+        out["language_model.lm_head.weight"] = sd["lm_head.weight"]
+    return out
 
-    return convert
+
+def convert_llava_interleave(sd: StateDict, cfg: ModelConfig) -> Dict:
+    """LLaVA: the text tower (qwen2 with q/k/v biases for llava-interleave,
+    llama for llava-1.5), the vision tower's first ``cfg.vision.num_layers``
+    layers with an identity post-layernorm, and the projector."""
+    sd = _normalize_llava_keys(sd)
+    lm = convert_decoder(sd, "language_model.model.", cfg.text, attn_bias=cfg.text.attn_bias)
+    return {
+        "lm": {
+            "embed": sd["language_model.model.embed_tokens.weight"],
+            "decoder": lm,
+            "lm_head": _t(sd["language_model.lm_head.weight"]),
+        },
+        "vision": convert_vit(sd, "vision_tower.vision_model.", cfg.vision, post_layernorm=False),
+        "projector": {
+            "fc1": _t(sd["multi_modal_projector.linear_1.weight"]),
+            "fc1_bias": sd["multi_modal_projector.linear_1.bias"],
+            "fc2": _t(sd["multi_modal_projector.linear_2.weight"]),
+            "fc2_bias": sd["multi_modal_projector.linear_2.bias"],
+        },
+    }
+
+
+def convert_text(sd: StateDict, cfg: ModelConfig) -> Dict:
+    """A plain HF causal LM (``MistralForCausalLM`` / ``Qwen2ForCausalLM``)."""
+    out = {"lm": {"embed": sd["model.embed_tokens.weight"],
+                  "decoder": convert_decoder(sd, "model.", cfg.text,
+                                             attn_bias=cfg.text.attn_bias)}}
+    if not cfg.text.tie_word_embeddings:
+        out["lm"]["lm_head"] = _t(sd["lm_head.weight"])
+    return out
 
 
 _CONVERTERS = {
     "idefics2": convert_idefics2,
-    "llava-interleave": _not_ported("llava-interleave"),
+    "llava-interleave": convert_llava_interleave,
     "idefics1": convert_idefics1,
-    "text": _not_ported("text"),
+    "text": convert_text,
 }
 
 

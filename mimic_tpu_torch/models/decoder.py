@@ -25,9 +25,11 @@ cross layer before each group of ``cross_attn_interval`` self layers, q from
 the text, k/v from the image states, plain ``sdpa_with_lse`` and
 tanh-gated residuals; its weights are sliced per layer as 2-D tensors or 2-D
 int8 handles (as ``jax.tree.map(lambda a: a[g], ...)`` does).
-Not ported yet (raise ``NotImplementedError``): q/k/v biases (qwen2),
-self-attention qk-layernorms, the sliding window (Mistral), ring attention,
-layer-input captures and perturbations, per-row cache writes.
+Qwen2's q/k/v biases (added after the projection, before any LoRA delta),
+self-attention qk-norms (RMS norms per head, after RoPE as in the JAX package)
+and Mistral's sliding window (the plain prefill's mask and the cached decode).
+Not ported yet (raise ``NotImplementedError``): ring attention, layer-input
+captures and perturbations, per-row cache writes.
 """
 
 from __future__ import annotations
@@ -83,20 +85,9 @@ def dense_init(
     return out
 
 
-def _check_text_cfg(cfg: TextConfig) -> None:
-    for name, value in (
-        ("q/k/v biases", cfg.attn_bias),
-        ("qk-layernorms", cfg.qk_layernorm),
-        ("the sliding window", cfg.sliding_window),
-    ):
-        if value:
-            raise NotImplementedError(f"{name} in the text tower is not ported yet")
-
-
 def init_decoder_params(
     cfg: TextConfig, generator: torch.Generator, device, dtype=torch.float32
 ) -> Params:
-    _check_text_cfg(cfg)
     L, D, H, Hkv, Dh, F = (
         cfg.num_layers, cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
         cfg.head_size, cfg.intermediate_size,
@@ -119,6 +110,14 @@ def init_decoder_params(
         "up_proj": dense(L, D, F),
         "down_proj": dense(L, F, D),
     }
+    if cfg.attn_bias:
+        # qwen2: biases on q/k/v, never quantized (JAX ops/quant.py:175)
+        layers["q_bias"] = torch.zeros(L, H * Dh, dtype=dtype, device=device)
+        layers["k_bias"] = torch.zeros(L, Hkv * Dh, dtype=dtype, device=device)
+        layers["v_bias"] = torch.zeros(L, Hkv * Dh, dtype=dtype, device=device)
+    if cfg.qk_layernorm:
+        layers["q_ln"] = ones(L, Dh)
+        layers["k_ln"] = ones(L, Dh)
     params: Params = {"layers": layers, "final_ln": ones(D)}
     G = cfg.num_cross_layers
     if G:
@@ -202,6 +201,8 @@ def _project_qkv(
         v = qkv[..., (H + Hkv) * Dh :]
     else:
         q, k, v = (qdot(x, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+    if "q_bias" in lp:
+        q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
     out = []
     for slot, (name, y) in enumerate((("q", q), ("k", k), ("v", v))):
         delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate)
@@ -264,6 +265,10 @@ def _self_attention(
     B, T, _ = x.shape
     q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate)
     q, k = apply_rope(q, k, cos, sin)
+    if cfg.qk_layernorm:
+        # after RoPE, as the JAX package orders them (HF's Qwen3 norms before it)
+        q = rms_norm(q, lp["q_ln"], cfg.norm_eps)
+        k = rms_norm(k, lp["k_ln"], cfg.norm_eps)
     need_unmasked = bool(ls) and logz2 == "unmasked"
 
     P = prefix_merge_len if cache_k is not None else 0
@@ -280,7 +285,7 @@ def _self_attention(
         attn, lse, lse_u = cached_attention(
             q, k, v, cache_k, cache_v, cache_len, gen_key_mask, key_mask_new,
             prompt_k=prompt_k, prompt_v=prompt_v, prompt_mask=prompt_mask,
-            need_unmasked=need_unmasked,
+            window=cfg.sliding_window, need_unmasked=need_unmasked,
         )
     elif use_flash:
         # the CUDA kernels on the card, their plain version on the CPU: causal +
@@ -431,7 +436,6 @@ def decoder_forward(
             raise TypeError(f"decoder_forward() got an unexpected keyword argument {name!r}")
         if isinstance(value, torch.Tensor) or value != _UNPORTED_DEFAULTS[name]:
             raise NotImplementedError(f"decoder_forward: {name} is not ported yet")
-    _check_text_cfg(cfg)
     B, T, D = input_embeds.shape
     cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
 

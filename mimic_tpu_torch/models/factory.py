@@ -77,9 +77,10 @@ def check_params(tree: Dict[str, Any], cfg: ModelConfig) -> None:
     for path, (gate, up, down) in _CONNECTOR_MLPS:
         node, ref = tree, want
         for k in path:
-            node, ref = node.get(k, {}) if isinstance(node, dict) else {}, ref[k]
-        if gate not in node:
-            continue  # _check_like names the missing key
+            node = node.get(k, {}) if isinstance(node, dict) else {}
+            ref = ref.get(k, {})
+        if gate not in node or gate not in ref:
+            continue  # no connector in this family, or _check_like names the missing key
         width = node[gate].shape[-1]
         for name, shape in ((gate, ref[gate].shape[:-1] + (width,)),
                             (up, ref[up].shape[:-1] + (width,)),

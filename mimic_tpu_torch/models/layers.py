@@ -136,6 +136,7 @@ def cached_attention(
     prompt_k: Optional[torch.Tensor] = None,  # [B0,Sp,Hkv,D] beam-shared prompt
     prompt_v: Optional[torch.Tensor] = None,
     prompt_mask: Optional[torch.Tensor] = None,  # [B0,Sp]
+    window: Optional[int] = None,  # sliding-window size (Mistral), slot-indexed
     need_unmasked: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Two-part attention for decode with a KV cache (plain torch).
@@ -155,12 +156,19 @@ def cached_attention(
     ``ops/decode_attention.py``): ``prompt_attention_int8`` (the kernel on
     CUDA) returns the prompt region's partial softmax state, merged here by
     logsumexp with the generated and current parts; plain causal decode only
-    (no ``need_unmasked``), and both returned log-normalizers are the masked
-    one.  Not ported yet: the sliding window.
+    (no sliding window, no ``need_unmasked``), and both returned
+    log-normalizers are the masked one.
+
+    ``window`` (Mistral): a query at timeline position p attends the keys at
+    positions p' with p - p' < window (HF's semantics).  The current block's
+    query t sits at ``cache_len + t``, a generated-region slot s at
+    ``Sp + s`` (Sp the prompt region's length, 0 without one), a prompt slot
+    at s.  The unmasked log-normalizer ignores the window, as it ignores every
+    mask.
     """
     B, T, H, D = q.shape
     if prompt_k is not None and is_quantized_kv(prompt_k):
-        if need_unmasked:
+        if window is not None or need_unmasked:
             raise NotImplementedError(
                 "int8 prompt KV supports plain causal decode only "
                 "(no sliding window, no unmasked-lse shift consumer)"
@@ -195,6 +203,12 @@ def cached_attention(
     cache_mask = written & key_mask[:, None, None, None, :].bool()
     causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))[None, None, None]
     new_mask = causal & key_mask_new[:, None, None, None, :].bool()
+    if window is not None:
+        t_idx = torch.arange(T, device=dev)
+        q_pos = cache_len + t_idx  # [T]
+        gen_pos = (Sp if s_prompt is not None else 0) + slot  # [S]
+        cache_mask = cache_mask & ((q_pos[:, None] - gen_pos[None, :]) < window)
+        new_mask = new_mask & ((t_idx[:, None] - t_idx[None, :]) < window)
 
     parts = [
         torch.where(cache_mask, s_cache, NEG_INF),
@@ -207,8 +221,12 @@ def cached_attention(
             .permute(0, 2, 1, 3, 4, 5)
             .reshape(B, Hkv, G, T, Sp)
         )
-        pm = prompt_mask.bool().repeat_interleave(Kb, dim=0)  # [B,Sp]
-        parts.insert(0, torch.where(pm[:, None, None, None, :], s_prompt_b, NEG_INF))
+        pm = prompt_mask.bool().repeat_interleave(Kb, dim=0)[:, None, None, None, :]  # [B,Sp]
+        if window is not None:
+            prompt_pos = torch.arange(Sp, device=dev)
+            pm = pm & (((cache_len + torch.arange(T, device=dev))[:, None]
+                        - prompt_pos[None, :]) < window)
+        parts.insert(0, torch.where(pm, s_prompt_b, NEG_INF))
         if need_unmasked:
             u_parts.insert(0, s_prompt_b)  # prompt slots are all written
 

@@ -1,14 +1,16 @@
 """LVLM assembly: vision tower + connector + text decoder as one function.
 
-Counterpart of ``mimic_tpu/models/lvlm.py`` for two families:
+Counterpart of ``mimic_tpu/models/lvlm.py``:
 
 - **idefics2**: SigLIP features → perceiver connector → 64 tokens per image
   spliced into the ``<image>`` positions of the text embedding sequence;
+- **llava-interleave** (llava-interleave-7b and llava-1.5-7b): the tower's
+  features (SigLIP; or CLIP with its class token dropped, llava-1.5) → the
+  MLP projector → one token per patch, spliced likewise;
 - **idefics1**: CLIP features → perceiver resampler → 64 latents per image,
   read by the decoder's gated cross-attention (no inline tokens); each text
-  row attends the images its ``image_attention_mask`` row names.
-
-The llava family is not ported yet.
+  row attends the images its ``image_attention_mask`` row names;
+- **text** (mistral-7b, qwen2-7b): the text tower alone (``cfg.vision`` is None).
 """
 
 from __future__ import annotations
@@ -22,12 +24,19 @@ from ..ops.decode_attention import prompt_kv_len
 from .config import ModelConfig
 from .decoder import make_causal_mask, positions_from_mask
 from .lm import LMOutput, embed_tokens, init_lm_params, lm_forward
-from .vision import init_perceiver_params, init_vit_params, perceiver_forward, vit_forward
+from .vision import (
+    init_llava_projector,
+    init_perceiver_params,
+    init_vit_params,
+    llava_project,
+    perceiver_forward,
+    vit_forward,
+)
 
 Params = Dict[str, Any]
 
 
-PORTED_FAMILIES = ("idefics2", "idefics1")
+PORTED_FAMILIES = ("idefics2", "idefics1", "llava-interleave", "text")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -48,10 +57,14 @@ def init_lvlm_params(
                 cfg.perceiver, cfg.vision.hidden_size, cfg.text.hidden_size, generator,
                 device, dtype, project_first=True,
             )
-        else:
+        elif cfg.family == "idefics1":
             params["perceiver"] = init_perceiver_params(
                 cfg.perceiver, cfg.vision.hidden_size, cfg.vision.hidden_size, generator,
                 device, dtype, project_first=False,
+            )
+        elif cfg.family == "llava-interleave":
+            params["projector"] = init_llava_projector(
+                cfg.vision.hidden_size, cfg.text.hidden_size, generator, device, dtype
             )
     return params
 
@@ -63,8 +76,9 @@ def encode_images(
     patch_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
 ) -> torch.Tensor:
-    """pixel_values [B,N,H,W,C] → image tokens [B, N*latents, D_text]
-    (idefics2), or cross-attention states [B, N*latents, D_vision] (idefics1)."""
+    """pixel_values [B,N,H,W,C] → image tokens [B, N*S, D_text] (idefics2:
+    S latents; llava: S patches), or cross-attention states [B, N*latents,
+    D_vision] (idefics1)."""
     _check_family(cfg)
     B, N = pixel_values.shape[:2]
     flat = pixel_values.reshape((B * N,) + tuple(pixel_values.shape[2:]))
@@ -82,11 +96,16 @@ def encode_images(
             params["connector"], cfg.perceiver, feats,
             norm_eps=cfg.text.norm_eps, context_mask=ctx_mask,
         )
-    else:
+    elif cfg.family == "idefics1":
         # HF IdeficsPerceiverResampler uses torch's LayerNorm default eps 1e-5
         feats = perceiver_forward(
             params["perceiver"], cfg.perceiver, feats, norm_eps=1e-5, context_mask=ctx_mask,
         )
+    else:
+        if cfg.vision.use_class_token:
+            # llava-1.5: vision_feature_select_strategy="default" drops the class token
+            feats = feats[:, 1:]
+        feats = llava_project(params["projector"], feats)
     S = feats.shape[1]
     return feats.reshape(B, N * S, feats.shape[-1])
 

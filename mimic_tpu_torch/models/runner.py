@@ -28,8 +28,14 @@ from .generate import beam_generate, greedy_generate, sample_generate
 from .lvlm import PORTED_FAMILIES, LVLMBatch
 from .processor import LVLMProcessor
 
-# the prompt template of each family (JAX runner.py's table, ported families only)
-_FAMILY_TEMPLATE = {"idefics1": "idefics1", "idefics2": "idefics2"}
+# the prompt template of each family (JAX runner.py's table)
+_FAMILY_TEMPLATE = {
+    "idefics1": "idefics1",
+    "idefics2": "idefics2",
+    "llava-interleave": "llava-interleave",
+    # text-only towers (the reference's mistral / qwen2 wrappers) use the ChatML template
+    "text": "llava-interleave",
+}
 
 
 def _round_up(n: int, m: int) -> int:

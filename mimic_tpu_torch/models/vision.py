@@ -6,9 +6,11 @@ class token, pre-layernorm, ``quick_gelu``) and ``perceiver_forward`` (the
 idefics2 connector: modality projection, then a GQA perceiver in text width;
 the idefics1 resampler: LayerNorm with bias, a ReLU MLP and per-head q/k
 layernorms in the vision width).  The position-embedding lookup is real
-indexing (the JAX package's one-hot matmul is a TPU workaround).  Not ported
-yet: towers without their post-layernorm (llava-interleave) and the llava
-projector.
+indexing (the JAX package's one-hot matmul is a TPU workaround).  The llava
+towers leave before the final norm (``post_layernorm=False``: llava takes
+``vision_feature_layer=-2``); their tree keeps ``post_ln_*`` as the JAX
+initialiser and converter write it, unused.  ``llava_project`` is the llava
+projector (two linears around an exact GELU).
 """
 
 from __future__ import annotations
@@ -31,15 +33,9 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def _check_vision_cfg(cfg: VisionConfig) -> None:
-    if not cfg.post_layernorm:
-        raise NotImplementedError("vision towers without the post-layernorm are not ported yet")
-
-
 def init_vit_params(
     cfg: VisionConfig, generator: torch.Generator, device, dtype=torch.float32
 ) -> Params:
-    _check_vision_cfg(cfg)
     D, Fd, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     p = cfg.patch_size
 
@@ -84,10 +80,14 @@ def init_vit_params(
 
 
 def patchify(pixels: torch.Tensor, patch: int) -> torch.Tensor:
-    """[B,H,W,C] → [B, (H/p)*(W/p), p*p*C]; row-major patch scan order."""
+    """[B,H,W,C] → [B, (H/p)*(W/p), p*p*C]; row-major patch scan order.  Pixels
+    past the last whole patch are dropped, as HF's stride-p patch convolution
+    drops them (SigLIP at 384 px with patch 14: 27 x 27 patches, the last 6
+    rows and columns unread)."""
     B, H, W, C = pixels.shape
     nh, nw = H // patch, W // patch
-    x = pixels.reshape(B, nh, patch, nw, patch, C).permute(0, 1, 3, 2, 4, 5)
+    x = pixels[:, : nh * patch, : nw * patch]
+    x = x.reshape(B, nh, patch, nw, patch, C).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(B, nh * nw, patch * patch * C)
 
 
@@ -121,8 +121,8 @@ def vit_forward(
     patch_mask: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
 ) -> torch.Tensor:
-    """pixels [B,H,W,C] → features [B, N, D] (post-layernorm applied; N counts
-    the class token first in a CLIP-style tower).
+    """pixels [B,H,W,C] → features [B, N, D] (post-layernorm applied where the
+    config has one; N counts the class token first in a CLIP-style tower).
 
     Pixels are cast to the tower's parameter dtype (JAX promotes an fp32 pixel
     batch through a bf16 tower in fp32; in fp32 the two agree).
@@ -132,7 +132,6 @@ def vit_forward(
     the sequence is zero-padded once before the layer loop, the pad slots are
     masked out of attention as keys, and their rows are sliced off at the end.
     """
-    _check_vision_cfg(cfg)
     w_dtype = params["patch_embed"]["kernel"].dtype
     x = patchify(pixels.to(w_dtype), cfg.patch_size) @ params["patch_embed"]["kernel"]
     x = x + params["patch_embed"]["bias"]
@@ -190,6 +189,8 @@ def vit_forward(
 
     if use_flash and x.shape[1] != n_tokens:
         x = x[:, :n_tokens]
+    if not cfg.post_layernorm:
+        return x
     return layer_norm(x, params["post_ln_w"], params["post_ln_b"], cfg.norm_eps)
 
 
@@ -372,3 +373,25 @@ def _perceiver_idefics1(
         m = layer_norm(latents, lp["mlp_ln_w"], lp["mlp_ln_b"], norm_eps)
         latents = latents + torch.relu(m @ lp["fc"]) @ lp["c_proj"]
     return layer_norm(latents, params["final_ln_w"], params["final_ln_b"], norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# llava projector
+# ---------------------------------------------------------------------------
+
+
+def init_llava_projector(
+    vision_dim: int, text_dim: int, generator: torch.Generator, device, dtype=torch.float32
+) -> Params:
+    return {
+        "fc1": dense_init(generator, (vision_dim, text_dim), dtype, device),
+        "fc1_bias": torch.zeros(text_dim, dtype=dtype, device=device),
+        "fc2": dense_init(generator, (text_dim, text_dim), dtype, device),
+        "fc2_bias": torch.zeros(text_dim, dtype=dtype, device=device),
+    }
+
+
+def llava_project(params: Params, vision_feats: torch.Tensor) -> torch.Tensor:
+    """[.., vision_dim] → [.., text_dim]: fc2(gelu(fc1(x))), the GELU exact."""
+    x = F.gelu(vision_feats @ params["fc1"] + params["fc1_bias"], approximate="none")
+    return x @ params["fc2"] + params["fc2_bias"]

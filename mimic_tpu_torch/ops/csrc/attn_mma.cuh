@@ -12,8 +12,8 @@
 // Design (Hopper: wgmma + TMA + mbarrier, warp-specialised).
 //  * A CTA is NWG consumer warpgroups (2: 128 query rows) and one producer
 //    warp.  Each warpgroup owns 64 query rows and walks the key axis in tiles of
-//    BN keys (64 at D72 and D80; 128 at D128, where the longer tile took 6-10 % off by
-//    halving the per-tile costs); all warpgroups of a CTA share the K/V tiles.
+//    BN keys (64 at D64, D72 and D80; 128 at D128, where the longer tile took 6-10 %
+//    off by halving the per-tile costs); all warpgroups of a CTA share the K/V tiles.
 //  * Products.  S = Q.K^T is wgmma m64nBNk16 with both operands read from shared
 //    memory; the fp32 accumulator fragment (per warp, the C layout of
 //    mma.m16n8k16 tiled along N) is turned into probabilities in registers, and
@@ -23,7 +23,8 @@
 //    lie in device memory, d contiguous.
 //  * Shared-memory layout.  Q, K and V stay bf16.  A row is cut into 64-column
 //    blocks stored [row][128 B] with the 128-byte swizzle (TMA writes it, wgmma
-//    reads it, no bank conflicts, no padding).  D = 128 is two blocks.  D = 72
+//    reads it, no bank conflicts, no padding).  D = 128 is two blocks, D = 64 (the
+//    CLIP ViT-L tower of llava-1.5) one block with no tail.  D = 72
 //    (SigLIP) and D = 80 (CLIP ViT-H) are one block and a tail of 8 or 16
 //    columns: for Q.K^T the tail of Q and K is a [row][32 B] tile with the
 //    32-byte swizzle holding columns 64..79, which one more k16 step consumes --
@@ -38,7 +39,7 @@
 //  * Loads.  The producer warp's lane 0 issues one TMA box per tile and block
 //    (cp.async.bulk.tensor.4d over the [B, rows, heads, D] array: batch and head
 //    are coordinates, rows beyond T or S arrive as zeros) into a ring of STAGES
-//    slots (3 at D72 and D80, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
+//    slots (3 at D64, D72 and D80, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
 //    producer waits for empty, arms full with the slot's byte count and issues;
 //    a consumer warp waits for full, and arrives on empty after the last wgmma
 //    that reads the slot has been waited for.  There is no __syncthreads in the
@@ -75,9 +76,9 @@
 //  * Causal CTAs are scheduled heaviest first (blockIdx.x reversed).
 //
 // Registers per consumer thread: 4 * D/8 output accumulators (64 at D128, 40 at
-// D80, 36 at D72) and BN / 2 for the score tile, which become the BN / 4 of P.
-// D72 runs two CTAs of 288 threads per SM (96 registers, 80 KB of shared memory
-// each).  D80 runs one (84 KB): capped for two it also gets 96 registers, and
+// D80, 36 at D72, 32 at D64) and BN / 2 for the score tile, which become the BN / 4
+// of P.  D72 runs two CTAs of 288 threads per SM (96 registers, 80 KB of shared
+// memory each), and so does D64 (65 KB), which holds four accumulators fewer.  D80 runs one (84 KB): capped for two it also gets 96 registers, and
 // there its four more accumulators make ptxas serialize every wgmma (C7512, seen
 // with -Xptxas=-v on the card; chip_smoke.py fails the build on that line).
 // D128 runs one (about 160 registers, 162 KB).
@@ -98,7 +99,7 @@ constexpr float HALF_NEG = 0.5f * NEG;  // a running max below this has seen no 
 
 template <int D>
 struct Cfg {
-  static_assert(D == 72 || D == 80 || D == 128,
+  static_assert(D == 64 || D == 72 || D == 80 || D == 128,
                 "one or two 64-column blocks, and a tail of 8 (D72) or 16 (D80) columns");
   // warpgroups per CTA, 64 query rows each; one more warp feeds them
   static constexpr int NWG = 2;
@@ -112,8 +113,8 @@ struct Cfg {
   static constexpr int VT = (D % 64) / 8;   // 8-column tail tiles of V (1 at D72, 2 at D80)
   static constexpr int NATOMS = D / 8;      // n8 atoms of the output
   static constexpr int STAGES = D <= 80 ? 3 : 2;  // slots of the K/V ring
-  // CTAs per SM the registers are capped for: two at D72; at D80 two would cap a
-  // thread at 96 registers, where ptxas serializes the wgmmas (C7512), so one
+  // CTAs per SM the registers are capped for: two at D64 and D72; at D80 two would
+  // cap a thread at 96 registers, where ptxas serializes the wgmmas (C7512), so one
   static constexpr int MINB = D <= 72 ? 2 : 1;
   // shared tiles, each 1024-byte aligned: 64-column blocks [rows][128 B]; the tail
   // of Q and K as [rows][32 B] (columns 64..79; at D72 72..79 are zero), of V as
@@ -648,8 +649,11 @@ cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the bf16 forward for head dims 72, 80 and 128; other head dims -> cudaErrorInvalidValue
+// the bf16 forward for head dims 64, 72, 80 and 128; other head dims -> cudaErrorInvalidValue
 inline cudaError_t launch_bf16(int D, const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
+  if (D == 64)
+    return a.need_unmasked ? launch_one<64, true>(a, skip_tiles, stream)
+                           : launch_one<64, false>(a, skip_tiles, stream);
   if (D == 72)
     return a.need_unmasked ? launch_one<72, true>(a, skip_tiles, stream)
                            : launch_one<72, false>(a, skip_tiles, stream);

@@ -99,6 +99,8 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 1) {
     e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/need_unmasked ? 0 : 1, st);
+  } else if (dtype == 0 && D == 64) {
+    e = mimic::FlashLauncher<float, 64>::run(a, st);
   } else if (dtype == 0 && D == 72) {
     e = mimic::FlashLauncher<float, 72>::run(a, st);
   } else if (dtype == 0 && D == 80) {
@@ -114,7 +116,10 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
 // walks the same tiles on the CPU; a test on the card holds the two together.
 extern "C" int mimic_attn_fwd_tiling(int D, int* block_m, int* group_rows, int* block_n) {
   *group_rows = 64;
-  if (D == 72) {
+  if (D == 64) {
+    *block_m = mimic::mma::Cfg<64>::BM;
+    *block_n = mimic::mma::Cfg<64>::BN;
+  } else if (D == 72) {
     *block_m = mimic::mma::Cfg<72>::BM;
     *block_n = mimic::mma::Cfg<72>::BN;
   } else if (D == 80) {

@@ -98,6 +98,8 @@ extern "C" int mimic_onepass_fwd(const void* q, const void* k, const void* v,
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 1) {
     e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/0, st);
+  } else if (dtype == 0 && D == 64) {
+    e = mimic::OnepassLauncher<float, 64>::run(a, st);
   } else if (dtype == 0 && D == 72) {
     e = mimic::OnepassLauncher<float, 72>::run(a, st);
   } else if (dtype == 0 && D == 80) {

@@ -55,9 +55,9 @@ NEG = -1.0e30
 ONEPASS_MAX_S = 3072
 ONEPASS_MAX_S_NONCAUSAL = 8192
 
-# head dims (SigLIP 72, CLIP ViT-H 80, the text towers 128) and dtypes the CUDA
-# kernels are instantiated for
-KERNEL_HEAD_DIMS = (72, 80, 128)
+# head dims (CLIP ViT-L 64, SigLIP 72, CLIP ViT-H 80, the text towers 128) and
+# dtypes the CUDA kernels are instantiated for
+KERNEL_HEAD_DIMS = (64, 72, 80, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # the bf16 kernel's tiling: query rows per CTA and per warpgroup; keys per tile
@@ -65,7 +65,7 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # tests/test_torch_kernels.py holds the two together on the card)
 TILE_BLOCK_M = 128
 TILE_GROUP_ROWS = 64
-TILE_BLOCK_N = {72: 64, 80: 64, 128: 128}
+TILE_BLOCK_N = {64: 64, 72: 64, 80: 64, 128: 128}
 
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453

@@ -178,6 +178,29 @@ def test_tiled_algorithm_at_clip_head_dim(kernel, causal, need_unmasked):
     _check(got, jax_ref, km, causal, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
 
 
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_at_clip_l_head_dim(kernel, need_unmasked):
+    """Head dim 64 (the llava-1.5 CLIP ViT-L tower: one 64-column block, no
+    tail) at the tower's own rows: the class token and 576 patches of a 336 px
+    image, padded to 640 keys, the pad keys masked; non-causal, as the tower runs."""
+    rng = np.random.default_rng(64)
+    q, k, v = (rng.normal(size=(1, 640, 2, 64)).astype(np.float32) for _ in range(3))
+    km = np.zeros((1, 640), np.int32)
+    km[:, :577] = 1
+    skip_tiles = kernel == "flash_fwd" and not need_unmasked
+    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=False,
+                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
+    plain = [x.numpy() for x in tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=False,
+                                                     need_unmasked=need_unmasked)]
+    jax_ref = [np.asarray(x) for x in _jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                                jnp.asarray(km), False, None, need_unmasked)]
+    if not need_unmasked:
+        jax_ref[2] = jax_ref[1]
+    _check(got, plain, km, False, need_unmasked, not skip_tiles, ATOL)
+    _check(got, jax_ref, km, False, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
+
+
 def test_rows_without_keys_follow_each_kernels_rule():
     q, k, v, km = _inputs("aligned", "left-padded", 72)
     args = [_t(x) for x in (q, k, v, km)]

@@ -8,6 +8,8 @@ tree; ``models/factory.py::load_params`` / ``build_model(paths=...)`` read the
   ``bridge.to_torch``, bit for bit, in fp32 and in bf16, on a random HF-named
   state dict made from a random tree by ``chip_smoke.hf_state_dict`` (the
   inverse the chip run uses at 8B), which must give the tree back;
+- the llava (both key layouts) and text-tower converters on tiny HF
+  checkpoints against JAX's, bit for bit;
 - the port's safetensors reader against the ``safetensors`` package;
 - a tiny HF ``Idefics2ForConditionalGeneration`` built from configs in memory
   (as ``tests/test_hf_parity.py`` builds it), saved in several shards,
@@ -32,7 +34,7 @@ import torch
 import chip_smoke
 from mimic_tpu.models import convert as jconvert
 from mimic_tpu.models import factory as jfactory
-from mimic_tpu.models.config import get_model_config, tiny_text
+from mimic_tpu.models.config import get_model_config
 from mimic_tpu_torch.bridge import to_numpy, to_torch
 from mimic_tpu_torch.config.paths import Paths
 from mimic_tpu_torch.models import convert as tconvert
@@ -136,10 +138,50 @@ def test_shared_converters_match_jax(variant):
     _assert_same_tree(got, to_torch(want, "cpu"))
 
 
-@pytest.mark.parametrize("family", ["llava-interleave", "text"])
-def test_unported_families_raise(family):
-    with pytest.raises(NotImplementedError, match="A6"):
-        tconvert._CONVERTERS[family]({}, tiny_text(family))
+def _released_llava_layout(sd):
+    """The released llava checkpoints' key layout (``language_model.model.*``),
+    which newer transformers versions write as ``model.language_model.*``."""
+    renames = (("model.language_model.", "language_model.model."),
+               ("model.vision_tower.", "vision_tower."),
+               ("model.multi_modal_projector.", "multi_modal_projector."),
+               ("lm_head.", "language_model.lm_head."))
+    out = {}
+    for k, v in sd.items():
+        for old, new in renames:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        out[k] = v
+    return out
+
+
+@pytest.mark.parametrize("case", ["llava-interleave", "llava-1.5", "llava-released-layout",
+                                  "qwen2", "mistral"])
+def test_llava_and_text_converters_match_jax(case):
+    """Tiny HF checkpoints (``LlavaForConditionalGeneration`` over Qwen2 + SigLIP
+    and LLaMA + CLIP, in both key layouts; ``Qwen2ForCausalLM``,
+    ``MistralForCausalLM``) through the port's converter and JAX's: the same
+    tree, bit for bit (HF's logits: tests/test_torch_llava.py and
+    tests/test_torch_text_towers.py)."""
+    from test_torch_llava import hf_llava
+    from test_torch_text_towers import hf_text
+
+    if case.startswith("llava"):
+        model, cfg = hf_llava("1.5" if case == "llava-1.5" else "interleave")
+        convert = "convert_llava_interleave"
+    else:
+        model, cfg = hf_text(case, window=4 if case == "mistral" else None)
+        convert = "convert_text"
+    sd = model.state_dict()
+    assert ("model.language_model.embed_tokens.weight" in sd) == case.startswith("llava")
+    if case == "llava-released-layout":
+        sd = _released_llava_layout(sd)
+        assert "language_model.model.embed_tokens.weight" in sd
+    got = getattr(tconvert, convert)(sd, cfg)
+    want = to_torch(getattr(jconvert, convert)(_np_state_dict(sd), cfg), "cpu")
+    _assert_same_tree(got, want)
+    assert ("q_bias" in got["lm"]["decoder"]["layers"]) == cfg.text.attn_bias
+    assert tconvert._CONVERTERS[cfg.family] is getattr(tconvert, convert)
 
 
 def _st_tensors():

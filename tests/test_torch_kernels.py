@@ -178,6 +178,13 @@ KERNEL_CASES = [
     ("flash_fwd", 2, 384, 384, 4, 4, 80, False, False, 0, ((257, 384),)),
     ("onepass_fwd", 2, 500, 500, 4, 4, 80, True, True, 77),
     ("flash_fwd", 2, 1000, 1000, 4, 4, 80, False, True, 0),
+    # D64 (the llava-1.5 CLIP ViT-L tower): the class token and 576 patches padded
+    # to 640 keys, under both entry points; the first key tile wholly masked; causal
+    # with lse_u
+    ("onepass_fwd", 2, 640, 640, 4, 4, 64, False, False, 0, ((577, 640),)),
+    ("flash_fwd", 2, 640, 640, 4, 4, 64, False, False, 0, ((577, 640),)),
+    ("onepass_fwd", 2, 384, 384, 4, 4, 64, False, False, 70),
+    ("flash_fwd", 2, 500, 500, 4, 4, 64, True, True, 77),
 ]
 
 
@@ -225,7 +232,7 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [72, 80, 128])
+@pytest.mark.parametrize("D", [64, 72, 80, 128])
 def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
     """attention_tiled_plain (the CPU tests' model of the bf16 forward) and the
     compiled kernel name the same tiling."""
