@@ -198,6 +198,42 @@ Phases (any failure propagates: non-zero exit, no result line):
              forward and backward, the int8 and W8A8 widths).  Phase 2 holds the
              attention forward at head dim 64 (the CLIP ViT-L rows, a wholly
              masked first tile, fp32); phase 6 prompt_attn_int8 at G 7.
+16. serve engine and tracing — on the bf16 phase-4 runner, after phase 13:
+             mimic_tpu_torch.serve.ServeEngine at scripts/bench_serve.py's
+             traffic (64 text requests, prompts uniform in [96, 512), 10 new
+             tokens; 32 slots, max_len 544, buckets 128 / 256 / 512,
+             decode_block 5) with a MimIC shift.  (a) bf16: warm-up, then the
+             counted and timed run (q/s, peak memory; launches exactly
+             onepass_fwd 32 per prefill wave, nothing else), one run under
+             torch.profiler; every request's prefill logits in its left-padded
+             wave against the prompt prefilled alone (row cosine >= 0.99); the
+             static baseline (batches of 16 padded to 512 through
+             greedy_generate) timed beside it, and how many requests' tokens
+             equal its tokens (printed, not gated).  (b) decode_params from
+             set_quant("int8"): exact launches (int8_matmul 65 and
+             fused_mlp_int8 32 per decode step, onepass_fwd as in (a)); the
+             first decode step against a dequantized bf16 tree (row cosine >=
+             0.99).  (d) scripts/bench_serve_varlen.py's traffic (a budget of
+             64, decode_block 8, the EOS column of the lm head x4) with
+             max_len 576, reclaim on and off: tokens identical, blocks reclaimed,
+             q/s and host syncs of each.  (e) 8 requests with one 980 px image
+             each, encoded once through VisionFeatureCache and admitted as
+             (base, row), against the same requests admitted with pixels:
+             prefill logits (row cosine >= 0.99), the ViT's launches in the
+             wave.  (f) the tracing utilities on a one-image prompt in a
+             256-token bucket through the kernels: capture_forward's shapes and
+             launches, capture_grads (flash_bwd_dq / flash_bwd_dkv 31 each,
+             gradients against the plain path at cosine >= 0.99),
+             attention_probs of layer 16 (rows sum to 1 within 1e-3, nothing
+             above the diagonal), profile's trace listing kernels on the card.
+             (c) the engine on quantize_lm_params(act_quant=True) of the bf16
+             tree (the "int8-w8a8" tree; the runner keeps its bf16 one): exact
+             launches (w8a8_matmul and quantize_rows 128 in every wave of M >=
+             256); every wave's prefill again through the plain W8A8
+             functions on the card: logits equal bit for bit; the prefill
+             logits against a bf16 tree dequantized from the same handles
+             (printed: phase 11 holds that comparison at call A).  (g) a
+             tiny fp32 engine: the card's tokens equal the CPU's.
 
 Every phase prints its seconds ("[time]").
 
@@ -218,6 +254,7 @@ Without a CUDA card the script exits non-zero and prints no result.
                                            # case and phase 15: exit 3, no result line
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
+    python3 chip_smoke.py --serve-only  # build, the 8B runner and phase 16: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -4450,6 +4487,455 @@ def phase_llava():
     return out, results
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the serve engine and the tracing utilities on idefics2-8b-base
+# ---------------------------------------------------------------------------
+
+# scripts/bench_serve.py's traffic: 64 text requests, prompts uniform in [96, 512),
+# 10 new tokens; the engine with 32 slots, buckets (128, 256, 512), decode_block 5;
+# the static baseline in batches of 16 padded to 512
+SERVE_REQUESTS = 64
+SERVE_SLOTS = 32
+SERVE_MAX_LEN = 544
+SERVE_BUCKETS = (128, 256, 512)
+SERVE_BLOCK = 5
+STATIC_BATCH = 16
+# scripts/bench_serve_varlen.py's: a budget of 64 tokens, max_len 576, decode_block
+# 8, the lm head's EOS column scaled by 4 so that greedy decoding ends early and
+# unevenly
+VARLEN_BUDGET = 64
+VARLEN_MAX_LEN = 576
+VARLEN_BLOCK = 8
+VARLEN_EOS_SCALE = 4.0
+SERVE_IMAGES = 8
+TRACE_BUCKET = 256
+
+
+class CallSpy:
+    """While the block runs, ``module.name`` is wrapped: ``record(args, kwargs,
+    out)`` sees every call (the engine's prefill waves, its decode steps)."""
+
+    def __init__(self, module, name, record):
+        self.module, self.name, self.record = module, name, record
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.record(args, kwargs, out)
+            return out
+
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def prefill_spy(waves):
+    """Records (prompt ids [A, bucket], attention mask, last logits [A, V]) of
+    every prefill wave of the engine."""
+    from mimic_tpu_torch.serve import engine as teng
+
+    def record(args, kwargs, out):
+        batch = args[2]
+        waves.append((batch.input_ids, batch.attention_mask, out[0].float()))
+
+    return CallSpy(teng, "_prefill", record)
+
+
+def wave_logits(waves):
+    """{prompt ids (unpadded, as a tuple): its prefill's last logits [V]}."""
+    out = {}
+    for ids, mask, logits in waves:
+        for row in range(ids.shape[0]):
+            key = tuple(ids[row][mask[row].bool()].tolist())
+            out[key] = logits[row]
+    return out
+
+
+def serve_traffic(n, lo, hi, new, seed):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, hi, size=n)
+    return [(rng.integers(300, 32000, size=int(L)).astype(np.int32), new) for L in lens]
+
+
+def serve(eng, reqs, **fields):
+    """Submit every request (``fields[name][i]`` as request i's field), run;
+    (token lists by uid, synchronised wall s)."""
+    from mimic_tpu_torch.serve import ServeRequest
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for uid, (ids, new) in enumerate(reqs):
+        eng.submit(ServeRequest(uid=uid, input_ids=ids, max_new_tokens=new,
+                                **{k: v[uid] for k, v in fields.items()}))
+    results = eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    if [r.uid for r in results] != list(range(len(reqs))):
+        raise AssertionError("the engine lost or reordered requests")
+    return [r.tokens for r in results], secs
+
+
+def check_tokens(label, toks, reqs, vocab, eos):
+    """At most the budget, below the vocabulary, cut before any EOS."""
+    for t, (_, new) in zip(toks, reqs):
+        if len(t) > new or any(not 0 <= x < vocab or x == eos for x in t):
+            raise AssertionError(f"{label}: bad tokens {t}")
+
+
+def serve_expected(waves, steps, L, mode):
+    """The exact launches of an engine run from its waves [(rows, bucket)] and
+    decode steps: the prefill runs the attention forward in every layer;
+    "int8" decodes through int8_matmul (fused qkv and o of each layer, the lm
+    head) and fused_mlp_int8; "int8-w8a8" also prefills through the int8
+    handles: w8a8_matmul and quantize_rows for the four products of each
+    layer where M = rows x bucket reaches W8A8_MIN_M, else as a decode step,
+    and its lm head (M = rows) through int8_matmul."""
+    from mimic_tpu_torch.ops.quant import W8A8_MIN_M
+
+    want = dict.fromkeys(KERNEL_META, 0)
+    want["onepass_fwd"] = L * len(waves)
+    if mode == "bf16":
+        return want
+    want["int8_matmul"] = (2 * L + 1) * steps
+    want["fused_mlp_int8"] = L * steps
+    if mode == "int8-w8a8":
+        for rows, bucket in waves:
+            if rows * bucket >= W8A8_MIN_M:
+                want["w8a8_matmul"] += 4 * L
+                want["quantize_rows"] += 4 * L
+                want["int8_matmul"] += 1
+            else:
+                want["int8_matmul"] += 2 * L + 1
+                want["fused_mlp_int8"] += L
+    return want
+
+
+def serve_counted(label, eng, reqs, mode, **fields):
+    """Warm-up, then the counted and timed run: its launches must be
+    ``serve_expected``'s exactly; returns (tokens, seconds, launches, {prompt:
+    prefill logits})."""
+    L = eng.cfg.text.num_layers
+    serve(eng, reqs, **fields)
+    waves = []
+    _reset_counts()
+    blocks = eng.blocks_run
+    torch.cuda.reset_peak_memory_stats()
+    with prefill_spy(waves):
+        toks, secs = serve(eng, reqs, **fields)
+    got = {k: v for k, v in _counts().items() if k in KERNEL_META}
+    steps = (eng.blocks_run - blocks) * eng.decode_block
+    shapes = [tuple(ids.shape) for ids, _, _ in waves]
+    want = serve_expected(shapes, steps, L, mode)
+    log(f"[serve] {label}: {len(reqs)} requests in {secs:.3f} s = {len(reqs) / secs:.3f} q/s; "
+        f"{len(waves)} prefill waves (rows x bucket {shapes}), {steps} decode steps of "
+        f"{eng.S} slots; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    return toks, secs, got, wave_logits(waves)
+
+
+def first_decode_logits(eng, reqs):
+    """The last logits [S, V] of the engine's first decode step on ``reqs``."""
+    from mimic_tpu_torch.serve import engine as teng
+
+    logits = []
+    with CallSpy(teng, "lvlm_forward", lambda a, k, out: logits.append(out.logits[:, -1].float())):
+        serve(eng, reqs)
+    return logits[0]
+
+
+def phase_serve_8b(runner):
+    """Phase 16 on the bf16 8B runner: (a), (b), (d), (e), (f), (c), (g);
+    returns the launches of each counted run by its name."""
+    import tempfile
+
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.feature_cache import VisionFeatureCache, image_key
+    from mimic_tpu_torch.models.lvlm import LVLMBatch
+    from mimic_tpu_torch.ops.quant import quantize_lm_params
+    from mimic_tpu_torch.serve import ServeEngine
+    from mimic_tpu_torch.shift.params import init_shift_params
+    from mimic_tpu_torch.utils import tracing as ttr
+
+    cfg, tk = runner.cfg, runner.tokenizer
+    V, L, eos, pad = cfg.text.vocab_size, cfg.text.num_layers, tk.eos_token_id, tk.pad_token_id
+    params = runner.params
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text,
+                              torch.Generator(device="cuda").manual_seed(1), torch.device("cuda"))
+    engine_kw = dict(num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prefill_buckets=SERVE_BUCKETS,
+                     decode_block=SERVE_BLOCK, shift=shift, eos_token_id=eos)
+    reqs = serve_traffic(SERVE_REQUESTS, 96, 512, MAX_NEW_TOKENS, seed=0)
+    launches = {}
+    t0 = time.perf_counter()
+
+    # (a) mixed-prompt serving in bf16 with the shift, against the static baseline
+    eng = ServeEngine(cfg, params, **engine_kw)
+    toks, secs, launches["engine bf16"], firsts = serve_counted("(a) engine, bf16", eng, reqs,
+                                                                 "bf16")
+    check_tokens("(a)", toks, reqs, V, eos)
+    profile_run("engine bf16", lambda: serve(eng, reqs)[1])
+    cos = []
+    with torch.no_grad():
+        for ids, _ in reqs:
+            alone, _, _ = tg._prefill(
+                params, cfg, LVLMBatch(input_ids=torch.from_numpy(ids).long()[None].cuda(),
+                                       attention_mask=torch.ones(1, len(ids), dtype=torch.int32,
+                                                                 device="cuda")),
+                len(ids), shift, "masked", torch.bfloat16, "flash")
+            cos.append(_row_cosine(firsts[tuple(ids.tolist())][None], alone))
+    log(f"[serve] (a) each request's first-token prefill logits in its left-padded wave vs "
+        f"prefilled alone, unpadded: min row cosine {min(cos):.6f} (need >= {MIN_LOGIT_COSINE})")
+    if min(cos) < MIN_LOGIT_COSINE:
+        raise AssertionError("(a) the engine's prefill disagrees with the unpadded prefill")
+
+    def static():
+        out = []
+        for i in range(0, len(reqs), STATIC_BATCH):
+            chunk = reqs[i:i + STATIC_BATCH]
+            ids = np.full((len(chunk), SERVE_BUCKETS[-1]), pad, np.int64)
+            mask = np.zeros(ids.shape, np.int32)
+            for r, (p, _) in enumerate(chunk):
+                ids[r, -len(p):], mask[r, -len(p):] = p, 1
+            batch = LVLMBatch(input_ids=torch.from_numpy(ids).cuda(),
+                              attention_mask=torch.from_numpy(mask).cuda())
+            out.append(tg.greedy_generate(params, cfg, batch, max_new_tokens=MAX_NEW_TOKENS,
+                                          eos_token_id=eos, pad_token_id=pad, shift=shift,
+                                          logz2="masked", attn_impl="flash").tokens)
+        return torch.cat(out).cpu()
+
+    static()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    stoks = static()
+    static_secs = time.perf_counter() - start
+    same = sum(got == (row[: row.index(eos)] if eos in row else row)
+               for got, row in zip(toks, stoks.tolist()))
+    log(f"[serve] (a) static baseline (batches of {STATIC_BATCH} padded to {SERVE_BUCKETS[-1]}, "
+        f"greedy_generate): {static_secs:.3f} s = {len(reqs) / static_secs:.3f} q/s against the "
+        f"engine's {len(reqs) / secs:.3f} q/s; {same} of {len(reqs)} requests' tokens equal "
+        f"the static run's (not gated: bf16 ties can flip tokens)")
+    del eng
+
+    # (b) "int8": the bf16 tree prefills, set_quant("int8")'s copy decodes
+    runner.set_quant("int8")
+    qparams = runner.decode_params
+    eng = ServeEngine(cfg, params, decode_params=qparams, **engine_kw)
+    toks, _, launches["engine int8"], _ = serve_counted("(b) engine, int8", eng, reqs, "int8")
+    check_tokens("(b)", toks, reqs, V, eos)
+    first = [(ids, 2) for ids, _ in reqs[:SERVE_SLOTS]]
+    a = first_decode_logits(eng, first)
+    del eng
+    deq = dequantized_tree(qparams)
+    b = first_decode_logits(ServeEngine(cfg, params, decode_params=deq, **engine_kw), first)
+    del deq, qparams
+    runner.set_quant(None)
+    c = _row_cosine(a, b)
+    log(f"[serve] (b) first decode step of {SERVE_SLOTS} slots, int8 kernels vs a bf16 tree "
+        f"dequantized from the same handles: max abs diff {(a - b).abs().max().item():.4f}, "
+        f"min row cosine {c:.6f} (need >= {MIN_LOGIT_COSINE})")
+    if c < MIN_LOGIT_COSINE or not torch.isfinite(a).all():
+        raise AssertionError("(b) the int8 decode disagrees with the dequantized tree")
+
+    # (d) EOS-variable traffic: reclamation on and off, identical tokens
+    lm = dict(params["lm"], lm_head=params["lm"]["lm_head"].clone())
+    lm["lm_head"][:, eos] *= VARLEN_EOS_SCALE
+    eos_params = dict(params, lm=lm)
+    var = serve_traffic(SERVE_REQUESTS, 96, 512, VARLEN_BUDGET, seed=0)
+    runs = {True: [], False: []}
+    for reclaim in (True, False):
+        e = ServeEngine(cfg, eos_params, reclaim=reclaim, **dict(
+            engine_kw, max_len=VARLEN_MAX_LEN, decode_block=VARLEN_BLOCK))
+        vtoks, vsecs = serve(e, var)
+        runs[reclaim].append((vtoks, len(var) / vsecs, e.blocks_run, e.reclaimed_blocks,
+                              e.host_syncs))
+        del e
+    (on, *_), (off, *_) = runs[True][-1], runs[False][-1]
+    lens = [len(t) for t in on]
+
+    def summary(rs):
+        _, _, blocks, reclaimed, syncs = rs[-1]
+        return (f"{', '.join(f'{r[1]:.3f}' for r in rs)} q/s ({blocks} blocks, {reclaimed} "
+                f"reclaimed, {syncs} host syncs a run)")
+
+    log(f"[serve] (d) EOS-variable traffic ({SERVE_REQUESTS} requests, budget {VARLEN_BUDGET}, "
+        f"decode_block {VARLEN_BLOCK}, EOS column x{VARLEN_EOS_SCALE}): generated lengths mean "
+        f"{np.mean(lens):.1f}, min {min(lens)}, max {max(lens)}; reclaim on "
+        f"{summary(runs[True])}, off {summary(runs[False])}")
+    if on != off or runs[True][-1][3] <= 0 or runs[False][-1][4] != 1:
+        raise AssertionError("(d) reclamation changed the tokens or reclaimed nothing")
+    check_tokens("(d)", on, var, V, eos)
+    del runs, eos_params, lm
+
+    # (e) image requests: features encoded once (the feature cache), admitted as
+    # (base, row), against the same requests admitted with their pixels
+    images = [synthetic_image(70 + i) for i in range(SERVE_IMAGES)]
+    encs = [runner.processor([[im]], [f"Image:<image> {synthetic_text(80 + i, 60 + 20 * i)}"
+                                      f"Question: what is in the image? Answer:"])
+            for i, im in enumerate(images)]
+    img_reqs = [(e["input_ids"][0].astype(np.int32), MAX_NEW_TOKENS) for e in encs]
+    pixels = np.concatenate([e["pixel_values"] for e in encs])
+    masks = np.concatenate([e["patch_mask"] for e in encs])
+    base = VisionFeatureCache().get_features(params, cfg, pixels, masks,
+                                             [image_key(im) for im in images], attn_impl="flash")
+    eng = ServeEngine(cfg, params, **engine_kw)
+    ftoks, _, launches["engine features"], fl = serve_counted(
+        "(e) 980 px image requests, features from the cache", eng, img_reqs, "bf16",
+        image_feats=[(base, i) for i in range(SERVE_IMAGES)])
+    _reset_counts()
+    waves = []
+    with prefill_spy(waves):
+        ptoks, _ = serve(eng, img_reqs, pixel_values=list(pixels), patch_mask=list(masks))
+    launches["engine pixels"] = {k: v for k, v in _counts().items() if k in KERNEL_META}
+    pl = wave_logits(waves)
+    c = min(_row_cosine(fl[k][None], pl[k][None]) for k in fl)
+    same = sum(x == y for x, y in zip(ftoks, ptoks))
+    log(f"[serve] (e) prefill logits, features admitted as (base, row) vs pixels admitted "
+        f"(the ViT in each of {len(waves)} waves: launches {launches['engine pixels']}): min row "
+        f"cosine {c:.6f} (need >= {MIN_LOGIT_COSINE}); equal tokens in {same} of {SERVE_IMAGES} "
+        f"requests")
+    if c < MIN_LOGIT_COSINE or launches["engine pixels"]["onepass_fwd"] != (
+            (cfg.vision.num_layers + L) * len(waves)):
+        raise AssertionError("(e) feature admission disagrees with pixel admission")
+    del eng, base
+
+    # (f) the tracing utilities at 8B, attention through the kernels
+    runner.tokenizer.padding_side = "left"
+    batch = runner.process_input([[images[0]]], ["Image:<image> Question: what is in the image? "
+                                                 "Answer:"], pad_to=TRACE_BUCKET)
+    T, D = batch.input_ids.shape[1], cfg.text.hidden_size
+    with torch.no_grad():
+        _reset_counts()
+        logits, caps = ttr.capture_forward(params, cfg, batch, attn_impl="flash")
+        got = {k: v for k, v in _counts().items() if k in KERNEL_META}
+    launches["capture_forward"] = got
+    log(f"[trace] (f) capture_forward at 8B: logits {tuple(logits.shape)}, captures attn "
+        f"{tuple(caps['attn'].shape)} and ffn {tuple(caps['ffn'].shape)}; launches {got}")
+    if (logits.shape != (1, T, V) or caps["attn"].shape != (L, 1, T, D)
+            or caps["ffn"].shape != (L, 1, T, D) or not torch.isfinite(logits).all()
+            or got["onepass_fwd"] != cfg.vision.num_layers + L):
+        raise AssertionError(f"(f) capture_forward: shapes {tuple(logits.shape)}, "
+                             f"{tuple(caps['attn'].shape)} or launches {got}")
+    del logits, caps
+    loss_fn = lambda lg: lg[:, -1].float().logsumexp(-1).sum()
+    _reset_counts()
+    grads = ttr.capture_grads(params, cfg, batch, loss_fn, attn_impl="flash")
+    got = {k: v for k, v in _counts().items() if k in KERNEL_META}
+    launches["capture_grads"] = got
+    plain = ttr.capture_grads(params, cfg, batch, loss_fn, attn_impl="xla")
+    gcos = {k: torch.nn.functional.cosine_similarity(grads[k].flatten().float(),
+                                                     plain[k].flatten().float(), dim=0).item()
+            for k in grads}
+    log(f"[trace] (f) capture_grads at 8B (T {T}): launches {got}; gradients through the "
+        f"kernels vs the plain path: cosine attn {gcos['attn']:.6f}, ffn {gcos['ffn']:.6f} "
+        f"(need >= {MIN_GRAD_COSINE})")
+    if got["flash_bwd_dq"] != L - 1 or got["flash_bwd_dkv"] != L - 1 or min(
+            gcos.values()) < MIN_GRAD_COSINE or not torch.isfinite(grads["attn"]).all():
+        raise AssertionError("(f) capture_grads: launches or gradients wrong")
+    del grads, plain
+    with torch.no_grad():
+        probs = ttr.attention_probs(params, cfg, batch, layer=L // 2, attn_impl="flash")
+    live = batch.attention_mask[0].bool()
+    rows = probs[0][:, live]
+    upper = torch.ones(T, T, dtype=torch.bool, device="cuda").triu(1)[live]
+    serr, uerr = (rows.sum(-1) - 1).abs().max().item(), rows[:, upper].abs().max().item()
+    log(f"[trace] (f) attention_probs of layer {L // 2}: {tuple(probs.shape)}, rows sum to 1 "
+        f"within {serr:.2e} (need 1e-3), largest probability above the diagonal {uerr:.2e}")
+    if probs.shape != (1, cfg.text.num_heads, T, T) or serr > 1e-3 or uerr > 0:
+        raise AssertionError("(f) attention_probs: not a causal distribution")
+    del probs
+    with tempfile.TemporaryDirectory(prefix="mimic_trace_") as trace_dir:
+        with torch.no_grad(), ttr.profile(trace_dir):
+            ttr.capture_forward(params, cfg, batch, attn_impl="flash")
+            torch.cuda.synchronize()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"[trace] (f) profile: trace.json holds {len(events)} events, {len(kernels)} kernels on "
+        f"the card (e.g. {kernels[0]['name'][:60] if kernels else None!r})")
+    if not kernels:
+        raise AssertionError("(f) profile: the trace lists no kernel on the card")
+
+    # (c) "int8-w8a8": the engine on a W8A8 tree (the runner's stays bf16)
+    from mimic_tpu_torch.models import decoder as td
+
+    w8 = quantize_lm_params(params, act_quant=True)
+    eng = ServeEngine(cfg, w8, **engine_kw)
+    wtoks, _, launches["engine int8-w8a8"], wl = serve_counted("(c) engine, int8-w8a8", eng,
+                                                               reqs, "int8-w8a8")
+    check_tokens("(c)", wtoks, reqs, V, eos)
+    del eng
+    # none of the rounding is the kernels': every wave prefilled again through the
+    # plain W8A8 functions on the card gives the engine's logits bit for bit
+    waves, equal = [], []
+    with prefill_spy(waves):
+        serve(ServeEngine(cfg, w8, **engine_kw), reqs)
+    orig_qdot, td.qdot = td.qdot, qdot_w8a8_plain
+    try:
+        with torch.no_grad():
+            for ids, mask, logits in waves:
+                plain, _, _ = tg._prefill(w8, cfg, LVLMBatch(input_ids=ids, attention_mask=mask),
+                                          ids.shape[1], shift, "masked", torch.bfloat16, "flash")
+                equal.append(torch.equal(plain.float(), logits))
+    finally:
+        td.qdot = orig_qdot
+    # what the rows' rounding costs: against a bf16 tree dequantized from the same
+    # handles (phase 11's comparison at call A) and against the bf16 tree of (a)
+    dwaves = []
+    deq = dequantized_tree(w8)
+    with prefill_spy(dwaves):
+        serve(ServeEngine(cfg, deq, **engine_kw), reqs)
+    del deq, w8
+    dl = wave_logits(dwaves)
+    cos = sorted(_row_cosine(wl[k][None], dl[k][None]) for k in wl)
+    cb = min(_row_cosine(wl[k][None], firsts[k][None]) for k in wl)
+    log(f"[serve] (c) int8-w8a8 prefill waves through w8a8_matmul equal to the plain W8A8 "
+        f"functions on the card, bit for bit: {equal}; prefill logits request by request vs a "
+        f"bf16 tree dequantized from the same handles: row cosine min {cos[0]:.6f}, median "
+        f"{cos[len(cos) // 2]:.6f}, {sum(c < MIN_W8A8_COSINE for c in cos)} of {len(cos)} below "
+        f"{MIN_W8A8_COSINE}; vs the bf16 tree of (a), weights rounded too: min {cb:.6f}")
+    if not all(equal) or len(equal) != len(waves):
+        raise AssertionError("(c) the W8A8 prefill through the kernels differs from the plain path")
+
+    # (g) a tiny fp32 engine on the card: the CPU's tokens
+    phase_tiny_engine()
+    log(f"[serve] phase 16 in {time.perf_counter() - t0:.1f} s; {card_line()}")
+    return launches
+
+
+def phase_tiny_engine():
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.serve import ServeEngine
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    tk = SimpleTokenizer(padding_side="left")
+    cfg = tiny_cfg(tk)
+    cpu = torch.device("cpu")
+    params = init_lvlm_params(cfg, torch.Generator().manual_seed(0), cpu)
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text, torch.Generator().manual_seed(1),
+                              cpu)
+    shift["attn_v"] = shift["attn_v"] * 300.0  # make log Z2 matter to the tokens
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(4, 250, size=int(n)).astype(np.int32), 6)
+            for n in rng.integers(40, 250, size=6)]
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServeEngine(cfg, params, num_slots=3, max_len=264, prefill_buckets=(128, 256),
+                          decode_block=3, shift=shift, device=dev)
+        toks[dev] = serve(eng, reqs)[0]
+    log(f"[serve] (g) tiny fp32 engine, card vs CPU: tokens identical: "
+        f"{toks['cuda'] == toks['cpu']}; {toks['cuda']}")
+    if toks["cuda"] != toks["cpu"]:
+        raise AssertionError("(g) the tiny engine's tokens on the card differ from the CPU's")
+
+
 def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
     """One cache-empty prefill of ``batch`` (the generation's first forward)."""
     from mimic_tpu_torch.models.decoder import init_kv_cache
@@ -4552,6 +5038,14 @@ def main() -> int:
         log("[card] partial run (--peft-only): phase 13 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--serve-only"]:
+        runner, _ = phase_main()
+        t = time.perf_counter()
+        phase_serve_8b(runner)
+        log(f"[time] phase 16 serve engine and tracing: {time.perf_counter() - t:.1f} s")
+        log("[card] partial run (--serve-only): phase 16 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--idefics1-only"]:
         check_kernel(*CLIP_VIT_CASE[:-1])
         for case in CLIP_FP32_CASES:
@@ -4608,6 +5102,7 @@ def main() -> int:
     train_launches = timed("phase 5 8B train step", phase_train_8b, runner)
     cache_launches = timed("phase 12 caches, sampling, converter", phase_caches_8b, runner)
     peft_launches = timed("phase 13 LoRA and prefix", phase_peft_8b, runner)
+    serve_engine_launches = timed("phase 16 serve engine and tracing", phase_serve_8b, runner)
     with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
         ckpt, trained_shift = timed("phase 11 run_train", phase_train_for_eval, runner,
                                     result_dir)
@@ -4625,12 +5120,13 @@ def main() -> int:
 
     # launches: each path's counted run (serving, training, the cached train
     # steps, the warm cached call A, the sampled calls, the LoRA steps, the
-    # prefix steps and calls, the LoRA eval, int8 serving, the W8A8 eval, the
-    # idefics-9b ICL calls and train steps, the llava calls, step and eval),
-    # each driven with the counts at 0 and read just after, summed
+    # prefix steps and calls, the LoRA eval, the serve engine's runs and the
+    # tracing utilities, int8 serving, the W8A8 eval, the idefics-9b ICL calls
+    # and train steps, the llava calls, step and eval), each driven with the
+    # counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
-             **peft_launches, "int8 serving": int8_launches, "W8A8 eval": eval_launches,
-             **idefics_launches, **llava_launches}
+             **peft_launches, **serve_engine_launches, "int8 serving": int8_launches,
+             "W8A8 eval": eval_launches, **idefics_launches, **llava_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

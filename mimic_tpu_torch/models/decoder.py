@@ -28,8 +28,11 @@ int8 handles (as ``jax.tree.map(lambda a: a[g], ...)`` does).
 Qwen2's q/k/v biases (added after the projection, before any LoRA delta),
 self-attention qk-norms (RMS norms per head, after RoPE as in the JAX package)
 and Mistral's sliding window (the plain prefill's mask and the cached decode).
-Not ported yet (raise ``NotImplementedError``): ring attention, layer-input
-captures and perturbations, per-row cache writes.
+The tracing utilities' layer-input captures (``capture_layer_inputs``) and
+additive perturbations of the block outputs (``perturb_attn`` /
+``perturb_ffn``), and the serve engine's per-row cache writes
+(``cache_write_pos``).  Not ported yet (raises ``NotImplementedError``): ring
+attention (``ring_mesh``).
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ class DecoderOutput(NamedTuple):
     attn_capture: Optional[torch.Tensor] = None         # [L,B,T|M,D] self-attn block outputs
     ffn_capture: Optional[torch.Tensor] = None          # [L,B,T|M,D] MLP block outputs
     kv_cache: Optional[Dict[str, Any]] = None
+    layer_inputs: Optional[torch.Tensor] = None         # [L,B,T,D] hidden state at layer entry
 
 
 # ---------------------------------------------------------------------------
@@ -361,11 +365,7 @@ def _layer_view(w: Any, l: int) -> Any:
     return w[l]
 
 
-_UNPORTED_DEFAULTS = {
-    "ring_mesh": None,
-    "capture_layer_inputs": False, "perturb_attn": None, "perturb_ffn": None,
-    "cache_write_pos": None,
-}
+_UNPORTED_DEFAULTS = {"ring_mesh": None}
 
 
 def decoder_forward(
@@ -393,6 +393,10 @@ def decoder_forward(
     prefix_flash_len: int = 0,
     cross_states: Optional[torch.Tensor] = None,
     cross_mask: Optional[torch.Tensor] = None,
+    capture_layer_inputs: bool = False,
+    perturb_attn: Optional[torch.Tensor] = None,
+    perturb_ffn: Optional[torch.Tensor] = None,
+    cache_write_pos: Optional[torch.Tensor] = None,
     **unported: Any,
 ) -> DecoderOutput:
     """Run the decoder stack.
@@ -422,6 +426,11 @@ def decoder_forward(
     gated cross-attention tower (idefics1) and which of them each row
     attends; cross layer g runs before self layer g·``cross_attn_interval``
     (without ``cross_states`` the cross layers are skipped, as in JAX).
+    capture_layer_inputs: return each layer's input hidden state as
+    ``layer_inputs`` [L,B,T,D].  perturb_attn / perturb_ffn [L,B,T,D]: added
+    to each layer's attention / MLP block output after its output shift (and
+    so inside the captures); under ``remat`` each layer's slice enters the
+    checkpoint as an argument, so gradients reach it.
 
     The current block's k/v are written into the cache at the timeline
     length.  Without gradients they are written in place and the returned
@@ -430,6 +439,13 @@ def decoder_forward(
     backward pass (``torch.einsum`` saves the cache itself where no permute
     copies it, as with one KV head), and the prefix train step's cache is
     made from the trainable prefix.  Its ``length`` is advanced by T.
+
+    cache_write_pos [B] (a one-token step, T = 1; the serve engine's slots):
+    row b's k/v are written at column ``cache_write_pos[b]`` of a cache whose
+    ``length`` stays as it is.  A row whose position is the cache's width
+    (a retired slot) writes nothing, as JAX's scatter drops an out-of-range
+    update: the write goes to a clamped column with that column's own value,
+    so no index leaves the cache and nothing waits for the device.
     """
     for name, value in unported.items():
         if name not in _UNPORTED_DEFAULTS:
@@ -437,6 +453,8 @@ def decoder_forward(
         if isinstance(value, torch.Tensor) or value != _UNPORTED_DEFAULTS[name]:
             raise NotImplementedError(f"decoder_forward: {name} is not ported yet")
     B, T, D = input_embeds.shape
+    if cache_write_pos is not None and (kv_cache is None or T != 1):
+        raise ValueError("cache_write_pos needs a kv_cache and a one-token step (T = 1)")
     cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
 
     shift = shift or {}
@@ -491,7 +509,20 @@ def decoder_forward(
         idx = capture_gather_idx.long()[..., None].expand(-1, -1, x.shape[-1])
         return torch.gather(x, 1, idx)
 
-    def layer_body(h: torch.Tensor, l: int, keeps: Optional[list]):
+    if cache_write_pos is not None:
+        rows = torch.arange(B, device=input_embeds.device)
+        width = kv_cache["k"].shape[2]
+        write_col = cache_write_pos.long().clamp_max(width - 1)
+        write_keep = (cache_write_pos < width)[:, None, None]
+
+        def write_rows(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+            """What c [..., B, S, Hkv, Dh] holds at the rows' columns after the
+            write of new [..., B, 1, Hkv, Dh]."""
+            old = c[..., rows, write_col, :, :]
+            return torch.where(write_keep, new[..., 0, :, :].to(c.dtype), old)
+
+    def layer_body(h: torch.Tensor, l: int, keeps: Optional[list],
+                   pa: Optional[torch.Tensor], pf: Optional[torch.Tensor]):
         lp = {name: _layer_view(w, l) for name, w in layers.items()}
         ls = {name: w[l] for name, w in layer_shift.items()}
         os_ = {name: w[l] for name, w in out_shift.items()}
@@ -514,6 +545,8 @@ def decoder_forward(
         attn_out = apply_output_shift(
             attn_out, os_.get("attn_out_shift"), os_.get("attn_out_scale")
         )
+        if pa is not None:
+            attn_out = attn_out + pa.to(attn_out.dtype)
         h = residual + attn_out
         residual = h
         hn = rms_norm(h, lp["post_ln"], cfg.norm_eps)
@@ -529,9 +562,11 @@ def decoder_forward(
         else:
             ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
         ffn_out = apply_output_shift(ffn_out, os_.get("ffn_shift"), os_.get("ffn_scale"))
+        if pf is not None:
+            ffn_out = ffn_out + pf.to(ffn_out.dtype)
         return residual + ffn_out, attn_out, ffn_out, k_new, v_new
 
-    attn_caps, ffn_caps, k_blocks, v_blocks = [], [], [], []
+    attn_caps, ffn_caps, layer_ins, k_blocks, v_blocks = [], [], [], [], []
     cross = params.get("cross") if cfg.cross_attn_interval else None
     h = input_embeds
     for l in range(cfg.num_layers):
@@ -539,6 +574,10 @@ def decoder_forward(
             g = l // cfg.cross_attn_interval
             cp = {name: _cross_view(w, g) for name, w in cross.items()}
             h = _cross_attention(cp, h, cross_states, cross_mask, cfg)
+        if capture_layer_inputs:
+            layer_ins.append(h)
+        pa = perturb_attn[l] if perturb_attn is not None else None
+        pf = perturb_ffn[l] if perturb_ffn is not None else None
         keeps = None
         if drop:
             # drawn outside the rematerialised body: the recompute must see the
@@ -551,15 +590,19 @@ def decoder_forward(
             ]
         if remat:
             h, attn_out, ffn_out, k_new, v_new = torch.utils.checkpoint.checkpoint(
-                layer_body, h, l, keeps, use_reentrant=False
+                layer_body, h, l, keeps, pa, pf, use_reentrant=False
             )
         else:
-            h, attn_out, ffn_out, k_new, v_new = layer_body(h, l, keeps)
+            h, attn_out, ffn_out, k_new, v_new = layer_body(h, l, keeps, pa, pf)
         if capture_attn:
             attn_caps.append(capture(attn_out))
         if capture_ffn:
             ffn_caps.append(capture(ffn_out))
-        if use_cache and in_place:
+        if use_cache and in_place and cache_write_pos is not None:
+            # one advanced-index write per layer, after the layer read its slice
+            for c, new in ((kv_cache["k"][l], k_new), (kv_cache["v"][l], v_new)):
+                c[rows, write_col] = write_rows(c, new)
+        elif use_cache and in_place:
             # the layer read its cache slice above; slots >= the written length
             # are masked there, so appending now changes nothing it saw
             kv_cache["k"][l, :, write_at:write_at + T] = k_new.to(kv_cache["k"].dtype)
@@ -570,7 +613,17 @@ def decoder_forward(
 
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     new_cache = None
-    if use_cache:
+    if use_cache and cache_write_pos is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if not in_place:
+            def write(c, blocks):
+                c = c.clone()
+                c[:, rows, write_col] = write_rows(c, torch.stack(blocks))
+                return c
+
+            ck, cv = write(ck, k_blocks), write(cv, v_blocks)
+        new_cache = {"k": ck, "v": cv, "length": cache_len}
+    elif use_cache:
         ck, cv = kv_cache["k"], kv_cache["v"]
         if not in_place:
             def append(c, blocks):
@@ -589,6 +642,7 @@ def decoder_forward(
         attn_capture=torch.stack(attn_caps) if capture_attn else None,
         ffn_capture=torch.stack(ffn_caps) if capture_ffn else None,
         kv_cache=new_cache,
+        layer_inputs=torch.stack(layer_ins) if capture_layer_inputs else None,
     )
 
 

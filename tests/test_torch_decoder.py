@@ -143,7 +143,7 @@ def test_masks_and_positions():
         np.asarray(jd.make_causal_mask(jnp.asarray(mask), sliding_window=2)))
 
 
-@pytest.mark.parametrize("kwarg", [{"capture_layer_inputs": True}], ids=["capture_layer_inputs"])
+@pytest.mark.parametrize("kwarg", [{"ring_mesh": object()}], ids=["ring_mesh"])
 def test_unported_features_raise(setup, kwarg):
     cfg, params, _, embeds, _, mask = setup
     mask_t = torch.from_numpy(mask)
