@@ -234,6 +234,22 @@ Phases (any failure propagates: non-zero exit, no result line):
              logits against a bf16 tree dequantized from the same handles
              (printed: phase 11 holds that comparison at call A).  (g) a
              tiny fp32 engine: the card's tokens equal the CPU's.
+17. parallel — on the bf16 phase-4 runner, after phase 16: (a) the ring of
+             ops/ring_attention.py at idefics2-8b width (B2, H32/8, D128,
+             causal, a left-padded key mask, lse_u), 4 ranks at T=S=4096 and 2
+             at 2048 in one process: each rank's chunk over every rank's block
+             through ring_block and RingMerge (the exchange replaced by
+             indexing), against one forward-kernel call on the whole sequence
+             by phase 2's bf16 gates, exactly n² forward launches, both device
+             times.  (b) on a one-rank NCCL group (file:// store in a temporary
+             directory): phase 5's step on precomputed image features with
+             attn_impl="ring", a (data 1 x sp 1) ring mesh and ring_min_len
+             1024: the record pass logs "ring" and launches onepass_fwd once per
+             layer (n² = 1), the shorter shift pass logs "flash" and runs the
+             forward and backward kernels, the launches equal the "flash"
+             step's, the loss and the updated shift beside the "flash" step's, one step's gradients against the flash path's (cosine >=
+             0.99); call A under use_mesh(make_mesh(1, 1)) gives the tokens of
+             call A without it; the group is destroyed at the end.
 
 Every phase prints its seconds ("[time]").
 
@@ -255,6 +271,7 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --serve-only  # build, the 8B runner and phase 16: exit 3, no result line
+    python3 chip_smoke.py --parallel-only  # build, the 8B runner and phase 17: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -1258,12 +1275,10 @@ def timed_generate(runner, calls, name):
     return out, time.perf_counter() - t
 
 
-def phase_main():
+def main_runner():
+    """idefics2-8b-base with random bf16 parameters made on the card and a MimIC shift."""
     from mimic_tpu_torch.config import get_preset
-    from mimic_tpu_torch.models import generate as tg
-    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
     from mimic_tpu_torch.models.factory import build_model
-    from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
     from mimic_tpu_torch.shift.params import init_shift_params
 
     t0 = time.perf_counter()
@@ -1278,6 +1293,15 @@ def phase_main():
     runner.set_shift(init_shift_params(get_preset("mimic")[0], runner.cfg.text, gen,
                                        torch.device("cuda")))
     assert runner.logz2 == "unmasked"
+    return runner
+
+
+def phase_main():
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
+
+    runner = main_runner()
 
     calls = serving_calls()
     for name, (images, texts, bucket) in calls.items():
@@ -4908,6 +4932,212 @@ def phase_serve_8b(runner):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the parallel layer (ring attention's blocks, the mesh path)
+# ---------------------------------------------------------------------------
+
+# (ranks, T) of the ring harness at idefics2-8b's width: B2, H32/8, D128, causal,
+# a left-padded key mask and lse_u; each rank's chunk C = T / n = 1024 keys
+RING_CASES = ((4, 4096), (2, 2048))
+
+
+def ring_harness(n, T):
+    """The ring of n ranks in one process: each rank's query chunk over every
+    rank's K/V block through ``ring_block`` and ``RingMerge`` (what
+    ``ring_attention`` runs; the exchange is replaced by indexing the n
+    chunks), against one forward-kernel call on the whole sequence by phase
+    2's bf16 gates; exactly n² forward launches; both device times."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops.ring_attention import RingMerge, ring_block
+
+    B, H, Hkv, D = 2, 32, 8, 128
+    q, k, v, km = kernel_inputs(70 + n, B, T, T, H, Hkv, D, left_padded_mask(B, T, (0, 300)))
+    C = T // n
+
+    def ring():
+        parts = []
+        for r in range(n):
+            merge, rows = RingMerge(), slice(r * C, (r + 1) * C)
+            for j in range(n):
+                cols = slice(j * C, (j + 1) * C)
+                merge.add(*ring_block(q[:, rows], k[:, cols], v[:, cols], km[:, cols], r, j,
+                                      True, None, True))
+            parts.append(merge.result(q.dtype))
+        return [torch.cat([p[i] for p in parts], dim=1) for i in range(3)]
+
+    def single():
+        return tfa._dispatch(q, k, v, km, True, None, True)
+
+    tfa.reset_launch_counts()
+    got = ring()
+    torch.cuda.synchronize()
+    launches = dict(tfa.LAUNCHES)
+    if sum(launches.values()) != n * n:
+        raise AssertionError(f"ring of {n}: {launches} forward launches, want {n * n}")
+    want = single()
+    allowed = (km[:, None, :] > 0) & torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+    valid = allowed.any(-1)  # rows with an attendable key
+    for field, a in zip(("out", "lse", "lse_u"), got):
+        if not torch.isfinite(a.float()).all():
+            raise AssertionError(f"ring of {n}: {field} has non-finite values")
+    ref, diff = want[0].float(), got[0].float() - want[0].float()
+    err = {"out": diff.abs().max().item(),
+           "lse": (got[1] - want[1]).abs()[valid].max().item(),
+           "lse_u": (got[2] - want[2]).abs().max().item()}
+    tol_out = min(TOL_OUT_BF16, OUT_BF16_STEP * ref.abs().max().item() + OUT_BF16_ABS)
+    rel_rms = (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+    ring_ms, single_ms = cuda_ms(ring, 5), cuda_ms(single, 5)
+    log(f"[parallel] ring of {n} ranks, B{B} T=S={T} H{H}/{Hkv} D{D} causal, left-padded, "
+        f"lse_u: launches {launches} (n² = {n * n}); against one {'onepass_fwd' if T <= 3072 else 'flash_fwd'} "
+        f"call: max abs err out {err['out']:.3e} (tol {tol_out:.3e}), out rms err / rms "
+        f"{rel_rms:.3e} (tol {OUT_BF16_REL_RMS:.3e}), lse {err['lse']:.3e} lse_u "
+        f"{err['lse_u']:.3e} (tol {TOL_LSE_BF16}); device time: the ring's blocks and merges "
+        f"{ring_ms:.3f} ms, the single call {single_ms:.3f} ms")
+    if not (err["out"] <= tol_out and rel_rms <= OUT_BF16_REL_RMS
+            and err["lse"] <= TOL_LSE_BF16 and err["lse_u"] <= TOL_LSE_BF16):
+        raise AssertionError(f"ring of {n} ranks disagrees with the single call: {err}")
+
+
+def parallel_train_8b(runner):
+    """The phase-5 step (mimic preset, phase 5's batch on precomputed image
+    features) with attn_impl="ring" on a one-rank (data x sp) mesh and
+    ring_min_len=1024, against the "flash" step from the same shift."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.models.lvlm import encode_images
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+    from mimic_tpu_torch.shift.params import (init_shift_params, multi_head, needs_attn_capture,
+                                               needs_ffn_capture)
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+
+    cfg, frozen = runner.cfg, runner.params
+    L = cfg.text.num_layers
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "sp"))
+    ring_kw = dict(ring_mesh=mesh, ring_axis="sp", ring_batch_axis="data", ring_min_len=1024)
+    enc, peft = get_preset("mimic")
+    shift0 = init_shift_params(enc, cfg.text, torch.Generator(device="cuda").manual_seed(2),
+                               torch.device("cuda"))
+    batch = make_train_batch(cfg)
+    with torch.no_grad():
+        feats = {f"{p}_feats": encode_images(frozen, cfg, batch[f"{p}_pixels"],
+                                             batch[f"{p}_patch_mask"], attn_impl="flash")
+                 for p in ("full", "query")}
+    fb = {k: v for k, v in batch.items() if "pixels" not in k and "patch" not in k}
+    fb.update(feats)
+    common = dict(ce_loss_weight=peft.ce_loss_weight, align_loss_weight=peft.align_loss_weight,
+                  logz2="unmasked")
+
+    def one_step(attn_impl, **kw):
+        tree = {"shift": {k: v.clone() for k, v in shift0.items()}}
+        tx = build_optimizer(tree, lr=peft.lr, weight_decay=1e-3, warmup_steps=0,
+                             total_steps=1000, grad_clip=1.0)
+        step = ts.make_train_step(cfg, enc, tx, attn_impl=attn_impl, **common, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(ts.TrainState(tree, tx.init(tree), 0), frozen, fb)
+        torch.cuda.synchronize()
+        return state.trainable["shift"], {k: float(v) for k, v in m.items()}, time.perf_counter() - t
+
+    one_step("ring", **ring_kw)  # warm-up
+    tfa.reset_launch_counts()
+    tfb.reset_launch_counts()
+    ATTN_PATH_LOG.clear()
+    ring_shift, ring_m, ring_s = one_step("ring", **ring_kw)
+    launches = {**tfa.LAUNCHES, **tfb.LAUNCHES}
+    paths = list(ATTN_PATH_LOG)
+    tfa.reset_launch_counts()
+    tfb.reset_launch_counts()
+    flash_shift, flash_m, flash_s = one_step("flash")
+    flash_launches = {**tfa.LAUNCHES, **tfb.LAUNCHES}
+    log(f"[parallel] 8B step, attn_impl=\"ring\" on a one-rank (data 1 x sp 1) NCCL mesh, "
+        f"ring_min_len 1024, precomputed image features: {ring_s:.3f} s, paths {paths}, launches "
+        f"{launches}; " + ", ".join(f"{k} {v:.6g}" for k, v in ring_m.items()))
+    log(f"[parallel] the same step through \"flash\": {flash_s:.3f} s, launches "
+        f"{flash_launches}; " + ", ".join(f"{k} {v:.6g}" for k, v in flash_m.items()))
+    # the record pass rides the ring; the shift pass, shorter than ring_min_len,
+    # stays on the one rank and takes the kernels, forward and backward
+    if paths != ["ring", "flash"]:
+        raise AssertionError(f"the record pass did not ride the ring: {paths}")
+    # n² launches per ring attention (n = 1) and one per layer; layer 0's q/k/v
+    # come from frozen embeddings, so the backward pair runs for layers 1..L-1
+    want = {**dict.fromkeys(launches, 0), "onepass_fwd": 2 * L,
+            "flash_bwd_dq": L - 1, "flash_bwd_dkv": L - 1}
+    if launches != want or flash_launches != want:
+        raise AssertionError(f"ring step launched {launches}, the flash step {flash_launches}, "
+                             f"want {want}")
+    if not all(np.isfinite(v) for v in ring_m.values()) or not ring_m["grad_norm"] > 0:
+        raise AssertionError(f"ring step metrics not finite or zero gradient: {ring_m}")
+    rel = abs(ring_m["loss"] - flash_m["loss"]) / abs(flash_m["loss"])
+    moved = {k: (ring_shift[k] - v).abs().max().item() for k, v in shift0.items()}
+    upd_cos = {k: torch.nn.functional.cosine_similarity(
+        (ring_shift[k] - v).flatten().float(), (flash_shift[k] - v).flatten().float(), dim=0).item()
+        for k, v in shift0.items()}
+    # phase 5's gate: one step's gradients, here the ring's against the kernels'
+    loss_kw = dict(cfg=cfg, strategy=enc.strategy(), rec_attn=needs_attn_capture(enc),
+                   rec_ffn=needs_ffn_capture(enc), mh=multi_head(enc), **common)
+    grads = {}
+    for name, kw in (("ring", dict(attn_impl="ring", ring_kwargs=ring_kw)),
+                     ("flash", dict(attn_impl="flash"))):
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in shift0.items()}
+        with torch.enable_grad():
+            loss, _ = ts.compute_loss({"shift": leaves}, frozen, fb, **loss_kw, **kw)
+            grads[name] = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    cos = {k: torch.nn.functional.cosine_similarity(
+        grads["ring"][k].flatten(), grads["flash"][k].flatten(), dim=0).item() for k in shift0}
+    log(f"[parallel] ring against flash: loss relative difference {rel:.3e}; gradient cosine "
+        f"{cos} (need >= {MIN_GRAD_COSINE}); shift max |change| {moved}; update cosine {upd_cos}")
+    if min(cos.values()) < MIN_GRAD_COSINE or not all(x > 0 for x in moved.values()):
+        raise AssertionError("the ring step disagrees with the flash step")
+    return launches
+
+
+def parallel_call_a(runner):
+    """Call A under use_mesh(make_mesh(1, 1)) against call A without a mesh."""
+    from mimic_tpu_torch import parallel
+
+    images, texts, _ = serving_calls()["A"]
+    tokenizer = runner.tokenizer
+
+    def call_a():
+        """Call A's token rows (the ids the runner decodes) and strings."""
+        rows, decode = [], tokenizer.decode
+        tokenizer.decode = lambda row, **kw: rows.append([int(t) for t in row]) or decode(row, **kw)
+        try:
+            text = runner.generate(images, texts, num_beams=NUM_BEAMS,
+                                   max_new_tokens=MAX_NEW_TOKENS)
+        finally:
+            del tokenizer.decode
+        return rows, text
+
+    want = call_a()
+    with parallel.use_mesh(parallel.make_mesh(1, 1)):
+        got = call_a()
+    log(f"[parallel] call A under use_mesh(make_mesh(1, 1)): tokens {got[0]}, text {got[1]}")
+    if got != want or not got[0]:
+        raise AssertionError(f"call A under a one-rank mesh {got} != without {want}")
+
+
+def phase_parallel(runner):
+    """Phase 17: (a) the ring's blocks through the kernels; (b) the mesh path on
+    a one-rank NCCL group made from a file:// store in a temporary directory."""
+    import torch.distributed as dist
+
+    for n, T in RING_CASES:
+        ring_harness(n, T)
+    with tempfile.TemporaryDirectory(prefix="mimic_pg_") as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+        try:
+            launches = parallel_train_8b(runner)
+            parallel_call_a(runner)
+        finally:
+            dist.destroy_process_group()
+    return {"ring train step": launches}
+
+
 def phase_tiny_engine():
     from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.models.lvlm import init_lvlm_params
@@ -5046,6 +5276,13 @@ def main() -> int:
         log("[card] partial run (--serve-only): phase 16 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--parallel-only"]:
+        t = time.perf_counter()
+        phase_parallel(main_runner())
+        log(f"[time] phase 17 parallel: {time.perf_counter() - t:.1f} s")
+        log("[card] partial run (--parallel-only): phase 17 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--idefics1-only"]:
         check_kernel(*CLIP_VIT_CASE[:-1])
         for case in CLIP_FP32_CASES:
@@ -5103,6 +5340,7 @@ def main() -> int:
     cache_launches = timed("phase 12 caches, sampling, converter", phase_caches_8b, runner)
     peft_launches = timed("phase 13 LoRA and prefix", phase_peft_8b, runner)
     serve_engine_launches = timed("phase 16 serve engine and tracing", phase_serve_8b, runner)
+    parallel_launches = timed("phase 17 parallel", phase_parallel, runner)
     with tempfile.TemporaryDirectory(prefix="mimic_smoke_") as result_dir:
         ckpt, trained_shift = timed("phase 11 run_train", phase_train_for_eval, runner,
                                     result_dir)
@@ -5125,7 +5363,8 @@ def main() -> int:
     # and train steps, the llava calls, step and eval), each driven with the
     # counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
-             **peft_launches, **serve_engine_launches, "int8 serving": int8_launches,
+             **peft_launches, **serve_engine_launches, **parallel_launches,
+             "int8 serving": int8_launches,
              "W8A8 eval": eval_launches, **idefics_launches, **llava_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))

@@ -16,7 +16,8 @@ DeviceLike = Union[str, torch.device]
 
 def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
     """``None`` (the card) / ``"cpu"`` / ``"cuda"`` / ``"cuda:N"`` /
-    ``torch.device`` → ``torch.device``.
+    ``torch.device`` → ``torch.device``.  ``"cuda"`` without an index is the
+    current card (``cuda:LOCAL_RANK`` in a process group).
 
     Raises ``RuntimeError`` for a CUDA device when CUDA is unavailable or the
     index is out of range, and ``ValueError`` for any other device type.
@@ -28,7 +29,7 @@ def resolve_device(device: Optional[DeviceLike] = None) -> torch.device:
         raise ValueError(f"unsupported device type {dev.type!r} (use 'cpu' or 'cuda')")
     if not torch.cuda.is_available():
         raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not available")
-    index = 0 if dev.index is None else dev.index
+    index = torch.cuda.current_device() if dev.index is None else dev.index
     if index >= torch.cuda.device_count():
         raise RuntimeError(
             f"device {str(dev)!r} requested but only "

@@ -31,8 +31,17 @@ and Mistral's sliding window (the plain prefill's mask and the cached decode).
 The tracing utilities' layer-input captures (``capture_layer_inputs``) and
 additive perturbations of the block outputs (``perturb_attn`` /
 ``perturb_ffn``), and the serve engine's per-row cache writes
-(``cache_write_pos``).  Not ported yet (raises ``NotImplementedError``): ring
-attention (``ring_mesh``).
+(``cache_write_pos``).
+
+Under a current mesh with a ``model`` axis (``parallel.use_mesh``, the tree
+from ``parallel.shard_params``) each rank runs its heads: q/k/v and the MLP's
+gate/up are column-parallel, ``o_proj`` and ``down_proj`` row-parallel and
+followed by an all-reduce (``parallel/tp.py``); the KV cache holds this
+rank's KV heads; the attention shift, LoRA's B (and ``o``'s A) are sliced to
+this rank's heads and their gradients summed over ``model``.  Ring attention
+(``attn_impl="ring"`` with ``ring_mesh``) runs the cacheless attention of long
+sequences as a sequence-parallel ring (``ops/ring_attention.py``), forward
+only.
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ import torch.utils.checkpoint
 from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
 from ..ops.quant import fused_mlp, qdot
+from ..ops.ring_attention import ring_attention_sharded
+from ..parallel import tp
+from ..parallel.mesh import axis_rank, axis_size, current_mesh
 from .config import TextConfig
 from ..shift.functional import apply_attn_shift, apply_output_shift
 from .layers import (
@@ -149,7 +161,9 @@ def init_decoder_params(
 def init_kv_cache(
     cfg: TextConfig, batch: int, max_len: int, device, dtype=torch.float32
 ) -> Dict[str, Any]:
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_size)
+    """An empty cache of this rank's KV heads (all of them without a model axis)."""
+    kv_heads = tp.local_heads(cfg.num_kv_heads, cfg.head_size, "k_proj")
+    shape = (cfg.num_layers, batch, max_len, kv_heads, cfg.head_size)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -176,19 +190,49 @@ def lora_dropout_keep(
 
 def _lora_delta(
     ad: Params, name: str, x: torch.Tensor, scaling: float,
-    keep: Optional[torch.Tensor] = None, rate: float = 0.0,
+    keep: Optional[torch.Tensor] = None, rate: float = 0.0, out_width: Optional[int] = None,
 ) -> Optional[torch.Tensor]:
     """scaling · B(A(dropout(x))) for one projection, or None (dropout on the
     adapter input only, peft's semantics).  The adapter math runs in the
     adapter's dtype (fp32 trainables over a bf16 tower: ``torch.matmul`` does
     not promote bf16 x fp32 as ``jnp.dot`` does, so x is cast); the delta
-    returns in x's dtype."""
+    returns in x's dtype.
+
+    Under a model axis: q/k/v's delta is this rank's ``out_width`` columns (B
+    sliced); ``o``'s input is this rank's columns, so A is sliced to its rows
+    and A's partial product summed over ``model`` before B."""
     a, b = ad.get(f"{name}_a"), ad.get(f"{name}_b")
     if a is None:
         return None
     if keep is not None:
+        keep = tp.local_block(keep, -1, x.shape[-1])
         x = torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
-    return (scaling * torch.matmul(torch.matmul(x.to(a.dtype), a), b)).to(x.dtype)
+    split_in = a.shape[0] != x.shape[-1]
+    u = torch.matmul(x.to(a.dtype), tp.shared_heads(a, 0, x.shape[-1]))
+    if split_in:
+        u = tp.reduce_from_region(u)
+    if out_width is not None and out_width != b.shape[-1]:
+        u, b = tp.copy_to_region(u), tp.shared_heads(b, -1, out_width)
+    return (scaling * torch.matmul(u, b)).to(x.dtype)
+
+
+def _heads(cfg: TextConfig, what: str):
+    """(this rank's query heads, its KV heads): all of them without a model axis."""
+    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    Hl, Hkvl = tp.local_heads(H, Dh, what), tp.local_heads(Hkv, Dh, what)
+    if Hl * Hkv != Hkvl * H:
+        raise NotImplementedError(
+            f"{what}: {H} query and {Hkv} KV heads do not split alike over a model axis "
+            f"of {tp.model_size()}"
+        )
+    return Hl, Hkvl
+
+
+def _mlp(hn: torch.Tensor, gate: Any, up: Any, down: Any, F: int) -> torch.Tensor:
+    """The SwiGLU MLP, column-parallel gate/up and row-parallel down under a
+    model axis."""
+    split = not isinstance(gate, dict) and tp.is_split(gate, -1, F, "gate_proj")
+    return tp.reduce_from_region(swiglu_mlp(tp.copy_to_region(hn, split), gate, up, down), split)
 
 
 def _project_qkv(
@@ -196,7 +240,8 @@ def _project_qkv(
     keeps: Optional[list], rate: float,
 ):
     B, T, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, Hkv = _heads(cfg, "q/k/v_proj")
+    Dh = cfg.head_size
     if "qkv_proj" in lp:
         # the int8 serving tree fuses q/k/v into one matmul
         qkv = qdot(x, lp["qkv_proj"])
@@ -204,12 +249,15 @@ def _project_qkv(
         k = qkv[..., H * Dh : (H + Hkv) * Dh]
         v = qkv[..., (H + Hkv) * Dh :]
     else:
-        q, k, v = (qdot(x, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+        split = tp.is_split(lp["q_proj"], -1, cfg.num_heads * Dh, "q_proj")
+        x_in = tp.copy_to_region(x, split)
+        q, k, v = (qdot(x_in, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
     if "q_bias" in lp:
         q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
     out = []
     for slot, (name, y) in enumerate((("q", q), ("k", k), ("v", v))):
-        delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate)
+        delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate,
+                            out_width=y.shape[-1])
         out.append(y if delta is None else y + delta)
     q, k, v = out
     return q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
@@ -260,12 +308,14 @@ def _self_attention(
     prompt_v: Optional[torch.Tensor] = None,
     prompt_mask: Optional[torch.Tensor] = None,
     prefix_merge_len: int = 0,
+    ring: Optional[tuple] = None,
 ):
     """Returns (attn block output [B,T,D], new k block, new v block).
 
     ``prefix_merge_len`` (P > 0, the prefix-tuning prefill): the cache holds
     only the P prefix slots; the block takes the cacheless path and
-    ``_merge_prefix`` adds them."""
+    ``_merge_prefix`` adds them.  ``ring``: (mesh, sequence axis, batch axis)
+    of the ring attention path."""
     B, T, _ = x.shape
     q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate)
     q, k = apply_rope(q, k, cos, sin)
@@ -291,6 +341,14 @@ def _self_attention(
             prompt_k=prompt_k, prompt_v=prompt_v, prompt_mask=prompt_mask,
             window=cfg.sliding_window, need_unmasked=need_unmasked,
         )
+    elif ring is not None:
+        # sequence-parallel exact attention: Q stays local, K/V blocks travel
+        # the ring; the same (out, lse, lse_u) contract as the kernels
+        mesh, seq_axis, batch_axis = ring
+        attn, lse, lse_u = ring_attention_sharded(
+            mesh, q, k, v, key_mask, axis_name=seq_axis, causal=True,
+            need_unmasked=need_unmasked, batch_axis=batch_axis,
+        )
     elif use_flash:
         # the CUDA kernels on the card, their plain version on the CPU: causal +
         # key padding handled inside, both log-normalizers come out; gradients
@@ -308,11 +366,17 @@ def _self_attention(
             q, attn, lse, lse_u if need_unmasked else None, cache_k[:, :P], cache_v[:, :P],
             cfg.num_groups,
         )
+    split = q.shape[2] != cfg.num_heads
     if ls:
         log_z2 = lse if logz2 == "masked" else lse_u
-        attn = apply_attn_shift(ls, q, log_z2, attn, multi_head)
+        if split:
+            # this rank's heads (multi-head leaves) or columns (the flat form)
+            width = q.shape[2] * (1 if multi_head else cfg.head_size)
+            ls = {name: w if name == "attn_logz1_b" and not multi_head
+                  else tp.shared_heads(w, 0, width) for name, w in ls.items()}
+        attn = apply_attn_shift(ls, q, log_z2, attn, multi_head, model_split=split)
     attn_flat = attn.reshape(B, T, -1)
-    out = qdot(attn_flat, lp["o_proj"])
+    out = tp.reduce_from_region(qdot(attn_flat, lp["o_proj"]), split)
     delta = _lora_delta(ad, "o", attn_flat, lora_scaling, keeps[3] if keeps else None, drop_rate)
     return (out if delta is None else out + delta), k, v
 
@@ -329,22 +393,25 @@ def _cross_attention(
     A text row before the first image has an all-false mask row: the plain
     ``sdpa_with_lse`` gives it the mean of v, never NaN, as in JAX."""
     B, T, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
+    H, Hkv = _heads(cfg, "cross q/k/v_proj")
+    Dh = cfg.head_size
+    split = H != cfg.num_heads
     S = cross_states.shape[1]
-    h = rms_norm(x, cp["input_ln"], cfg.norm_eps)
+    h = tp.copy_to_region(rms_norm(x, cp["input_ln"], cfg.norm_eps), split)
+    states = tp.copy_to_region(cross_states, split)
     q = qdot(h, cp["q_proj"]).reshape(B, T, H, Dh)
-    k = qdot(cross_states, cp["k_proj"]).reshape(B, S, Hkv, Dh)
-    v = qdot(cross_states, cp["v_proj"]).reshape(B, S, Hkv, Dh)
+    k = qdot(states, cp["k_proj"]).reshape(B, S, Hkv, Dh)
+    v = qdot(states, cp["v_proj"]).reshape(B, S, Hkv, Dh)
     if cfg.cross_qk_layernorm:
         q = rms_norm(q, cp["q_ln"], cfg.norm_eps)
         k = rms_norm(k, cp["k_ln"], cfg.norm_eps)
     attn, _ = sdpa_with_lse(
         q, repeat_kv(k, cfg.num_groups), repeat_kv(v, cfg.num_groups), cross_mask
     )
-    attn_out = qdot(attn.reshape(B, T, -1), cp["o_proj"])
+    attn_out = tp.reduce_from_region(qdot(attn.reshape(B, T, -1), cp["o_proj"]), split)
     h = x + torch.tanh(cp["alpha_attn"]).to(x.dtype) * attn_out
     m = rms_norm(h, cp["post_ln"], cfg.norm_eps)
-    mlp_out = swiglu_mlp(m, cp["gate_proj"], cp["up_proj"], cp["down_proj"])
+    mlp_out = _mlp(m, cp["gate_proj"], cp["up_proj"], cp["down_proj"], cfg.intermediate_size)
     return h + torch.tanh(cp["alpha_dense"]).to(x.dtype) * mlp_out
 
 
@@ -363,9 +430,6 @@ def _layer_view(w: Any, l: int) -> Any:
     if isinstance(w, dict):
         return dict(w, layer=l)
     return w[l]
-
-
-_UNPORTED_DEFAULTS = {"ring_mesh": None}
 
 
 def decoder_forward(
@@ -397,7 +461,10 @@ def decoder_forward(
     perturb_attn: Optional[torch.Tensor] = None,
     perturb_ffn: Optional[torch.Tensor] = None,
     cache_write_pos: Optional[torch.Tensor] = None,
-    **unported: Any,
+    ring_mesh: Any = None,
+    ring_axis: str = "sp",
+    ring_batch_axis: Optional[str] = None,
+    ring_min_len: int = 0,
 ) -> DecoderOutput:
     """Run the decoder stack.
 
@@ -446,13 +513,22 @@ def decoder_forward(
     (a retired slot) writes nothing, as JAX's scatter drops an out-of-range
     update: the write goes to a clamped column with that column's own value,
     so no index leaves the cache and nothing waits for the device.
+
+    ``attn_impl="ring"`` with ``ring_mesh`` (a ``DeviceMesh``): cacheless
+    sequences of at least ``ring_min_len`` tokens that split over the mesh's
+    ``ring_axis`` take ``ops/ring_attention.py``; ``ring_batch_axis`` names
+    the mesh's data axis when the batch is this rank's rows of it.  Shorter
+    ones take the plain path, as in JAX.  Forward only.
     """
-    for name, value in unported.items():
-        if name not in _UNPORTED_DEFAULTS:
-            raise TypeError(f"decoder_forward() got an unexpected keyword argument {name!r}")
-        if isinstance(value, torch.Tensor) or value != _UNPORTED_DEFAULTS[name]:
-            raise NotImplementedError(f"decoder_forward: {name} is not ported yet")
     B, T, D = input_embeds.shape
+    if tp.model_size() > 1:
+        stacks = (params["layers"], params.get("cross") or {})
+        if any(isinstance(w, dict) for stack in stacks for w in stack.values()):
+            raise NotImplementedError(
+                "decoder_forward: int8 weight handles under a model axis are not ported")
+        if ring_mesh is not None:
+            raise NotImplementedError(
+                "decoder_forward: ring attention with a model axis is not ported")
     if cache_write_pos is not None and (kv_cache is None or T != 1):
         raise ValueError("cache_write_pos needs a kv_cache and a one-token step (T = 1)")
     cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
@@ -490,13 +566,18 @@ def decoder_forward(
     selected = select_attn_path(
         cfg, attn_impl, T, cacheless=attend_cacheless or prefix_merge,
         has_key_mask=key_mask is not None,
+        # the ring has no prefix-merge contract
+        ring_mesh=None if prefix_merge else ring_mesh, ring_axis=ring_axis,
+        ring_min_len=ring_min_len, on_card=input_embeds.device.type == "cuda",
     )
+    ring = (ring_mesh, ring_axis, ring_batch_axis) if selected == "ring" else None
     ATTN_PATH_LOG.append(selected + "+prefix" if prefix_merge else selected)
     if prompt_quant:
         ATTN_PATH_LOG.append("quant_kv")  # once per call, as JAX logs it once per trace
     use_flash = selected == "flash"
     layer_key_mask = key_mask[:, :T] if (use_cache and cache_empty) else key_mask
     drop = dropout_generator is not None and lora_dropout > 0.0 and bool(adapters)
+    mesh = current_mesh()
     in_place = not torch.is_grad_enabled()
     remat = remat and torch.is_grad_enabled()
 
@@ -541,6 +622,7 @@ def decoder_forward(
             prompt_v=_layer_view(kv_cache["prompt_v"], l) if has_prompt else None,
             prompt_mask=prompt_mask,
             prefix_merge_len=prefix_flash_len if prefix_merge else 0,
+            ring=ring,
         )
         attn_out = apply_output_shift(
             attn_out, os_.get("attn_out_shift"), os_.get("attn_out_scale")
@@ -560,7 +642,8 @@ def decoder_forward(
                 ffn_out = qdot(torch.nn.functional.silu(gu[..., :F]) * gu[..., F:],
                                lp["down_proj"])
         else:
-            ffn_out = swiglu_mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"])
+            ffn_out = _mlp(hn, lp["gate_proj"], lp["up_proj"], lp["down_proj"],
+                           cfg.intermediate_size)
         ffn_out = apply_output_shift(ffn_out, os_.get("ffn_shift"), os_.get("ffn_scale"))
         if pf is not None:
             ffn_out = ffn_out + pf.to(ffn_out.dtype)
@@ -581,10 +664,14 @@ def decoder_forward(
         keeps = None
         if drop:
             # drawn outside the rematerialised body: the recompute must see the
-            # same masks, and checkpoint restores only the default generators
-            shapes = ((B, T, D),) * 3 + ((B, T, cfg.num_heads * cfg.head_size),)
+            # same masks, and checkpoint restores only the default generators.
+            # Under a data axis each rank draws the whole batch's masks and keeps
+            # its rows, so the masks are those of the batch in one process
+            n_data = axis_size(mesh, "data")
+            shapes = ((B * n_data, T, D),) * 3 + ((B * n_data, T, cfg.num_heads * cfg.head_size),)
             keeps = [
                 lora_dropout_keep(dropout_generator, l, slot, shape, lora_dropout)
+                .narrow(0, axis_rank(mesh, "data") * B, B)
                 if f"{name}_a" in adapters else None
                 for slot, (name, shape) in enumerate(zip("qkvo", shapes))
             ]
@@ -662,27 +749,44 @@ def select_attn_path(
     *,
     cacheless: bool,
     has_key_mask: bool,
+    ring_mesh: Any = None,
+    ring_axis: str = "sp",
+    ring_min_len: int = 0,
+    on_card: bool = False,
 ) -> str:
     """Which attention implementation a decoder_forward call uses.
 
     - ``"flash"``: the attention kernels — cacheless, 2D key mask present,
       128-aligned T and head size, no sliding window narrower than T;
+    - ``"ring"``: the sequence-parallel ring over ``ring_axis`` of
+      ``ring_mesh`` — long cacheless sequences whose length splits over the
+      axis (the record pass of a >32-shot MimIC step); short passes stay on
+      one rank.  ``on_card``: the ring's blocks run the kernels, so each
+      chunk must also meet the flash path's alignment, and a ``"ring"`` pass
+      that stays on one rank takes the kernels where ``"flash"`` would (on
+      the CPU it stays ``"xla"``, as in JAX);
     - ``"cached"``: the two-part read-only-cache path (decode steps);
     - ``"xla"``: plain masked sdpa (the name is kept from the JAX package).
     """
-    if attn_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
     if not cacheless:
         return "cached"
-    if (
-        attn_impl == "flash"
-        and has_key_mask
-        and T % 128 == 0
-        and cfg.head_size % 128 == 0
-        and (cfg.sliding_window is None or T <= cfg.sliding_window)
-    ):
+
+    def flash_ok(t):
+        return (has_key_mask and t % 128 == 0 and cfg.head_size % 128 == 0
+                and (cfg.sliding_window is None or t <= cfg.sliding_window))
+
+    if attn_impl == "flash" and flash_ok(T):
         return "flash"
-    return "xla"
+    if attn_impl != "ring":
+        return "xla"
+    if has_key_mask and ring_mesh is not None and cfg.sliding_window is None:
+        n_sp = axis_size(ring_mesh, ring_axis)
+        if (
+            T % n_sp == 0 and T >= max(ring_min_len, n_sp)
+            and (not on_card or flash_ok(T // n_sp))
+        ):
+            return "ring"
+    return "flash" if on_card and flash_ok(T) else "xla"
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,10 @@
 """Text language model = embedding + decoder stack + lm head
-(counterpart of ``mimic_tpu/models/lm.py``)."""
+(counterpart of ``mimic_tpu/models/lm.py``).
+
+Under a model axis whose size divides the vocab (``parallel.shard_params``'
+tree) the embedding holds this rank's vocab rows: the lookup is masked to
+them and summed over ``model``; the lm head (or the tied embedding) gives
+this rank's vocab columns, gathered over ``model`` into the full logits."""
 
 from __future__ import annotations
 
@@ -8,6 +13,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from ..ops.quant import qdot
+from ..parallel import tp
 from .config import TextConfig
 from .decoder import DecoderOutput, decoder_forward, dense_init, init_decoder_params
 
@@ -33,17 +39,32 @@ def init_lm_params(
     return params
 
 
-def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"][input_ids]
+def embed_tokens(params: Params, cfg: TextConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    embed = params["embed"]
+    width = tp.split_width(cfg.vocab_size)
+    if width == cfg.vocab_size:
+        return embed[input_ids]
+    tp.check_width(embed, 0, width, "embed")
+    local = input_ids - tp.model_rank() * width
+    mine = (local >= 0) & (local < width)
+    rows = embed[local.clamp(0, width - 1)]
+    return tp.reduce_from_region(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
 def lm_head(params: Params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits.  A plain product runs in the parameter dtype and is upcast
     after (JAX accumulates into fp32 outputs directly; in fp32 the two agree);
     an int8 ``lm_head`` writes fp32 logits from its fp32 sums (``qdot``)."""
+    w = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
+    if isinstance(w, dict) and tp.split_width(cfg.vocab_size) != cfg.vocab_size:
+        raise NotImplementedError("lm_head: an int8 handle under a model axis is not ported")
+    split = not isinstance(w, dict) and tp.is_split(w, -1, cfg.vocab_size, "lm_head")
+    hidden = tp.copy_to_region(hidden, split)
     if cfg.tie_word_embeddings:
-        return (hidden @ params["embed"].t()).float()
-    return qdot(hidden, params["lm_head"], preferred_element_type=torch.float32)
+        logits = (hidden @ w).float()
+    else:
+        logits = qdot(hidden, w, preferred_element_type=torch.float32)
+    return tp.gather_from_region(logits) if split else logits
 
 
 def lm_forward(
@@ -58,7 +79,7 @@ def lm_forward(
     **decoder_kwargs,
 ) -> LMOutput:
     if input_embeds is None:
-        input_embeds = embed_tokens(params, input_ids)
+        input_embeds = embed_tokens(params, cfg, input_ids)
     B, T, _ = input_embeds.shape
     if position_ids is None:
         position_ids = torch.arange(T, device=input_embeds.device)[None].expand(B, T)

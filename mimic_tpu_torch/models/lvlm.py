@@ -171,7 +171,7 @@ def lvlm_forward(
     ``pixel_values``, which a decode step would then have to carry)."""
     _check_family(cfg)
     input_ids = batch.input_ids
-    embeds = embed_tokens(params["lm"], input_ids)
+    embeds = embed_tokens(params["lm"], cfg.text, input_ids)
     if batch.pixel_values is not None and image_feats is None:
         image_feats = encode_images(
             params, cfg, batch.pixel_values, batch.patch_mask,

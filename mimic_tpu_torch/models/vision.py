@@ -11,6 +11,14 @@ towers leave before the final norm (``post_layernorm=False``: llava takes
 ``vision_feature_layer=-2``); their tree keeps ``post_ln_*`` as the JAX
 initialiser and converter write it, unused.  ``llava_project`` is the llava
 projector (two linears around an exact GELU).
+
+Under a model axis (``parallel.shard_params``' tree) the leaves the rules
+split run tensor-parallel: each attention on this rank's heads (q/k/v
+column-parallel with their biases, ``o_proj`` row-parallel), the ViT's
+``fc1``/``fc2``, the connector's MLP and ``modality_proj`` and the llava
+projector column- then row-parallel.  A replicated bias of a column-parallel
+output (``fc1_bias``) is sliced to this rank's columns; the bias of a
+row-parallel output is added once, after the all-reduce.
 """
 
 from __future__ import annotations
@@ -21,11 +29,31 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.flash_attention import ONEPASS_MAX_S_NONCAUSAL, flash_attention
+from ..parallel import tp
 from .config import PerceiverConfig, VisionConfig
 from .decoder import dense_init
 from .layers import gelu_act, layer_norm, repeat_kv, rms_norm, sdpa_with_lse
 
 Params = Dict[str, Any]
+
+
+def _connector_split(gate: torch.Tensor, what: str) -> bool:
+    """Whether a connector MLP's gate (and so its up and down) is split over
+    the model axis.  Its full width is not the config's: checkpoints converted
+    from HF give the connector's two MLPs two widths where the config holds
+    one (``models/factory.py::check_params``).  ``shard_params`` splits a
+    width F when n divides it, leaving F / n; a width it left whole is not a
+    multiple of n.  So a local width that n divides was split, and one it does
+    not divide is ambiguous (a whole F, or a split one whose F / n is not a
+    multiple of n) and raises."""
+    n = tp.model_size()
+    if n == 1:
+        return False
+    if gate.shape[-1] % n:
+        raise NotImplementedError(
+            f"{what}: width {gate.shape[-1]} under a model axis of {n}: cannot tell a "
+            "split width from a whole one")
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +176,8 @@ def vit_forward(
     if cfg.use_class_token:
         x = layer_norm(x, params["pre_ln_w"], params["pre_ln_b"], cfg.norm_eps)
 
-    H = cfg.num_heads
-    Dh = cfg.hidden_size // H
+    Dh = cfg.hidden_size // cfg.num_heads
+    H = tp.local_heads(cfg.num_heads, Dh, "vision q/k/v_proj")
     n_tokens = x.shape[1]
     use_flash = attn_impl == "flash"
     flash_kmask = None
@@ -167,11 +195,13 @@ def vit_forward(
         flash_kmask = F.pad(valid.to(torch.int32), (0, n_pad))
 
     layers = params["layers"]
+    split_attn = tp.is_split(layers["q_proj"], -1, cfg.hidden_size, "vision q_proj")
+    split_mlp = tp.is_split(layers["fc1"], -1, cfg.intermediate_size, "vision fc1")
     for l in range(cfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         residual = x
-        hn = layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps)
-        B_, N, D = hn.shape
+        hn = tp.copy_to_region(layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps), split_attn)
+        B_, N, _ = hn.shape
         q = (hn @ lp["q_proj"] + lp["q_bias"]).reshape(B_, N, H, Dh)
         k = (hn @ lp["k_proj"] + lp["k_bias"]).reshape(B_, N, H, Dh)
         v = (hn @ lp["v_proj"] + lp["v_bias"]).reshape(B_, N, H, Dh)
@@ -181,11 +211,13 @@ def vit_forward(
             )
         else:
             attn, _ = sdpa_with_lse(q, k, v, mask=key_mask)
-        x = residual + attn.reshape(B_, N, D) @ lp["o_proj"] + lp["o_bias"]
+        o = tp.reduce_from_region(attn.reshape(B_, N, H * Dh) @ lp["o_proj"], split_attn)
+        x = residual + o + lp["o_bias"]
         residual = x
-        hn = layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps)
-        hn = gelu_act(hn @ lp["fc1"] + lp["fc1_bias"], cfg.hidden_act)
-        x = residual + hn @ lp["fc2"] + lp["fc2_bias"]
+        hn = tp.copy_to_region(layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps), split_mlp)
+        fc1_bias = tp.local_block(lp["fc1_bias"], -1, lp["fc1"].shape[-1])
+        hn = gelu_act(hn @ lp["fc1"] + fc1_bias, cfg.hidden_act)
+        x = residual + tp.reduce_from_region(hn @ lp["fc2"], split_mlp) + lp["fc2_bias"]
 
     if use_flash and x.shape[1] != n_tokens:
         x = x[:, :n_tokens]
@@ -298,34 +330,41 @@ def perceiver_forward(
         return _perceiver_idefics1(params, pcfg, vision_feats, norm_eps, context_mask)
     if "modality_proj" in params:
         mp = params["modality_proj"]
-        vision_feats = (F.silu(vision_feats @ mp["gate"]) * (vision_feats @ mp["up"])) @ mp["down"]
+        split = _connector_split(mp["gate"], "modality_proj gate")
+        x = tp.copy_to_region(vision_feats, split)
+        h = F.silu(x @ mp["gate"]) * (x @ mp["up"])
+        vision_feats = tp.reduce_from_region(h @ mp["down"], split)
 
     B = vision_feats.shape[0]
     width = vision_feats.shape[-1]
-    H = pcfg.num_heads
-    Hkv = pcfg.num_kv_heads or H
-    Dh = pcfg.head_dim or width // H
+    Dh = pcfg.head_dim or width // pcfg.num_heads
+    H = tp.local_heads(pcfg.num_heads, Dh, "connector q_proj")
+    Hkv = tp.local_heads(pcfg.num_kv_heads or pcfg.num_heads, Dh, "connector k_proj")
     n_lat = params["latents"].shape[0]
     latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
 
     kv_mask = _context_key_mask(context_mask, n_lat)
 
     layers = params["layers"]
+    split_attn = H != pcfg.num_heads
+    split_mlp = _connector_split(layers["gate_proj"], "connector gate_proj")
     for l in range(pcfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         residual = latents
         ln_lat = rms_norm(latents, lp["ln_latents"], norm_eps)
         ln_ctx = rms_norm(vision_feats, lp["ln_context"], norm_eps)
-        kv_input = torch.cat([ln_ctx, ln_lat], dim=1)
+        kv_input = tp.copy_to_region(torch.cat([ln_ctx, ln_lat], dim=1), split_attn)
         nq, nk = ln_lat.shape[1], kv_input.shape[1]
-        q = (ln_lat @ lp["q_proj"]).reshape(B, nq, H, Dh)
+        q = (tp.copy_to_region(ln_lat, split_attn) @ lp["q_proj"]).reshape(B, nq, H, Dh)
         k = (kv_input @ lp["k_proj"]).reshape(B, nk, Hkv, Dh)
         v = (kv_input @ lp["v_proj"]).reshape(B, nk, Hkv, Dh)
         attn, _ = sdpa_with_lse(q, repeat_kv(k, H // Hkv), repeat_kv(v, H // Hkv), kv_mask)
-        latents = residual + attn.reshape(B, nq, H * Dh) @ lp["o_proj"]
+        o = tp.reduce_from_region(attn.reshape(B, nq, H * Dh) @ lp["o_proj"], split_attn)
+        latents = residual + o
         residual = latents
-        ln = rms_norm(latents, lp["post_ln"], norm_eps)
-        latents = residual + (F.silu(ln @ lp["gate_proj"]) * (ln @ lp["up_proj"])) @ lp["down_proj"]
+        ln = tp.copy_to_region(rms_norm(latents, lp["post_ln"], norm_eps), split_mlp)
+        mlp = (F.silu(ln @ lp["gate_proj"]) * (ln @ lp["up_proj"])) @ lp["down_proj"]
+        latents = residual + tp.reduce_from_region(mlp, split_mlp)
     return rms_norm(latents, params["final_ln"], norm_eps)
 
 
@@ -349,8 +388,9 @@ def _perceiver_idefics1(
     latents += attn(q=ln(latents), kv=ln(context) ⊕ ln(latents));
     latents += ReLU-MLP(ln(latents)); then a final LayerNorm."""
     B, _, width = vision_feats.shape
-    H = pcfg.num_heads
-    Dh = pcfg.head_dim or width // H
+    Dh = pcfg.head_dim or width // pcfg.num_heads
+    H = tp.local_heads(pcfg.num_heads, Dh, "resampler q_proj")
+    split = H != pcfg.num_heads
     n_lat = params["latents"].shape[0]
     latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
     kv_mask = _context_key_mask(context_mask, n_lat)
@@ -360,16 +400,16 @@ def _perceiver_idefics1(
         lp = {name: w[l] for name, w in layers.items()}
         ctx_n = layer_norm(vision_feats, lp["ln_context_w"], lp["ln_context_b"], norm_eps)
         lat_n = layer_norm(latents, lp["ln_latents_w"], lp["ln_latents_b"], norm_eps)
-        kv_in = torch.cat([ctx_n, lat_n], dim=1)
+        kv_in = tp.copy_to_region(torch.cat([ctx_n, lat_n], dim=1), split)
         nq, nk = lat_n.shape[1], kv_in.shape[1]
-        q = (lat_n @ lp["q_proj"]).reshape(B, nq, H, Dh)
+        q = (tp.copy_to_region(lat_n, split) @ lp["q_proj"]).reshape(B, nq, H, Dh)
         k = (kv_in @ lp["k_proj"]).reshape(B, nk, H, Dh)
         v = (kv_in @ lp["v_proj"]).reshape(B, nk, H, Dh)
         if "q_ln_w" in lp:
             q = layer_norm(q, lp["q_ln_w"], lp["q_ln_b"], norm_eps)
             k = layer_norm(k, lp["k_ln_w"], lp["k_ln_b"], norm_eps)
         attn, _ = sdpa_with_lse(q, k, v, kv_mask)
-        latents = latents + attn.reshape(B, nq, H * Dh) @ lp["o_proj"]
+        latents = latents + tp.reduce_from_region(attn.reshape(B, nq, H * Dh) @ lp["o_proj"], split)
         m = layer_norm(latents, lp["mlp_ln_w"], lp["mlp_ln_b"], norm_eps)
         latents = latents + torch.relu(m @ lp["fc"]) @ lp["c_proj"]
     return layer_norm(latents, params["final_ln_w"], params["final_ln_b"], norm_eps)
@@ -393,5 +433,8 @@ def init_llava_projector(
 
 def llava_project(params: Params, vision_feats: torch.Tensor) -> torch.Tensor:
     """[.., vision_dim] → [.., text_dim]: fc2(gelu(fc1(x))), the GELU exact."""
-    x = F.gelu(vision_feats @ params["fc1"] + params["fc1_bias"], approximate="none")
-    return x @ params["fc2"] + params["fc2_bias"]
+    fc1 = params["fc1"]
+    split = tp.is_split(fc1, -1, params["fc2"].shape[-1], "projector fc1")
+    fc1_bias = tp.local_block(params["fc1_bias"], -1, fc1.shape[-1])
+    x = F.gelu(tp.copy_to_region(vision_feats, split) @ fc1 + fc1_bias, approximate="none")
+    return tp.reduce_from_region(x @ params["fc2"], split) + params["fc2_bias"]

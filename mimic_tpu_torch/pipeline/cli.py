@@ -12,6 +12,16 @@ Everything runs on the card; ``device=cpu`` (``train`` / ``eval``) or
 under the model's path (``MIMIC_TPU_IDEFICS2_8B_BASE_PATH``,
 ``config/paths.py``), else they are built with random weights
 (``models/factory.py``).
+
+On N cards (not run on more than one card so far)::
+
+    MIMIC_TPU_DISTRIBUTED=1 torchrun --nproc-per-node N -m mimic_tpu_torch train \
+        ... mesh.data_axis=D mesh.model_axis=M
+
+``train``, ``eval`` and ``pipeline`` first join the process group torchrun
+describes (``parallel.init_distributed``: ``nccl``, or ``gloo`` on the CPU);
+``train`` then lays the world out as a ``data`` x ``model`` mesh and ``eval``
+splits its queries over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from ..config import EvalConfig, TrainConfig, apply_overrides, get_preset
+from ..parallel import init_distributed
 
 # overrides that configure the run rather than a config field
 _RUN_KEYS = ("preset", "device", "result_dir")
@@ -44,12 +55,14 @@ def _split_overrides(overrides: List[str]) -> Tuple[dict, List[str]]:
 def _train(overrides: List[str], splits=None):
     cfg = TrainConfig()
     run, overrides = _split_overrides(overrides)
+    init_distributed(run["device"])
     if run["preset"]:
         cfg.encoder, cfg.peft = get_preset(run["preset"])
     apply_overrides(cfg, overrides)
     from .train_entry import run_train
 
-    return run_train(cfg, result_dir=run["result_dir"], splits=splits, device=run["device"])
+    return run_train(cfg, result_dir=run["result_dir"], splits=splits, device=run["device"],
+                     use_mesh=True)
 
 
 def _eval(overrides: List[str], splits=None, runner=None):
@@ -58,6 +71,7 @@ def _eval(overrides: List[str], splits=None, runner=None):
     files."""
     cfg = EvalConfig()
     run, overrides = _split_overrides(overrides)
+    init_distributed(run["device"])
     if run["preset"]:
         cfg.encoder, cfg.peft = get_preset(run["preset"])
     apply_overrides(cfg, overrides)
@@ -103,6 +117,7 @@ def _pipeline(args: List[str], splits=None):
     parser.add_argument("--result-dir", default="results")
     parser.add_argument("--device", default=None)
     ns = parser.parse_args(args)
+    init_distributed(ns.device)
     all_phases = not (ns.train or ns.eval or ns.analyze)
     from ..models.factory import build_model
     from .runner import PipelineSpec, run_pipeline

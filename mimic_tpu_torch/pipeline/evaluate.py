@@ -16,8 +16,11 @@ import os
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch.distributed as dist
+
 from ..config import EvalConfig, config_to_dict
 from ..data.adapters import build_adapter
+from ..parallel.mesh import axis_rank, axis_size, current_mesh
 from ..utils import get_expand_runname
 
 
@@ -45,8 +48,13 @@ def save_record(path: str, eval_result: Dict, records, train_cfg: Optional[Dict]
 
 
 def _default_shard() -> Tuple[int, int]:
-    """One process on one card: multi-host sharding is asked for explicitly
-    (``shard=(rank, num_replicas)``) until the port has a mesh."""
+    """(this rank's ``data`` coordinate, the ``data`` size) of the current mesh,
+    or of a process group laid out as ``data`` alone; (0, 1) in one process."""
+    mesh = current_mesh()
+    if mesh is not None:
+        return axis_rank(mesh, "data"), axis_size(mesh, "data")
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
     return 0, 1
 
 
@@ -95,8 +103,9 @@ def run_eval(
     """Evaluate ``runner`` on the configured dataset; returns (records, metrics) or
     None when the record already exists and resume is on.
 
-    Multi-host: ``shard=(rank, num_replicas)`` (default ``(0, 1)``)
-    splits the query set across hosts within this one task — the eval analog of
+    Multi-host: ``shard=(rank, num_replicas)`` (default ``_default_shard()``:
+    the ``data`` axis of the current mesh or process group) splits the query
+    set across hosts within this one task — the eval analog of
     ``train_entry``'s per-host sharding (the reference leaves extra GPUs idle
     during a single eval task, ``src/pipeline.py:169-227`` farms whole tasks
     only).  Non-zero ranks write a part file and return None; rank 0 waits for
@@ -148,7 +157,11 @@ def run_eval(
 
     records, eval_result = adapter.eval(cfg, runner)
 
+    # under a model axis every model rank ran the same queries; rank 0 of them writes
+    writes = shard is not None or axis_rank(current_mesh(), "model") == 0
     if num_replicas > 1:
+        if not writes:
+            return None
         # eval_result is the un-computed Metric (rows intact); merge across hosts
         metric = eval_result
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -168,5 +181,7 @@ def run_eval(
         cfg_file = os.path.join(os.path.dirname(cfg.ckpt_path), "config.json")
         if os.path.exists(cfg_file):
             train_cfg = json.load(open(cfg_file))
+    if not writes:
+        return records, eval_result
     save_record(path, eval_result, records, train_cfg, config_to_dict(cfg))
     return records, eval_result

@@ -4,9 +4,12 @@
 The training vision-feature cache (``train/vision_cache.py``) is on when
 ``cfg.vision_cache`` is set and the model has an inline-splice vision tower,
 as in the JAX entry.  The trainable tree holds the encoder's shift, LoRA
-adapters and a prefix-tuning KV as the config asks.  Differences from the JAX
-entry, a later slice's work: one process on one device (no mesh, no per-host
-sharding).
+adapters and a prefix-tuning KV as the config asks.  ``use_mesh`` in a
+process group of more than one rank lays the world out as
+``cfg.mesh.data_axis`` x ``cfg.mesh.model_axis``: the frozen tree is cut by
+``shard_params``, the trainables are ``replicate``d, every rank collates the
+same global batch of ``cfg.batch_size`` rows and keeps its ``data`` rows
+(``shard_batch``), and the training vision cache is off, as in JAX.
 ``attn_impl="auto"`` resolves to ``"flash"`` on CUDA and ``"xla"`` on the
 CPU; on the flash path the collator pads to multiples of 128, the alignment
 the decoder's flash path needs (at the collator's default of 64 a batch
@@ -15,6 +18,8 @@ could silently take the plain path).
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Any, Dict, Optional
 
 import torch
@@ -24,12 +29,13 @@ from ..data.adapters import build_adapter
 from ..data.prefetch import prefetch
 from ..device import DeviceLike, resolve_device
 from ..models.factory import build_model
+from .. import parallel
 from ..shift.lora import init_lora_params
 from ..shift.params import init_shift_params
 from ..shift.prefix import init_prefix_params
 from ..train.collate import TrainCollator
 from ..train.optim import build_optimizer, cosine_warmup_schedule
-from ..train.step import TrainState, make_train_step
+from ..train.step import TrainState, make_train_step, to_device_batch
 from ..train.trainer import get_max_epochs, train_loop
 from ..train.vision_cache import TrainVisionCache
 
@@ -62,10 +68,11 @@ def run_train(
     runner=None,
     splits=None,
     device: Optional[DeviceLike] = None,
+    use_mesh: bool = False,
 ) -> TrainState:
     """Train ``cfg``'s trainable tree on ``runner`` (built from ``cfg.model_name`` on
     ``device`` when not given; ``None`` is the card) and write
-    ``<result_dir>/ckpt/<runname>/``."""
+    ``<result_dir>/ckpt/<runname>/`` (rank 0 of a group writes)."""
     if runner is None:
         runner = build_model(cfg.model_name, cfg.data.name, device=device,
                              dtype=getattr(torch, cfg.dtype), seed=cfg.seed)
@@ -106,10 +113,14 @@ def run_train(
     )
     # demo images resample from the fixed train set and the tower is frozen:
     # cache their encoded features instead of encoding them every step
+    mesh = None
+    if use_mesh and _world_size() > 1:
+        mesh = parallel.make_mesh(cfg.mesh.data_axis, cfg.mesh.model_axis, device_type=dev.type)
     use_vcache = (
         cfg.vision_cache
         and runner.cfg.family != "idefics1"
         and runner.cfg.vision is not None
+        and mesh is None
     )
     collator = TrainCollator(
         runner.processor, cfg.encoder.strategy(),
@@ -125,6 +136,12 @@ def run_train(
             runner.cfg, runner.params, max_bytes=cfg.vision_cache_mb * 1024 * 1024,
             attn_impl=attn_impl,
         )
+    frozen = runner.params
+    if mesh is not None:
+        frozen = parallel.shard_params(frozen, mesh)
+        trainable = parallel.replicate(trainable, mesh)
+        def batch_transform(b):
+            return to_device_batch(parallel.shard_batch(b, mesh), dev)
     state = TrainState(trainable, tx.init(trainable), 0)
 
     def epoch_batches(epoch: int):
@@ -132,9 +149,23 @@ def run_train(
         # the device runs the current step
         return prefetch(dl, depth=2, transform=collator, workers=max(1, cfg.data.num_workers))
 
-    return train_loop(
-        cfg, state, runner.params, step, epoch_batches,
-        result_dir=result_dir, max_epochs=max_epochs,
-        lr_schedule=cosine_warmup_schedule(cfg.peft.lr, warmup, total_steps),
-        batch_transform=batch_transform,
-    )
+    with parallel.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        return train_loop(
+            cfg, state, frozen, step, epoch_batches,
+            result_dir=result_dir, max_epochs=max_epochs,
+            lr_schedule=cosine_warmup_schedule(cfg.peft.lr, warmup, total_steps),
+            batch_transform=batch_transform,
+        )
+
+
+def _world_size() -> int:
+    """The process group's size; 1 without one, unless the launcher started
+    several processes (torchrun's ``WORLD_SIZE``) that never joined a group."""
+    if torch.distributed.is_initialized():
+        return torch.distributed.get_world_size()
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise RuntimeError(
+            "run_train(use_mesh=True): WORLD_SIZE > 1 but no process group; set "
+            "MIMIC_TPU_DISTRIBUTED=1 (the CLI joins the group) or call init_distributed()"
+        )
+    return 1

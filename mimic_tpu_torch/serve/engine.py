@@ -55,6 +55,7 @@ import torch
 from ..bridge import tree_map
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
+from ..models.decoder import init_kv_cache
 from ..models.generate import _param_dtype, _prefill
 from ..models.lvlm import LVLMBatch, lvlm_forward
 
@@ -139,15 +140,9 @@ class ServeEngine:
         self.attn_impl = "flash" if self.device.type == "cuda" else "xla"
         self.dtype = _param_dtype(self.params)
 
-        L = cfg.text.num_layers
-        Hkv, Dh = cfg.text.num_kv_heads, cfg.text.head_size
         dev = self.device
-        shape = (L, self.S, self.T, Hkv, Dh)
-        self._cache = {
-            "k": torch.zeros(shape, dtype=self.dtype, device=dev),
-            "v": torch.zeros(shape, dtype=self.dtype, device=dev),
-            "length": self.T,
-        }
+        # this rank's KV heads under a model axis
+        self._cache = dict(init_kv_cache(cfg.text, self.S, self.T, dev, self.dtype), length=self.T)
         # per-slot host state (deterministic schedule: never read from the device)
         self._alive = np.zeros(self.S, bool)
         self._blocks_left = np.zeros(self.S, np.int64)

@@ -11,6 +11,8 @@ from typing import Dict, Optional
 
 import torch
 
+from ..parallel import tp
+
 LayerShift = Dict[str, torch.Tensor]  # per-layer slices (leading L axis removed)
 
 
@@ -19,11 +21,18 @@ def attn_shift_delta(
     q: torch.Tensor,
     log_z2: torch.Tensor,
     multi_head: bool,
+    model_split: bool = False,
 ) -> Optional[torch.Tensor]:
     """The additive MimIC term μ·v for one layer; None when not configured.
 
     q: [B,T,H,Dh] post-RoPE queries; log_z2: [B,T,H].  Returns [B,T,H,Dh]
     (multi-head) or [B,T,H*Dh] (single head), fp32.
+
+    ``model_split``: q, log_z2 and the leaves hold this rank's heads of a
+    model axis (the flat form: its columns of ``attn_v`` / ``attn_logz1_w``).
+    The single-head μ sums over every head, so its two head sums are summed
+    over ``model`` and μ, used on this rank's columns only, enters the region
+    through ``copy_to_region``.
     """
     if "attn_v" not in layer_shift:
         return None
@@ -42,9 +51,13 @@ def attn_shift_delta(
         return mu[..., None] * v[None, None]
     b, t, h, d = q.shape
     q_flat = qf.reshape(b, t, h * d)
-    log_z1 = torch.einsum("btd,d->bt", q_flat, w.reshape(-1))[..., None] + bias
-    mu = torch.sigmoid(log_z1 - log_z2.mean(-1, keepdim=True))
-    return mu * v[None, None]
+    log_z1 = torch.einsum("btd,d->bt", q_flat, w.reshape(-1))[..., None]
+    if not model_split:
+        mu = torch.sigmoid(log_z1 + bias - log_z2.mean(-1, keepdim=True))
+        return mu * v[None, None]
+    z2_sum = tp.reduce_from_region(log_z2.sum(-1, keepdim=True))
+    mu = torch.sigmoid(tp.reduce_from_region(log_z1) + bias - z2_sum / (h * tp.model_size()))
+    return tp.copy_to_region(mu) * v[None, None]
 
 
 def apply_attn_shift(
@@ -53,9 +66,10 @@ def apply_attn_shift(
     log_z2: torch.Tensor,
     attn_out: torch.Tensor,
     multi_head: bool,
+    model_split: bool = False,
 ) -> torch.Tensor:
     """attn_out [B,T,H,Dh] → shifted output, same shape/dtype."""
-    delta = attn_shift_delta(layer_shift, q, log_z2, multi_head)
+    delta = attn_shift_delta(layer_shift, q, log_z2, multi_head, model_split)
     if delta is None:
         return attn_out
     b, t, h, d = attn_out.shape

@@ -24,6 +24,7 @@ import torch
 from ..config import PrefixConfig
 from ..models.config import TextConfig
 from ..models.decoder import positions_from_mask
+from ..parallel import tp
 
 PrefixParams = Dict[str, torch.Tensor]
 
@@ -66,7 +67,9 @@ def prefix_forward_args(
     Differentiable with respect to the prefix leaves (expand + concat), so the
     same helper serves the train step and the generation prefill.
     """
-    k, v = prefix["k"], prefix["v"]
+    # under a model axis the cache holds this rank's KV heads
+    kv_heads = tp.local_heads(prefix["k"].shape[2], prefix["k"].shape[3], "prefix")
+    k, v = (tp.shared_heads(prefix[name], 2, kv_heads) for name in ("k", "v"))
     L, P, Hkv, Dh = k.shape
     am = batch.attention_mask
     B, T = batch.input_ids.shape

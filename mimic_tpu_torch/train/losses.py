@@ -12,12 +12,30 @@ Counterpart of ``mimic_tpu/train/losses.py`` (same formulas, same reductions):
 Selected-token sets arrive as fixed-width ``(indices, valid)`` pairs built on
 the host (``mimic_tpu/train/masking.py``).  Rows are selected by indexing; the
 JAX package's one-hot matmul exists for the TPU and gives the same values.
+
+``group``: the batch is this rank's rows of a data-parallel batch.  Each
+loss is then this rank's share of the global one, its numerator over the
+global denominator (the sample or token count summed over ``group``), so
+the shares sum over ``group`` to the loss of the whole batch in one process,
+however the ranks' token counts differ.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+
+def _global(count: torch.Tensor, group) -> torch.Tensor:
+    """``count`` summed over ``group`` (no gradient flows through a count)."""
+    if group is None:
+        return count
+    count = count.detach().clone()
+    dist.all_reduce(count, group=group)
+    return count
 
 
 def gather_tokens(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -34,6 +52,7 @@ def layer_wise_mse(
     shift_idx: torch.Tensor,      # [B,M]
     prefix_idx: torch.Tensor,     # [B,M]
     valid: torch.Tensor,          # [B,M]
+    group: Optional[object] = None,
 ) -> torch.Tensor:
     s = gather_tokens(shift_hidden, shift_idx).float()
     p = gather_tokens(prefix_hidden, prefix_idx).float()
@@ -43,7 +62,7 @@ def layer_wise_mse(
     L, _, _, D = s.shape
     counts = valid.bool().sum(1).clamp_min(1)                       # [B]
     per_sample = per_sample / (L * counts * D)
-    return per_sample.mean()
+    return per_sample.sum() / _global(per_sample.new_tensor(per_sample.shape[0]), group)
 
 
 def layer_wise_cos(
@@ -53,6 +72,7 @@ def layer_wise_cos(
     prefix_idx: torch.Tensor,
     valid: torch.Tensor,
     eps: float = 1e-8,
+    group: Optional[object] = None,
 ) -> torch.Tensor:
     s = gather_tokens(shift_hidden, shift_idx).float()
     p = gather_tokens(prefix_hidden, prefix_idx).float()
@@ -64,20 +84,21 @@ def layer_wise_cos(
     cos = torch.where(valid.bool()[None], cos, 0.0)
     counts = valid.bool().sum(1).clamp_min(1)                       # [B]
     mean_t = cos.sum(2) / counts[None]                              # [L,B]
-    return (1.0 - mean_t).mean()
+    return (1.0 - mean_t).sum() / _global(mean_t.new_tensor(mean_t.numel()), group)
 
 
 def lm_cross_entropy(
     logits: torch.Tensor,          # [B,T,V]
     labels: torch.Tensor,          # [B,T]
     attention_mask: torch.Tensor,  # [B,T] (pad-excluding, HF semantics)
+    group: Optional[object] = None,
 ) -> torch.Tensor:
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     mask = attention_mask[:, 1:].float()
     logprobs = F.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logprobs, -1, shift_labels[..., None])[..., 0]
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return (nll * mask).sum() / _global(mask.sum(), group).clamp_min(1.0)
 
 
 def logits_kl(
@@ -86,6 +107,7 @@ def logits_kl(
     shift_idx: torch.Tensor,      # [B,M] answer+EOS positions in the shift pass
     prefix_idx: torch.Tensor,     # [B,M] answer+EOS positions in the record pass
     valid: torch.Tensor,          # [B,M]
+    group: Optional[object] = None,
 ) -> torch.Tensor:
     log_q = F.log_softmax(gather_tokens(shift_logits, shift_idx).float(), dim=-1)
     log_p = F.log_softmax(gather_tokens(prefix_logits, prefix_idx).float(), dim=-1)
@@ -93,4 +115,4 @@ def logits_kl(
     kl = torch.where(valid.bool(), kl, 0.0)
     # batchmean over the gathered rows (the reference flattens the selected
     # tokens into the batch dimension before kl_div)
-    return kl.sum() / valid.bool().sum().clamp_min(1)
+    return kl.sum() / _global(valid.bool().sum(), group).clamp_min(1)

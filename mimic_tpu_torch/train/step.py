@@ -12,7 +12,12 @@ shift pass's backward runs the backward kernels.
 The trainable tree may hold a MimIC / LIVE ``shift``, LoRA adapters
 (``lora``, with dropout on their inputs) and a prefix-tuning KV (``prefix``,
 riding as a pre-written cache of length P through the cached attention).
-Not ported yet (raises ``NotImplementedError``): ring attention.
+
+Data parallel: under a current mesh (``parallel.use_mesh``) with a ``data``
+axis of more than one rank, or with ``ring_batch_axis`` of ``ring_mesh``,
+the batch is this rank's rows; the losses take global denominators and the
+gradients and metrics are summed over that axis before ``grad_norm``,
+clipping and the update, so every rank takes the step of the whole batch.
 """
 
 from __future__ import annotations
@@ -21,11 +26,13 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import EncoderConfig, Strategy
 from ..models.config import ModelConfig
 from ..models.generate import _param_dtype
 from ..models.lvlm import LVLMBatch, lvlm_forward
+from ..parallel.mesh import axis_group, current_mesh
 from ..shift.params import multi_head, needs_attn_capture, needs_ffn_capture
 from ..shift.prefix import prefix_forward_args
 from .losses import layer_wise_cos, layer_wise_mse, lm_cross_entropy, logits_kl
@@ -89,7 +96,12 @@ def compute_loss(
     lora_dropout: float = 0.0,
     dropout_generator: Optional[torch.Generator] = None,
     shift_remat: bool = False,
+    ring_kwargs: Optional[Dict[str, Any]] = None,
+    data_group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The step's loss and metrics.  ``ring_kwargs`` go to both passes;
+    ``data_group``: the batch is this rank's rows (see the module's note)."""
+    ring_kwargs = ring_kwargs or {}
     shift = trainable.get("shift") or None
     lora = trainable.get("lora") or None
     prefix = trainable.get("prefix") or None
@@ -109,6 +121,7 @@ def compute_loss(
                 attn_impl=attn_impl,
                 last_logit_only=Strategy.LOGITS_KL_DIV not in strategy,
                 capture_gather_idx=batch.get("prefix_q_idx") if layer_wise else None,
+                **ring_kwargs,
             )
         prefix_logits = out1.logits
         prefix_attn = out1.decoder.attn_capture
@@ -128,12 +141,13 @@ def compute_loss(
         shift=shift, adapters=lora, lora_scaling=lora_scaling,
         lora_dropout=lora_dropout, dropout_generator=dropout_generator,
         multi_head=mh, capture_attn=rec_attn, capture_ffn=rec_ffn,
-        logz2=logz2, attn_impl=attn_impl, remat=shift_remat, **prefix_kwargs,
+        logz2=logz2, attn_impl=attn_impl, remat=shift_remat, **prefix_kwargs, **ring_kwargs,
         capture_gather_idx=batch.get("shift_q_idx") if layer_wise else None,
     )
 
     if Strategy.LM_LOSS in strategy:
-        ce = lm_cross_entropy(out2.logits, batch["query_ids"], batch["query_mask"])
+        ce = lm_cross_entropy(out2.logits, batch["query_ids"], batch["query_mask"],
+                              group=data_group)
         metrics["ce_loss"] = ce
         w = 1.0 if strategy == Strategy.LM_LOSS else ce_loss_weight
         loss = loss + w * ce
@@ -152,7 +166,8 @@ def compute_loss(
             # the captures are already gathered at the query tokens
             M = shift_cap.shape[2]
             ident = torch.arange(M, device=shift_cap.device)[None].expand(shift_cap.shape[1], M)
-            part = loss_fn(shift_cap, prefix_cap, ident, ident, batch["q_valid"])
+            part = loss_fn(shift_cap, prefix_cap, ident, ident, batch["q_valid"],
+                           group=data_group)
             metrics[f"{name}_{suffix}"] = part
             align = align + part
         loss = loss + align_loss_weight * align
@@ -161,6 +176,7 @@ def compute_loss(
         kl = logits_kl(
             out2.logits, prefix_logits,
             batch["query_ans_idx"], batch["prefix_ans_idx"], batch["ans_valid"],
+            group=data_group,
         )
         metrics["logits_kl_loss"] = kl
         loss = loss + align_loss_weight * kl
@@ -188,6 +204,10 @@ def make_train_step(
     attn_impl: str = "xla",
     seed: int = 0,
     shift_remat: bool = False,
+    ring_mesh: Any = None,
+    ring_axis: str = "sp",
+    ring_batch_axis: Optional[str] = None,
+    ring_min_len: int = 0,
 ):
     """Build the ``(state, frozen, batch) → (state, metrics)`` step.
 
@@ -198,10 +218,21 @@ def make_train_step(
     (``seed``, ``state.step``): two runs give the same losses, consecutive
     steps different masks (JAX: ``fold_in(PRNGKey(seed), step)``).
     ``shift_remat`` recomputes each shift-pass layer in the backward pass.
-    ``attn_impl="ring"`` is not ported and raises.
+
+    ``attn_impl="ring"`` + ``ring_mesh``: sequences of at least
+    ``ring_min_len`` tokens (the record pass) run their attention as a ring
+    over ``ring_axis`` of the mesh (``ops/ring_attention.py``, forward only);
+    shorter ones (the shift pass) stay on one rank.  ``ring_batch_axis``:
+    the mesh's data axis, whose rows the batch holds.
     """
+    ring_kwargs = {}
     if attn_impl == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
+        if ring_mesh is None:
+            raise ValueError('attn_impl="ring" requires ring_mesh')
+        ring_kwargs = dict(
+            ring_mesh=ring_mesh, ring_axis=ring_axis,
+            ring_batch_axis=ring_batch_axis, ring_min_len=ring_min_len,
+        )
     loss_kwargs = dict(
         cfg=cfg,
         strategy=encoder_cfg.strategy(),
@@ -215,7 +246,16 @@ def make_train_step(
         lora_scaling=lora_scaling,
         lora_dropout=lora_dropout,
         shift_remat=shift_remat,
+        ring_kwargs=ring_kwargs,
     )
+
+    def data_group():
+        """The data-parallel group of this call: the current mesh's data axis,
+        else the ring mesh's batch axis; None for one rank."""
+        mesh = current_mesh()
+        if mesh is not None:
+            return axis_group(mesh, "data")
+        return axis_group(ring_mesh, ring_batch_axis) if ring_batch_axis else None
 
     def step_fn(state: TrainState, frozen: Tree, batch: Dict[str, Any]):
         live = {p: x.detach().requires_grad_(True) for p, x in flatten(state.trainable).items()}
@@ -223,17 +263,21 @@ def make_train_step(
         if lora_dropout > 0.0:
             generator = torch.Generator(device=batch["query_ids"].device)
             generator.manual_seed(int(np.random.SeedSequence([seed, state.step]).generate_state(1)[0]))
+        group = data_group()
         with torch.enable_grad():
             loss, metrics = compute_loss(unflatten(live), frozen, batch,
-                                         dropout_generator=generator, **loss_kwargs)
+                                         dropout_generator=generator, data_group=group,
+                                         **loss_kwargs)
             raw = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
-        grads = unflatten({
-            p: torch.zeros_like(x) if g is None else g
-            for (p, x), g in zip(live.items(), raw)
-        })
+        flat = {p: torch.zeros_like(x) if g is None else g for (p, x), g in zip(live.items(), raw)}
+        metrics = {k: v.detach().clone() for k, v in metrics.items()}
+        if group is not None:
+            # each rank holds its share of the global loss: sum the shares
+            for t in (*flat.values(), *metrics.values()):
+                dist.all_reduce(t, group=group)
+        grads = unflatten(flat)
         updates, opt_state = optimizer.update(grads, state.opt_state, state.trainable)
         trainable = apply_updates(state.trainable, updates)
-        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         return TrainState(trainable, opt_state, state.step + 1), metrics
 

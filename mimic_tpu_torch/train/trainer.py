@@ -15,6 +15,7 @@ import time
 from typing import Any, Callable, Dict, Iterable, Optional
 
 from ..config import TrainConfig, config_to_dict
+from ..parallel.mesh import is_writer
 from ..utils import get_expand_runname
 from .checkpoints import all_checkpoints_exist, save_run_config, save_trainable
 from .optim import flatten
@@ -98,7 +99,9 @@ def train_loop(
     ``batch_transform`` when given (``train.vision_cache.TrainVisionCache``
     swaps recurring images' pixels for cached encoded features).  Resume-skip
     semantics match the reference: the whole run is skipped when every
-    scheduled checkpoint exists.
+    scheduled checkpoint exists.  In a process group only rank 0 writes
+    metrics, checkpoints and the run config (every rank holds the same
+    trainables).
     """
     runname = get_expand_runname(cfg)
     run_dir = os.path.join(result_dir, "ckpt", runname)
@@ -112,7 +115,8 @@ def train_loop(
         return state
 
     device = next(iter(flatten(state.trainable).values())).device
-    logger = MetricLogger(run_dir, cfg.wandb_project, runname)
+    writer = is_writer()
+    logger = MetricLogger(run_dir, cfg.wandb_project, runname) if writer else None
     step = int(state.step)
     for epoch in range(max_epochs):
         for batch in epoch_batches(epoch):
@@ -122,13 +126,14 @@ def train_loop(
             )
             state, metrics = train_step(state, frozen_params, device_batch)
             step += 1
-            if step % log_every == 0:
+            if writer and step % log_every == 0:
                 if lr_schedule is not None:
                     # reference LearningRateMonitor analog
                     metrics = {**metrics, "lr": float(lr_schedule(step))}
                 logger.log(step, metrics)
-        if save_when(epoch):
+        if writer and save_when(epoch):
             save_trainable(os.path.join(run_dir, f"epoch-{epoch}"), state.trainable)
-    save_run_config(run_dir, config_to_dict(cfg))
+    if writer:
+        save_run_config(run_dir, config_to_dict(cfg))
     return state
 

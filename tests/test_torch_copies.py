@@ -122,3 +122,11 @@ def test_port_imports_nothing_of_the_jax_package():
     for f in files:
         assert not by_name.search(f.read_text()), f
     assert not (PORT / "shared.py").exists()
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port is whole: each module of ``mimic_tpu`` has one of the same
+    relative name in ``mimic_tpu_torch`` (copied or ported)."""
+    missing = sorted(str(p.relative_to(SRC)) for p in SRC.rglob("*.py")
+                     if "__pycache__" not in p.parts and not (PORT / p.relative_to(SRC)).exists())
+    assert not missing, missing

@@ -19,6 +19,8 @@ from mimic_tpu.models.config import tiny_text
 from mimic_tpu.shift.params import init_shift_params
 from mimic_tpu_torch.bridge import to_torch
 from mimic_tpu_torch.models import decoder as td
+from torch.distributed.device_mesh import init_device_mesh
+from torch_dist import one_rank_group
 
 B, T, NEW = 2, 128, 4
 TOL = 1e-4
@@ -143,15 +145,45 @@ def test_masks_and_positions():
         np.asarray(jd.make_causal_mask(jnp.asarray(mask), sliding_window=2)))
 
 
-@pytest.mark.parametrize("kwarg", [{"ring_mesh": object()}], ids=["ring_mesh"])
-def test_unported_features_raise(setup, kwarg):
-    cfg, params, _, embeds, _, mask = setup
+@pytest.mark.parametrize("kwarg", [{"ring_min_len": 128}], ids=["ring_mesh"])
+def test_unported_features_raise(setup, kwarg, tmp_path):
+    """Ring attention is ported (a one-rank ring here; the multi-rank ring is
+    tests/test_torch_ring_attention.py): the cacheless prefill with the shift
+    rides the ring and matches JAX's; its backward is not ported and raises;
+    ``select_attn_path`` takes JAX's ring conditions."""
+    cfg, params, shift, embeds, _, mask = setup
+    j = jnp.asarray
+    # the kernels' contract (a row with no attendable key is the mean of v over
+    # all keys), which the ring keeps
+    want = jd.decoder_forward(params, cfg, j(embeds), None, jd.positions_from_mask(j(mask)),
+                              shift=shift, key_mask=j(mask), attn_impl="flash")
     mask_t = torch.from_numpy(mask)
-    with pytest.raises(NotImplementedError):
-        td.decoder_forward(to_torch(params, "cpu"), cfg, torch.from_numpy(embeds), None,
-                           td.positions_from_mask(mask_t), key_mask=mask_t, **kwarg)
-    with pytest.raises(NotImplementedError):
-        td.select_attn_path(cfg, "ring", 128, cacheless=True, has_key_mask=True)
+    args = (to_torch(params, "cpu"), cfg, torch.from_numpy(embeds), None,
+            td.positions_from_mask(mask_t))
+    kw = dict(key_mask=mask_t, shift=to_torch(shift, "cpu"), attn_impl="ring", **kwarg)
+    with one_rank_group(tmp_path):
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("sp",))
+        td.ATTN_PATH_LOG.clear()
+        with torch.no_grad():
+            got = td.decoder_forward(*args, ring_mesh=mesh, **kw)
+        assert td.ATTN_PATH_LOG == ["ring"]
+        _close(got.hidden, want.hidden)
+        embeds_g = args[2].clone().requires_grad_()
+        with pytest.raises(NotImplementedError, match="backward is not ported"):
+            td.decoder_forward(args[0], cfg, embeds_g, *args[3:], ring_mesh=mesh, **kw)
+        path = lambda T, **k: td.select_attn_path(  # noqa: E731
+            cfg, "ring", T, cacheless=True, has_key_mask=True, ring_mesh=mesh, **k)
+        assert path(128, ring_min_len=128) == "ring"
+        assert path(128, ring_min_len=256) == "xla"   # shorter than ring_min_len
+        assert path(128, on_card=True) == "ring"      # 128-aligned chunk, head dim 128
+        assert path(64, on_card=True) == "xla"        # the kernels' chunk alignment
+        # on the card a pass that stays on one rank takes the kernels
+        assert path(128, ring_min_len=256, on_card=True) == "flash"
+    assert td.select_attn_path(cfg, "ring", 128, cacheless=True, has_key_mask=True) == \
+        jd.select_attn_path(cfg, "ring", 128, cacheless=True, has_key_mask=True) == "xla"
+    assert td.select_attn_path(cfg, "ring", 128, cacheless=False, has_key_mask=True) == "cached"
+    assert td.select_attn_path(cfg, "ring", 128, cacheless=True, has_key_mask=True,
+                               on_card=True) == "flash"
 
 
 @pytest.mark.parametrize("feature", ["remat", "adapters", "prefix_flash_len"])

@@ -240,10 +240,15 @@ def test_frozen_weights_stay_frozen_and_shift_moves():
 
 @pytest.mark.parametrize("kwargs", [{"attn_impl": "ring"}], ids=["ring"])
 def test_unported_options_raise(kwargs):
+    """Ring attention is ported: without ``ring_mesh`` the step raises JAX's
+    ``ValueError`` (the ring step itself is tests/test_torch_ring_train.py)."""
     cfg, enc, peft, _, trainable, _ = setup("mimic", False)
     tx = to.build_optimizer(to_torch(trainable, "cpu"), **_opt_kwargs(peft))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ring_mesh"):
         ts.make_train_step(cfg, port_enc(enc), tx, ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
+    with pytest.raises(ValueError, match="ring_mesh"):
+        make_train_step(cfg, enc, build_optimizer(trainable, **_opt_kwargs(peft)),
+                        ce_loss_weight=0.5, align_loss_weight=1.0, **kwargs)
 
 
 def _grads_of_one_step(preset, flash, trainable, **step_kw):
