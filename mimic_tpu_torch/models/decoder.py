@@ -40,8 +40,8 @@ followed by an all-reduce (``parallel/tp.py``); the KV cache holds this
 rank's KV heads; the attention shift, LoRA's B (and ``o``'s A) are sliced to
 this rank's heads and their gradients summed over ``model``.  Ring attention
 (``attn_impl="ring"`` with ``ring_mesh``) runs the cacheless attention of long
-sequences as a sequence-parallel ring (``ops/ring_attention.py``), forward
-only.
+sequences as a sequence-parallel ring (``ops/ring_attention.py``), and
+records gradients through its ``RingAttentionDiff``.
 """
 
 from __future__ import annotations
@@ -518,7 +518,10 @@ def decoder_forward(
     sequences of at least ``ring_min_len`` tokens that split over the mesh's
     ``ring_axis`` take ``ops/ring_attention.py``; ``ring_batch_axis`` names
     the mesh's data axis when the batch is this rank's rows of it.  Shorter
-    ones take the plain path, as in JAX.  Forward only.
+    ones take the plain path, as in JAX.  With gradients recorded the ring
+    runs its backward through the backward kernels (``RingAttentionDiff``);
+    under ``remat`` the recompute runs the ring's exchange again, in the
+    same order on every rank.
     """
     B, T, D = input_embeds.shape
     if tp.model_size() > 1:
@@ -760,8 +763,9 @@ def select_attn_path(
       128-aligned T and head size, no sliding window narrower than T;
     - ``"ring"``: the sequence-parallel ring over ``ring_axis`` of
       ``ring_mesh`` — long cacheless sequences whose length splits over the
-      axis (the record pass of a >32-shot MimIC step); short passes stay on
-      one rank.  ``on_card``: the ring's blocks run the kernels, so each
+      axis (the record pass of a >32-shot MimIC step and, at JAX's default
+      ``ring_min_len=0``, the shift pass with its gradients); short passes
+      stay on one rank.  ``on_card``: the ring's blocks run the kernels, so each
       chunk must also meet the flash path's alignment, and a ``"ring"`` pass
       that stays on one rank takes the kernels where ``"flash"`` would (on
       the CPU it stays ``"xla"``, as in JAX);

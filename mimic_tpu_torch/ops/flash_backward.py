@@ -78,11 +78,13 @@ def flash_attention_backward_plain(
     causal: bool = True,
     scale: Optional[float] = None,
     need_unmasked: bool = True,
+    delta: Optional[torch.Tensor] = None,
 ) -> Grads3:
     """The plain PyTorch version of both kernels: the contract of the JAX
     package's ``_diff_bwd_jnp``.  Materialises the ``[B,H,T,S]`` fp32 score
     tensor.  ``g_lse_u`` is ignored without ``need_unmasked`` (the forward's
-    lse_u is then a copy of lse)."""
+    lse_u is then a copy of lse).  ``delta`` [B,T,H] fp32: Δ when the caller
+    has it (the ring computes it once per query chunk), else Σ g_out ∘ out."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     groups = H // Hkv
@@ -100,7 +102,8 @@ def flash_attention_backward_plain(
     g_out_f = g_out.float()
     dv_rep = torch.einsum("bhts,bthd->bshd", p, g_out_f)
     dp = torch.einsum("bthd,bshd->bhts", g_out_f, vf)
-    delta = (g_out_f * out.float()).sum(-1)  # [B,T,H]
+    if delta is None:
+        delta = (g_out_f * out.float()).sum(-1)  # [B,T,H]
     ds = p * (dp - delta.transpose(1, 2)[..., None])
     if g_lse is not None:
         ds = ds + g_lse.float().transpose(1, 2)[..., None] * p
@@ -272,11 +275,12 @@ KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 
 def _launch_backward(
     q, k, v, key_mask, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, scale, need_unmasked,
-    kernels=KERNELS, split=None,
+    kernels=KERNELS, split=None, delta=None,
 ) -> Grads3:
     """Check the inputs, launch ``kernels`` (both by default) on the current
     stream and count them; the outputs of a kernel not launched are None.
-    ``split``: the bf16 dkv kernel's cluster split (default ``dkv_split``)."""
+    ``split``: the bf16 dkv kernel's cluster split (default ``dkv_split``);
+    ``delta``: a precomputed Δ [B,T,H] (default Σ g_out ∘ out)."""
     from . import _build
 
     B, T, H, D = q.shape
@@ -313,7 +317,11 @@ def _launch_backward(
     q, k, v, g_out = (x.contiguous() if x.data_ptr() % 16 == 0 else x.contiguous().clone()
                       for x in (q, k, v, g_out))
     lse, lse_u = lse.to(f32).contiguous(), lse_u.to(f32).contiguous()
-    delta = (g_out.float() * out.float()).sum(-1).contiguous()  # [B,T,H]
+    if delta is None:
+        delta = (g_out.float() * out.float()).sum(-1)  # [B,T,H]
+    elif delta.shape != (B, T, H) or delta.device != dev:
+        raise ValueError(f"flash_bwd: delta shape {tuple(delta.shape)} != {(B, T, H)}")
+    delta = delta.to(f32).contiguous()
     sc = scale if scale is not None else 1.0 / (D**0.5)
     dq = torch.empty_like(q) if "flash_bwd_dq" in kernels else None
     dk = torch.empty_like(k) if "flash_bwd_dkv" in kernels else None
@@ -357,14 +365,16 @@ def flash_attention_backward(
     causal: bool = True,
     scale: Optional[float] = None,
     need_unmasked: bool = True,
+    delta: Optional[torch.Tensor] = None,
 ) -> Grads3:
     """Returns (dq [B,T,H,D], dk [B,S,Hkv,D], dv [B,S,Hkv,D]): the two kernels
     on CUDA, the plain version on the CPU.  There is no size cut-off: every
-    CUDA call launches the kernels."""
+    CUDA call launches the kernels.  ``delta``: a precomputed Δ = Σ g_out ∘
+    out [B,T,H] fp32 (``out`` then only sets the shape)."""
     args = (q, k, v, key_mask, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, scale,
             need_unmasked)
     if q.device.type == "cuda":
-        return _launch_backward(*args)
+        return _launch_backward(*args, delta=delta)
     if q.device.type == "cpu":
-        return flash_attention_backward_plain(*args)
+        return flash_attention_backward_plain(*args, delta=delta)
     raise ValueError(f"flash_bwd: no kernel and no plain path for device {q.device}")

@@ -220,10 +220,12 @@ def make_train_step(
     ``shift_remat`` recomputes each shift-pass layer in the backward pass.
 
     ``attn_impl="ring"`` + ``ring_mesh``: sequences of at least
-    ``ring_min_len`` tokens (the record pass) run their attention as a ring
-    over ``ring_axis`` of the mesh (``ops/ring_attention.py``, forward only);
-    shorter ones (the shift pass) stay on one rank.  ``ring_batch_axis``:
-    the mesh's data axis, whose rows the batch holds.
+    ``ring_min_len`` tokens run their attention as a ring over ``ring_axis``
+    of the mesh (``ops/ring_attention.py``); shorter ones stay on one rank.
+    At the default 0 both passes ride the ring and the shift pass's
+    gradients run the ring's backward; every rank of ``ring_axis`` ends with
+    the same full gradients, so they are summed over the data axis alone.
+    ``ring_batch_axis``: the mesh's data axis, whose rows the batch holds.
     """
     ring_kwargs = {}
     if attn_impl == "ring":

@@ -149,8 +149,10 @@ def test_masks_and_positions():
 def test_unported_features_raise(setup, kwarg, tmp_path):
     """Ring attention is ported (a one-rank ring here; the multi-rank ring is
     tests/test_torch_ring_attention.py): the cacheless prefill with the shift
-    rides the ring and matches JAX's; its backward is not ported and raises;
-    ``select_attn_path`` takes JAX's ring conditions."""
+    rides the ring and matches JAX's; with gradients recorded, the gradients
+    of the embeddings and the shift through the ring's backward equal those
+    of the kernels' path (the name is kept from when the ring's backward
+    raised); ``select_attn_path`` takes JAX's ring conditions."""
     cfg, params, shift, embeds, _, mask = setup
     j = jnp.asarray
     # the kernels' contract (a row with no attendable key is the mean of v over
@@ -168,9 +170,20 @@ def test_unported_features_raise(setup, kwarg, tmp_path):
             got = td.decoder_forward(*args, ring_mesh=mesh, **kw)
         assert td.ATTN_PATH_LOG == ["ring"]
         _close(got.hidden, want.hidden)
-        embeds_g = args[2].clone().requires_grad_()
-        with pytest.raises(NotImplementedError, match="backward is not ported"):
-            td.decoder_forward(args[0], cfg, embeds_g, *args[3:], ring_mesh=mesh, **kw)
+        # with gradients: the ring's backward (one diagonal block) against the
+        # kernels' path, on the embeddings and the shift
+        grads = {}
+        for impl, extra in (("ring", dict(ring_mesh=mesh)), ("flash", {})):
+            embeds_g = args[2].clone().requires_grad_()
+            sh = {k: v.clone().requires_grad_() for k, v in kw["shift"].items()}
+            td.ATTN_PATH_LOG.clear()
+            h = td.decoder_forward(args[0], cfg, embeds_g, *args[3:],
+                                   **dict(kw, shift=sh, attn_impl=impl), **extra).hidden
+            assert td.ATTN_PATH_LOG == [impl]
+            grads[impl] = torch.autograd.grad(h.square().sum(), [embeds_g, *sh.values()])
+        for a, b in zip(grads["ring"], grads["flash"]):
+            assert a.abs().max() > 0
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
         path = lambda T, **k: td.select_attn_path(  # noqa: E731
             cfg, "ring", T, cacheless=True, has_key_mask=True, ring_mesh=mesh, **k)
         assert path(128, ring_min_len=128) == "ring"

@@ -115,15 +115,22 @@ def generate_world(rank, n, workdir):
 # ---------------------------------------------------------------------------
 
 
-def ring_world(rank, n, workdir):
-    from mimic_tpu_torch.ops.ring_attention import ring_attention_sharded
-
-    inp = load_inputs(workdir)
-    meshes = {
+def ring_meshes():
+    """The ring tests' meshes of four ranks, each with its batch axis: the
+    sequence over ``sp`` 4; over ``sp`` 2 with the batch whole on both rings;
+    over ``sp`` 2 with the batch split over ``data``."""
+    return {
         "sp4": (init_device_mesh("cpu", (4,), mesh_dim_names=("sp",)), None),
         "sp2": (init_device_mesh("cpu", (2, 2), mesh_dim_names=("rep", "sp")), None),
         "sp2-data": (init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "sp")), "data"),
     }
+
+
+def ring_world(rank, n, workdir):
+    from mimic_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+    inp = load_inputs(workdir)
+    meshes = ring_meshes()
     out = {}
     for case, arrays in inp["cases"].items():
         q, k, v, km = (torch.from_numpy(arrays[x]) for x in ("q", "k", "v", "km"))
@@ -136,11 +143,11 @@ def ring_world(rank, n, workdir):
                                          batch_axis=batch_axis)
             out[(case, name)] = [x.numpy() for x in got]
     mesh = meshes["sp4"][0]
-    q, k, v, km = (torch.from_numpy(inp["cases"]["causal"][x]) for x in ("q", "k", "v", "km"))
-    try:
-        ring_attention_sharded(mesh, q.requires_grad_(), k, v, km)
-    except NotImplementedError as e:
-        out["grad_error"] = str(e)
+    q, k, v, km = (torch.from_numpy(inp["cases"]["causal"][x]).requires_grad_(x != "km")
+                   for x in ("q", "k", "v", "km"))
+    got = ring_attention_sharded(mesh, q, k, v, km)
+    cot = [torch.from_numpy(c) for c in inp["grad_cotangents"]]
+    out["grads"] = [g.numpy() for g in torch.autograd.grad(got, (q, k, v), cot)]
     save_outputs(workdir, rank, out)
 
 
@@ -150,6 +157,8 @@ def ring_world(rank, n, workdir):
 
 
 def ring_train_world(rank, n, workdir):
+    from mimic_tpu_torch.parallel.mesh import axis_group
+    from mimic_tpu_torch.shift import params as tsp
     from mimic_tpu_torch.train import optim as to
     from mimic_tpu_torch.train import step as ts
 
@@ -165,10 +174,41 @@ def ring_train_world(rank, n, workdir):
                               ring_min_len=1024)
     td.ATTN_PATH_LOG.clear()
     state, metrics = step(ts.TrainState(tree, tx.init(tree), 0), frozen, batch)
-    save_outputs(workdir, rank, {
-        "metrics": {k: float(v) for k, v in metrics.items()},
-        "trainable": to_numpy(state.trainable), "paths": list(td.ATTN_PATH_LOG),
-    })
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "trainable": to_numpy(state.trainable), "paths": list(td.ATTN_PATH_LOG), "ring0": {}}
+    # the first step's learning rate is 0 (warmup_steps 1): a second one moves
+    out["trainable2"] = to_numpy(step(state, frozen, batch)[0].trainable)
+    # both passes on the ring (ring_min_len 0): compute_loss's gradients summed
+    # over the data axis as the step sums them, then two steps
+    batch = parallel.shard_batch(ts.to_device_batch(SimpleNamespace(**inp["batch0"]), "cpu"),
+                                 mesh)
+    ring_kw = dict(ring_mesh=mesh, ring_axis="sp", ring_batch_axis="data")
+    data = axis_group(mesh, "data")
+    for name, case in inp["ring0"].items():
+        enc = port_enc(case["enc"])
+        tree = parallel.replicate(to_torch(case["trainable"], "cpu"), mesh)
+        live = {p: x.detach().clone().requires_grad_(True) for p, x in to.flatten(tree).items()}
+        loss, _ = ts.compute_loss(
+            to.unflatten(live), frozen, batch, cfg=cfg, strategy=enc.strategy(),
+            rec_attn=tsp.needs_attn_capture(enc), rec_ffn=tsp.needs_ffn_capture(enc),
+            mh=tsp.multi_head(enc), attn_impl="ring", ring_kwargs=ring_kw, data_group=data,
+            **case["common"])
+        grads = torch.autograd.grad(loss, list(live.values()))
+        for g in grads:
+            dist.all_reduce(g, group=data)
+        tx = to.build_optimizer(tree, **case["opt"])
+        step = ts.make_train_step(cfg, enc, tx, **case["common"], attn_impl="ring", **ring_kw)
+        state = ts.TrainState(tree, tx.init(tree), 0)
+        td.ATTN_PATH_LOG.clear()
+        state, m1 = step(state, frozen, batch)
+        paths = list(td.ATTN_PATH_LOG)
+        state, m2 = step(state, frozen, batch)
+        out["ring0"][name] = {
+            "grads": {p: g.numpy() for p, g in zip(live, grads)}, "paths": paths,
+            "metrics": [{k: float(v) for k, v in m.items()} for m in (m1, m2)],
+            "trainable": to_numpy(state.trainable),
+        }
+    save_outputs(workdir, rank, out)
 
 
 # ---------------------------------------------------------------------------
@@ -214,3 +254,33 @@ def train_mesh_world(rank, n, workdir):
     save_outputs(workdir, rank, out)
     dist.barrier()
 
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_ring_backward.py
+# ---------------------------------------------------------------------------
+
+
+def ring_backward_world(rank, n, workdir):
+    """Each case's (dq, dk, dv) through ``ring_attention_sharded`` under
+    ``torch.autograd.grad`` on its meshes of ``ring_meshes`` (the data mesh:
+    this rank's rows of the inputs and cotangents)."""
+    from mimic_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+    inp = load_inputs(workdir)
+    meshes = ring_meshes()
+    out = {}
+    for case, arrays in inp["cases"].items():
+        for name in arrays["meshes"]:
+            mesh, batch_axis = meshes[name]
+            take = ((lambda x: parallel.shard_batch(x, mesh)) if batch_axis
+                    else (lambda x: x))
+            q, k, v = (take(torch.from_numpy(arrays[x])).requires_grad_()
+                       for x in ("q", "k", "v"))
+            km = take(torch.from_numpy(arrays["km"]))
+            got = ring_attention_sharded(mesh, q, k, v, km, causal=arrays["causal"],
+                                         need_unmasked=arrays["need_unmasked"],
+                                         batch_axis=batch_axis)
+            cot = [take(torch.from_numpy(arrays[x])) for x in ("g_out", "g_lse", "g_lse_u")]
+            out[(case, name)] = [g.numpy() for g in torch.autograd.grad(got, (q, k, v), cot)]
+    save_outputs(workdir, rank, out)
