@@ -270,6 +270,25 @@ Phases (any failure propagates: non-zero exit, no result line):
              (a ring of one rank is one diagonal block through the same
              kernels).  Call A under use_mesh(make_mesh(1, 1)) gives the
              tokens of call A without it; the group is destroyed at the end.
+18. head split — last: a (data 1 x model 8) mesh whose model axis cuts inside
+             a head, as 8 processes sharing the card over gloo (each checks
+             first that gloo's all_reduce and all_gather take CUDA tensors),
+             each with its shard_params trees: llava-interleave-7b's decoder at
+             full width cut to 4 layers (q 3.5 heads, k/v half a head a rank:
+             the gathered region) and idefics2-8b-base's connector (k/v half a
+             head), bf16 random weights from fixed seeds, each against one
+             process on the card.  (a) greedy_generate, B4 x T1024 with a
+             left-padded row, 8 new tokens, a MimIC shift: one onepass_fwd a
+             layer per rank over all 28 heads, every rank's KV cache bytes
+             (every KV head), and the prefill's and each decode step's logits
+             with one process's tokens (min row cosine >= MIN_LOGIT_COSINE, rms
+             distance to the same function in fp32 <= HEADSPLIT_NOISE_RATIO x
+             one process's); (b) the MimIC
+             step's loss (relative 1e-3) and shift gradients (cosine >= 0.99)
+             through the forward and backward kernels, record T 1024, shift T
+             256; (c) the connector on one row of phase 5's 8-shot image
+             features (9 x 4900 patches), by (a)'s gates.  The attention per rank and layer
+             at all 28 heads beside model 4's 7 (CUDA events, one process).
 
 Every phase prints its seconds ("[time]").
 
@@ -292,6 +311,7 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --serve-only  # build, the 8B runner and phase 16: exit 3, no result line
     python3 chip_smoke.py --parallel-only  # build, the 8B runner and phase 17: exit 3, no result line
+    python3 chip_smoke.py --headsplit-only  # build and phase 18: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -5372,6 +5392,368 @@ def lvlm_prefill(params, cfg, batch, feats, bucket, runner):
                             logz2=runner.logz2, attn_impl="flash", last_logit_only=True).logits
 
 
+# ---------------------------------------------------------------------------
+# phase 18: a model axis that cuts inside a head
+# ---------------------------------------------------------------------------
+
+HEADSPLIT_RANKS = 8
+HEADSPLIT_LAYERS = 4
+HEADSPLIT_B, HEADSPLIT_T, HEADSPLIT_NEW, HEADSPLIT_PAD = 4, 1024, 8, 100
+HEADSPLIT_T_SHIFT, HEADSPLIT_M = 256, 64
+# a row of phase 5's 8-shot batch: 8 demo images + the query image at 980 px
+# (both rows, 18 images, hold 8 ranks' activations beside each other past the
+# card's 80 GB)
+HEADSPLIT_IMAGES, HEADSPLIT_PATCHES = 9, 70 * 70
+HEADSPLIT_LOSS_RTOL = 1e-3
+# 8 ranks against one process, both bf16, both held to the same function in
+# fp32 (the bf16 weights upcast, computed by one process): the 8-rank path
+# makes the roundings one process makes (every bf16 activation) and adds its
+# own (each row-parallel product's 8 partial sums rounded to bf16 and added in
+# bf16 by gloo).  Were the added roundings as large as all of one process's,
+# the two would add in quadrature to sqrt(2) x its distance; the ranks may be
+# HEADSPLIT_NOISE_RATIO x as far from fp32 as one process, and no further.
+# Rows are held by phase 4's logit gate (MIN_LOGIT_COSINE) besides.
+HEADSPLIT_NOISE_RATIO = 1.5
+
+
+def headsplit_cfg():
+    """llava-interleave-7b's decoder at full width (H28/4, D128, F18944, vocab
+    152128), cut to HEADSPLIT_LAYERS layers; the SigLIP tower cut to one layer
+    (its weights are made, no image reaches it)."""
+    import dataclasses
+
+    from mimic_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config("llava-interleave-7b")
+    return cfg.replace(text=dataclasses.replace(cfg.text, num_layers=HEADSPLIT_LAYERS),
+                       vision=dataclasses.replace(cfg.vision, num_layers=1))
+
+
+def headsplit_trees(dev, mesh=None):
+    """The three trees of phase 18, from fixed seeds, made on ``dev`` (bf16
+    weights, the fp32 MimIC shift): llava's, the shift, and idefics2-8b-base's
+    connector.  With ``mesh``: each frozen tree as ``shard_params`` cuts it (the
+    whole tree freed before the next is made), the connector's moved to the
+    host and back, as a tree cut on the host and then moved to the card is."""
+    from mimic_tpu_torch import parallel
+    from mimic_tpu_torch.bridge import tree_map
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.config import get_model_config
+    from mimic_tpu_torch.models.lvlm import init_lvlm_params
+    from mimic_tpu_torch.models.vision import init_perceiver_params
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def cut(tree):
+        return tree if mesh is None else parallel.shard_params(tree, mesh)
+
+    cfg = headsplit_cfg()
+    params = cut(init_lvlm_params(cfg, gen(18), dev, torch.bfloat16))
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text, gen(19), dev)
+    shift = {k: v * 50.0 for k, v in shift.items()}  # so that the shift moves the logits
+    c2 = get_model_config("idefics2-8b-base")  # 16 query heads on 4 KV heads of 96
+    connector = cut({"connector": init_perceiver_params(
+        c2.perceiver, c2.vision.hidden_size, c2.text.hidden_size, gen(20), dev, torch.bfloat16,
+        project_first=True)})["connector"]
+    if mesh is not None:
+        connector = tree_map(lambda t: t.cpu().to(dev), connector)
+    return cfg, params, shift, c2, connector
+
+
+def headsplit_batches(dev, cfg, c2):
+    """(a)'s prompt batch (B4 x T1024, row 1 left-padded by HEADSPLIT_PAD),
+    (b)'s dual-pass batch (record T 1024, shift T 256, the last 64 tokens of
+    each gathered) and (c)'s image features (phase 5's 8-shot images as the
+    SigLIP tower hands them on: 9 x 4900 patches x 1152, N(0, 1))."""
+    from mimic_tpu_torch.models.lvlm import LVLMBatch
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    B, T, Ts, M = HEADSPLIT_B, HEADSPLIT_T, HEADSPLIT_T_SHIFT, HEADSPLIT_M
+    hi = min(32000, cfg.text.vocab_size)
+    ids = torch.randint(hi // 2, hi, (B, T), generator=g, device=dev)
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[1, :HEADSPLIT_PAD] = 0
+    prompt = LVLMBatch(input_ids=ids, attention_mask=mask)
+    idx = torch.arange(M, device=dev)[None].expand(B, M)
+    train = {"full_ids": ids, "full_mask": torch.ones_like(mask),
+             "query_ids": torch.randint(hi // 2, hi, (B, Ts), generator=g, device=dev),
+             "query_mask": torch.ones(B, Ts, dtype=torch.int32, device=dev),
+             "prefix_q_idx": idx + (T - M), "shift_q_idx": idx + (Ts - M),
+             "q_valid": torch.ones(B, M, dtype=torch.bool, device=dev)}
+    feats = torch.randn(HEADSPLIT_IMAGES, HEADSPLIT_PATCHES, c2.vision.hidden_size, generator=g,
+                        device=dev)
+    return prompt, train, feats.to(torch.bfloat16)
+
+
+def forced_decode(params, cfg, batch, forced, shift, dtype=torch.bfloat16):
+    """fp32 logits [1 + new, B, V]: the prefill's last row, then each decode
+    step's, the steps fed ``forced`` [B, new] (greedy_generate's loop with the
+    tokens given, so that two runs read the same inputs)."""
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.lvlm import LVLMBatch, lvlm_forward
+
+    B, T = batch.input_ids.shape
+    new = forced.shape[1]
+    with torch.no_grad():
+        last, cache, _ = tg._prefill(params, cfg, batch, T + new, shift, "unmasked", dtype,
+                                     "flash")
+        rows, n_real = [last.float()], batch.attention_mask.sum(-1)
+        mask = torch.cat([batch.attention_mask, batch.attention_mask.new_zeros(B, new)], dim=-1)
+        for i in range(new):
+            mask[:, T + i] = 1
+            out = lvlm_forward(params, cfg, LVLMBatch(input_ids=forced[:, i:i + 1],
+                                                      attention_mask=mask),
+                               position_ids=(n_real + i)[:, None], kv_cache=cache,
+                               kv_total_len=T + new, shift=shift, logz2="unmasked")
+            cache = out.decoder.kv_cache
+            rows.append(out.logits[:, -1].float())
+    return torch.stack(rows)
+
+
+def headsplit_loss_grads(cfg, params, shift, batch):
+    """The MimIC step's loss and every shift leaf's gradient (compute_loss and
+    its backward through the kernels: what make_train_step runs before the
+    optimizer)."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.shift.params import multi_head, needs_attn_capture, needs_ffn_capture
+    from mimic_tpu_torch.train import step as ts
+
+    enc, peft = get_preset("mimic")
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in shift.items()}
+    with torch.enable_grad():
+        loss, _ = ts.compute_loss(
+            {"shift": leaves}, params, batch, cfg=cfg, strategy=enc.strategy(),
+            rec_attn=needs_attn_capture(enc), rec_ffn=needs_ffn_capture(enc),
+            mh=multi_head(enc), ce_loss_weight=peft.ce_loss_weight,
+            align_loss_weight=peft.align_loss_weight, logz2="unmasked", attn_impl="flash")
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), {k: g.float().cpu() for k, g in zip(leaves, grads)}
+
+
+def headsplit_connector(c2, connector, feats):
+    from mimic_tpu_torch.models.vision import perceiver_forward
+
+    with torch.no_grad():
+        return perceiver_forward(connector, c2.perceiver, feats, norm_eps=c2.text.norm_eps,
+                                 context_mask=torch.ones(feats.shape[:2], dtype=torch.int32,
+                                                         device=feats.device))
+
+
+def headsplit_rank(rank, n, workdir):
+    """One rank of phase 18: a ``gloo`` group of n processes on cuda:0, a (data
+    1 x model n) mesh, the package's tensor parallelism on each frozen tree as
+    ``shard_params`` cuts it.  Writes ``rank-{rank}.pt``."""
+    import torch.distributed as dist
+
+    from mimic_tpu_torch import parallel
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG, init_kv_cache
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=n)
+    try:
+        dev = torch.device("cuda")
+        # gloo must take CUDA tensors in both collectives tensor parallelism calls
+        x = torch.full((4,), rank + 1.0, dtype=torch.bfloat16, device=dev)
+        dist.all_reduce(x)
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        if not (x == n * (n + 1) // 2).all() or torch.cat(parts).unique().numel() != 1:
+            raise AssertionError(f"rank {rank}: gloo's collectives on CUDA tensors are wrong")
+        # a gloo mesh ("cpu" names its backend); its collectives take the CUDA tensors
+        mesh = parallel.make_mesh(1, n, device_type="cpu")
+        trees = None
+        for turn in range(n):  # one whole tree on the card at a time
+            if turn == rank:
+                trees = headsplit_trees(dev, mesh)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        cfg, params, shift, c2, connector = trees
+        prompt, train, feats = headsplit_batches(dev, cfg, c2)
+        forced = torch.load(os.path.join(workdir, "forced.pt")).to(dev)
+        out = {}
+        with parallel.use_mesh(mesh):
+            cache = init_kv_cache(cfg.text, HEADSPLIT_B, HEADSPLIT_T + HEADSPLIT_NEW, dev,
+                                  torch.bfloat16)
+            out["cache_bytes"] = cache["k"].nbytes + cache["v"].nbytes
+            out["cache_heads"] = cache["k"].shape[3]
+            del cache
+            dist.barrier()
+            _reset_counts()
+            ATTN_PATH_LOG.clear()
+            t = time.perf_counter()
+            with torch.no_grad():
+                out["greedy"] = tg.greedy_generate(
+                    params, cfg, prompt, HEADSPLIT_NEW, cfg.eos_token_id, cfg.pad_token_id,
+                    shift=shift, attn_impl="flash").tokens.cpu()
+            out["greedy_s"] = _since(t)
+            out["launches_a"], out["paths_a"] = _counts(), list(ATTN_PATH_LOG)
+            dist.barrier()
+            t = time.perf_counter()
+            out["logits"] = forced_decode(params, cfg, prompt, forced, shift).cpu()
+            out["forced_s"] = _since(t)
+            dist.barrier()
+            _reset_counts()
+            t = time.perf_counter()
+            out["loss"], out["grads"] = headsplit_loss_grads(cfg, params, shift, train)
+            out["step_s"] = _since(t)
+            out["launches_b"] = _counts()
+            dist.barrier()
+            torch.cuda.empty_cache()  # 8 processes share the card
+            t = time.perf_counter()
+            out["connector"] = headsplit_connector(c2, connector, feats).cpu()
+            out["connector_s"] = _since(t)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(out, os.path.join(workdir, f"rank-{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _rel_rms(a, b):
+    return ((a.float() - b.float()).pow(2).mean().sqrt() / b.float().pow(2).mean().sqrt()).item()
+
+
+def headsplit_attention_ms():
+    """The prefill's attention per rank and layer, by CUDA events in this
+    process: all 28 heads (B4 H28/4 T=S=1024, the gathered region of model 8)
+    against 7 (H7/1, a rank of model 4's whole-head split)."""
+    from mimic_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    km = torch.ones(HEADSPLIT_B, HEADSPLIT_T, dtype=torch.int32, device="cuda")
+    for H, Hkv in ((28, 4), (7, 1)):
+        g = torch.Generator(device="cuda").manual_seed(22)
+        q, k, v = (torch.randn(HEADSPLIT_B, HEADSPLIT_T, h, 128, generator=g, device="cuda")
+                   .to(torch.bfloat16) for h in (H, Hkv, Hkv))
+        out[f"H{H}/{Hkv}"] = cuda_ms(lambda: flash_attention(q, k, v, km, causal=True), 20)
+    return out
+
+
+def phase_headsplit():
+    """Phase 18: llava-interleave-7b's decoder (cut to 4 layers) and
+    idefics2-8b-base's connector at full width on a (data 1 x model 8) mesh of
+    8 processes sharing the card over ``gloo``, where the model axis cuts
+    inside a head (q 3.5 heads a rank, k/v half a head; the connector's k/v
+    half a head): (a) greedy decoding of B4 x T1024 with the MimIC shift, and
+    the prefill and every decode step with one process's tokens, (b) the MimIC
+    step's loss and gradients, (c) the connector on one row of phase 5's image
+    features, each against one process on the card.  Returns the ranks'
+    launches."""
+    import multiprocessing as mp
+
+    from mimic_tpu_torch.bridge import tree_map
+    from mimic_tpu_torch.models import generate as tg
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()  # 8 processes share the card
+    n, L = HEADSPLIT_RANKS, HEADSPLIT_LAYERS
+    cfg, params, shift, c2, connector = headsplit_trees(dev)
+    prompt, train, feats = headsplit_batches(dev, cfg, c2)
+    with torch.no_grad():
+        ref_tokens = tg.greedy_generate(params, cfg, prompt, HEADSPLIT_NEW, cfg.eos_token_id,
+                                        cfg.pad_token_id, shift=shift, attn_impl="flash").tokens
+    ref_logits = forced_decode(params, cfg, prompt, ref_tokens, shift).cpu()
+    ref_loss, ref_grads = headsplit_loss_grads(cfg, params, shift, train)
+    ref_conn = headsplit_connector(c2, connector, feats).cpu()
+    plain = forced_decode(params, cfg, prompt, ref_tokens, None).cpu()
+    # the same functions in fp32 (the bf16 weights upcast), one tree at a time
+    params = {k: v for k, v in params.items() if k == "lm"}  # no image reaches the tower
+    params = tree_map(lambda x: x.float(), params)
+    fp32_logits = forced_decode(params, cfg, prompt, ref_tokens, shift, torch.float32).cpu()
+    del params
+    connector = tree_map(lambda x: x.float(), connector)
+    fp32_conn = headsplit_connector(c2, connector, feats.float()).cpu()
+    del connector, feats, train, prompt
+    torch.cuda.empty_cache()
+    attn_ms = headsplit_attention_ms()
+    log(f"[headsplit] one process: greedy tokens {ref_tokens.tolist()}, loss {ref_loss:.6g}; "
+        f"{_since(t0):.1f} s")
+    with tempfile.TemporaryDirectory(prefix="mimic_headsplit_") as workdir:
+        torch.save(ref_tokens.cpu(), os.path.join(workdir, "forced.pt"))
+        t = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=headsplit_rank, args=(r, n, workdir)) for r in range(n)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 18: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(workdir, f"rank-{r}.pt"), weights_only=False)
+                 for r in range(n)]
+        ranks_s = time.perf_counter() - t
+    log(f"[headsplit] {n} ranks (spawn, trees, (a)-(c)): {ranks_s:.1f} s; attention per rank and "
+        f"layer (B4 T=S=1024 D128, CUDA events, one process): gathered H28/4 "
+        f"{attn_ms['H28/4']:.4f} ms, model 4's whole-head split H7/1 {attn_ms['H7/1']:.4f} ms")
+    shift_moves = _rel_rms(ref_logits, plain)
+    one_logits, one_conn = _rel_rms(ref_logits, fp32_logits), _rel_rms(ref_conn, fp32_conn)
+    t = cfg.text
+    # every KV head on every rank: layers x rows x slots x heads x head size, k and v, bf16
+    want_cache = (t.num_layers * HEADSPLIT_B * (HEADSPLIT_T + HEADSPLIT_NEW) * t.num_kv_heads
+                  * t.head_size * 2 * 2)
+    # (a) the prefill's onepass_fwd once a layer over all 28 heads, the decode
+    # steps none; (b) the record and shift passes' once a layer each, the
+    # backward pair for layers 1..L-1 (layer 0's attention inputs carry no gradient)
+    want_a = {**dict.fromkeys(KERNEL_META, 0), "onepass_fwd": L}
+    want_b = {**want_a, "onepass_fwd": 2 * L, "flash_bwd_dq": L - 1, "flash_bwd_dkv": L - 1}
+    for r, out in enumerate(ranks):
+        logit_cos = _row_cosine(out["logits"].flatten(0, 1), ref_logits.flatten(0, 1))
+        logit_rms = _rel_rms(out["logits"], ref_logits)
+        logit_fp32 = _rel_rms(out["logits"], fp32_logits)
+        conn_cos = _row_cosine(out["connector"].flatten(0, 1), ref_conn.flatten(0, 1))
+        conn_rms = _rel_rms(out["connector"], ref_conn)
+        conn_fp32 = _rel_rms(out["connector"], fp32_conn)
+        loss_rel = abs(out["loss"] - ref_loss) / abs(ref_loss)
+        grad_cos = {k: torch.nn.functional.cosine_similarity(
+            out["grads"][k].flatten(), g.flatten(), dim=0).item() for k, g in ref_grads.items()}
+        same = int((out["greedy"] == ref_tokens.cpu()).sum())
+        log(f"[headsplit] rank {r}: (a) KV cache {out['cache_bytes']} B ({out['cache_heads']} KV "
+            f"heads); greedy {out['greedy_s']:.3f} s, {same} of {ref_tokens.numel()} tokens as "
+            f"one process's; launches {({k: v for k, v in out['launches_a'].items() if v})}; "
+            f"logits of the prefill and {HEADSPLIT_NEW} decode steps: min row cosine "
+            f"{logit_cos:.6f}, rms difference {logit_rms:.3e} of one process's; from fp32 "
+            f"{logit_fp32:.3e} (one process {one_logits:.3e}; the shift moves them by "
+            f"{shift_moves:.3e}); "
+            f"forced decode {out['forced_s']:.3f} s. (b) loss {out['loss']:.6g} (relative "
+            f"{loss_rel:.3e}), gradient cosines {({k: round(c, 6) for k, c in grad_cos.items()})}, "
+            f"{out['step_s']:.3f} s, launches {({k: v for k, v in out['launches_b'].items() if v})}. "
+            f"(c) connector min row cosine {conn_cos:.6f}, rms difference {conn_rms:.3e}; from "
+            f"fp32 {conn_fp32:.3e} (one process {one_conn:.3e}), "
+            f"{out['connector_s']:.3f} s; peak {out['peak_gib']:.2f} GiB")
+        got_a, got_b = ({k: d.get(k, 0) for k in KERNEL_META}
+                        for d in (out["launches_a"], out["launches_b"]))
+        if got_a != want_a or out["paths_a"] != ["flash"] + ["cached"] * HEADSPLIT_NEW:
+            raise AssertionError(f"(a) rank {r}: launches {out['launches_a']}, paths "
+                                 f"{out['paths_a']}; want {want_a}")
+        if got_b != want_b:
+            raise AssertionError(f"(b) rank {r}: launches {out['launches_b']}, want {want_b}")
+        if out["cache_bytes"] != want_cache or out["cache_heads"] != t.num_kv_heads:
+            raise AssertionError(f"(a) rank {r}: cache {out['cache_bytes']} B, want {want_cache}")
+        if not (logit_cos >= MIN_LOGIT_COSINE
+                and logit_fp32 <= HEADSPLIT_NOISE_RATIO * one_logits):
+            raise AssertionError(f"(a) rank {r}: logits disagree with one process's")
+        if not (loss_rel <= HEADSPLIT_LOSS_RTOL and min(grad_cos.values()) >= MIN_GRAD_COSINE):
+            raise AssertionError(f"(b) rank {r}: the step disagrees with one process's")
+        if not (conn_cos >= MIN_LOGIT_COSINE and conn_fp32 <= HEADSPLIT_NOISE_RATIO * one_conn):
+            raise AssertionError(f"(c) rank {r}: the connector disagrees with one process's")
+    if not shift_moves > 10 * one_logits:
+        raise AssertionError(f"the shift moves the logits by {shift_moves:.3e} only")
+    log(f"[time] phase 18 head split: {_since(t0):.1f} s")
+    return {f"head split (a), {n} ranks": _sum_counts(*(o["launches_a"] for o in ranks)),
+            f"head split (b), {n} ranks": _sum_counts(*(o["launches_b"] for o in ranks))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available (torch.cuda.is_available() is False)",
@@ -5472,6 +5854,11 @@ def main() -> int:
         log("[card] partial run (--parallel-only): phase 17 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--headsplit-only"]:
+        phase_headsplit()
+        log("[card] partial run (--headsplit-only): phase 18 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--idefics1-only"]:
         check_kernel(*CLIP_VIT_CASE[:-1])
         for case in CLIP_FP32_CASES:
@@ -5539,6 +5926,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     idefics_launches, idefics_kernels = timed("phase 14 idefics-9b", phase_idefics_9b)
     llava_launches, llava_kernels = timed("phase 15 llava", phase_llava)
+    headsplit_launches = phase_headsplit()
     # the kernels at idefics-9b's and llava's shapes: their errors count, the times
     # stay those of the main-path shapes above
     for r in idefics_kernels + llava_kernels:
@@ -5549,12 +5937,13 @@ def main() -> int:
     # steps, the warm cached call A, the sampled calls, the LoRA steps, the
     # prefix steps and calls, the LoRA eval, the serve engine's runs and the
     # tracing utilities, int8 serving, the W8A8 eval, the idefics-9b ICL calls
-    # and train steps, the llava calls, step and eval), each driven with the
-    # counts at 0 and read just after, summed
+    # and train steps, the llava calls, step and eval, the head split's ranks),
+    # each driven with the counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
              **peft_launches, **serve_engine_launches, **parallel_launches,
              "int8 serving": int8_launches,
-             "W8A8 eval": eval_launches, **idefics_launches, **llava_launches}
+             "W8A8 eval": eval_launches, **idefics_launches, **llava_launches,
+             **headsplit_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

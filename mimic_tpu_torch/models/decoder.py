@@ -34,11 +34,16 @@ additive perturbations of the block outputs (``perturb_attn`` /
 (``cache_write_pos``).
 
 Under a current mesh with a ``model`` axis (``parallel.use_mesh``, the tree
-from ``parallel.shard_params``) each rank runs its heads: q/k/v and the MLP's
-gate/up are column-parallel, ``o_proj`` and ``down_proj`` row-parallel and
-followed by an all-reduce (``parallel/tp.py``); the KV cache holds this
-rank's KV heads; the attention shift, LoRA's B (and ``o``'s A) are sliced to
-this rank's heads and their gradients summed over ``model``.  Ring attention
+from ``parallel.shard_params``) q/k/v and the MLP's gate/up are
+column-parallel, ``o_proj`` and ``down_proj`` row-parallel and followed by an
+all-reduce (``parallel/tp.py``).  Where every rank's block holds whole heads
+(``tp.whole_heads``) each rank attends over its own heads: the KV cache holds
+its KV heads, and the attention shift, LoRA's B (and ``o``'s A) are sliced to
+them, their gradients summed over ``model``.  Where a block cuts inside a head
+the attention's region is gathered: q/k/v (their biases and LoRA deltas added
+on this rank's columns) are gathered to every head, each rank attends over all
+of them with the whole shift leaves, the KV cache holds every KV head, and the
+output is scattered back to this rank's rows of ``o_proj``.  Ring attention
 (``attn_impl="ring"`` with ``ring_mesh``) runs the cacheless attention of long
 sequences as a sequence-parallel ring (``ops/ring_attention.py``), and
 records gradients through its ``RingAttentionDiff``.
@@ -161,8 +166,9 @@ def init_decoder_params(
 def init_kv_cache(
     cfg: TextConfig, batch: int, max_len: int, device, dtype=torch.float32
 ) -> Dict[str, Any]:
-    """An empty cache of this rank's KV heads (all of them without a model axis)."""
-    kv_heads = tp.local_heads(cfg.num_kv_heads, cfg.head_size, "k_proj")
+    """An empty cache of the KV heads this rank's attention holds (all of them
+    without a model axis, or in a gathered head region)."""
+    kv_heads = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)[1]
     shape = (cfg.num_layers, batch, max_len, kv_heads, cfg.head_size)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -216,16 +222,21 @@ def _lora_delta(
     return (scaling * torch.matmul(u, b)).to(x.dtype)
 
 
-def _heads(cfg: TextConfig, what: str):
-    """(this rank's query heads, its KV heads): all of them without a model axis."""
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_size
-    Hl, Hkvl = tp.local_heads(H, Dh, what), tp.local_heads(Hkv, Dh, what)
-    if Hl * Hkv != Hkvl * H:
-        raise NotImplementedError(
-            f"{what}: {H} query and {Hkv} KV heads do not split alike over a model axis "
-            f"of {tp.model_size()}"
-        )
-    return Hl, Hkvl
+def _project(x: torch.Tensor, x_split: torch.Tensor, w: Any, full: int, what: str):
+    """``x @ w`` for a q/k/v projection of ``full`` columns: the input through
+    ``copy_to_region`` (``x_split``) where the rules split ``w``'s columns."""
+    split = not isinstance(w, dict) and tp.is_split(w, -1, full, what)
+    return qdot(x_split if split else x, w)
+
+
+def _attn_out(attn: torch.Tensor, o_proj: Any, cfg: TextConfig) -> tuple:
+    """(the attention output [B,T,H·Dh] cut to this rank's rows of ``o_proj``,
+    whether those rows are split): in a gathered region the rows are scattered
+    out of every head's output."""
+    full = cfg.num_heads * cfg.head_size
+    rows_split = not isinstance(o_proj, dict) and tp.is_split(o_proj, 0, full, "o_proj")
+    flat = attn.reshape(*attn.shape[:2], -1)
+    return tp.scatter_to_region(flat, tp.split_width(full)), rows_split
 
 
 def _mlp(hn: torch.Tensor, gate: Any, up: Any, down: Any, F: int) -> torch.Tensor:
@@ -240,7 +251,7 @@ def _project_qkv(
     keeps: Optional[list], rate: float,
 ):
     B, T, _ = x.shape
-    H, Hkv = _heads(cfg, "q/k/v_proj")
+    H, Hkv = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)
     Dh = cfg.head_size
     if "qkv_proj" in lp:
         # the int8 serving tree fuses q/k/v into one matmul
@@ -249,16 +260,18 @@ def _project_qkv(
         k = qkv[..., H * Dh : (H + Hkv) * Dh]
         v = qkv[..., (H + Hkv) * Dh :]
     else:
-        split = tp.is_split(lp["q_proj"], -1, cfg.num_heads * Dh, "q_proj")
-        x_in = tp.copy_to_region(x, split)
-        q, k, v = (qdot(x_in, lp[name]) for name in ("q_proj", "k_proj", "v_proj"))
+        x_in = tp.copy_to_region(x)
+        q = _project(x, x_in, lp["q_proj"], cfg.num_heads * Dh, "q_proj")
+        k, v = (_project(x, x_in, lp[name], cfg.num_kv_heads * Dh, name)
+                for name in ("k_proj", "v_proj"))
     if "q_bias" in lp:
         q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
     out = []
-    for slot, (name, y) in enumerate((("q", q), ("k", k), ("v", v))):
+    for slot, (name, y, heads) in enumerate((("q", q, H), ("k", k, Hkv), ("v", v, Hkv))):
         delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate,
                             out_width=y.shape[-1])
-        out.append(y if delta is None else y + delta)
+        # a gathered region: this rank's columns to every head
+        out.append(tp.gather_from_region(y if delta is None else y + delta, heads * Dh))
     q, k, v = out
     return q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
 
@@ -366,17 +379,19 @@ def _self_attention(
             q, attn, lse, lse_u if need_unmasked else None, cache_k[:, :P], cache_v[:, :P],
             cfg.num_groups,
         )
-    split = q.shape[2] != cfg.num_heads
+    # this rank's own heads (a whole-heads split); in a gathered region q holds
+    # every head and the shift leaves enter whole
+    own_heads = q.shape[2] != cfg.num_heads
     if ls:
         log_z2 = lse if logz2 == "masked" else lse_u
-        if split:
+        if own_heads:
             # this rank's heads (multi-head leaves) or columns (the flat form)
             width = q.shape[2] * (1 if multi_head else cfg.head_size)
             ls = {name: w if name == "attn_logz1_b" and not multi_head
                   else tp.shared_heads(w, 0, width) for name, w in ls.items()}
-        attn = apply_attn_shift(ls, q, log_z2, attn, multi_head, model_split=split)
-    attn_flat = attn.reshape(B, T, -1)
-    out = tp.reduce_from_region(qdot(attn_flat, lp["o_proj"]), split)
+        attn = apply_attn_shift(ls, q, log_z2, attn, multi_head, model_split=own_heads)
+    attn_flat, rows_split = _attn_out(attn, lp["o_proj"], cfg)
+    out = tp.reduce_from_region(qdot(attn_flat, lp["o_proj"]), rows_split)
     delta = _lora_delta(ad, "o", attn_flat, lora_scaling, keeps[3] if keeps else None, drop_rate)
     return (out if delta is None else out + delta), k, v
 
@@ -393,22 +408,25 @@ def _cross_attention(
     A text row before the first image has an all-false mask row: the plain
     ``sdpa_with_lse`` gives it the mean of v, never NaN, as in JAX."""
     B, T, _ = x.shape
-    H, Hkv = _heads(cfg, "cross q/k/v_proj")
+    H, Hkv = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)
     Dh = cfg.head_size
-    split = H != cfg.num_heads
     S = cross_states.shape[1]
-    h = tp.copy_to_region(rms_norm(x, cp["input_ln"], cfg.norm_eps), split)
-    states = tp.copy_to_region(cross_states, split)
-    q = qdot(h, cp["q_proj"]).reshape(B, T, H, Dh)
-    k = qdot(states, cp["k_proj"]).reshape(B, S, Hkv, Dh)
-    v = qdot(states, cp["v_proj"]).reshape(B, S, Hkv, Dh)
+    h = rms_norm(x, cp["input_ln"], cfg.norm_eps)
+    h_in, states_in = tp.copy_to_region(h), tp.copy_to_region(cross_states)
+    q = _project(h, h_in, cp["q_proj"], cfg.num_heads * Dh, "cross q_proj")
+    k, v = (_project(cross_states, states_in, cp[name], cfg.num_kv_heads * Dh, f"cross {name}")
+            for name in ("k_proj", "v_proj"))
+    q = tp.gather_from_region(q, H * Dh).reshape(B, T, H, Dh)
+    k = tp.gather_from_region(k, Hkv * Dh).reshape(B, S, Hkv, Dh)
+    v = tp.gather_from_region(v, Hkv * Dh).reshape(B, S, Hkv, Dh)
     if cfg.cross_qk_layernorm:
         q = rms_norm(q, cp["q_ln"], cfg.norm_eps)
         k = rms_norm(k, cp["k_ln"], cfg.norm_eps)
     attn, _ = sdpa_with_lse(
         q, repeat_kv(k, cfg.num_groups), repeat_kv(v, cfg.num_groups), cross_mask
     )
-    attn_out = tp.reduce_from_region(qdot(attn.reshape(B, T, -1), cp["o_proj"]), split)
+    attn_flat, rows_split = _attn_out(attn, cp["o_proj"], cfg)
+    attn_out = tp.reduce_from_region(qdot(attn_flat, cp["o_proj"]), rows_split)
     h = x + torch.tanh(cp["alpha_attn"]).to(x.dtype) * attn_out
     m = rms_norm(h, cp["post_ln"], cfg.norm_eps)
     mlp_out = _mlp(m, cp["gate_proj"], cp["up_proj"], cp["down_proj"], cfg.intermediate_size)

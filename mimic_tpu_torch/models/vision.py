@@ -14,11 +14,14 @@ projector (two linears around an exact GELU).
 
 Under a model axis (``parallel.shard_params``' tree) the leaves the rules
 split run tensor-parallel: each attention on this rank's heads (q/k/v
-column-parallel with their biases, ``o_proj`` row-parallel), the ViT's
+column-parallel with their biases, ``o_proj`` row-parallel), or, where a
+rank's block cuts inside a head, gathered to every head and scattered back to
+this rank's rows of ``o_proj`` (``tp.head_region``); the ViT's
 ``fc1``/``fc2``, the connector's MLP and ``modality_proj`` and the llava
-projector column- then row-parallel.  A replicated bias of a column-parallel
-output (``fc1_bias``) is sliced to this rank's columns; the bias of a
-row-parallel output is added once, after the all-reduce.
+projector column- then row-parallel.  A connector MLP whose width the axis
+does not divide runs replicated, as the rules leave it.  A replicated bias of
+a column-parallel output (``fc1_bias``) is sliced to this rank's columns; the
+bias of a row-parallel output is added once, after the all-reduce.
 """
 
 from __future__ import annotations
@@ -37,23 +40,19 @@ from .layers import gelu_act, layer_norm, repeat_kv, rms_norm, sdpa_with_lse
 Params = Dict[str, Any]
 
 
-def _connector_split(gate: torch.Tensor, what: str) -> bool:
+def _connector_split(gate: torch.Tensor, full: int, what: str) -> bool:
     """Whether a connector MLP's gate (and so its up and down) is split over
-    the model axis.  Its full width is not the config's: checkpoints converted
-    from HF give the connector's two MLPs two widths where the config holds
-    one (``models/factory.py::check_params``).  ``shard_params`` splits a
-    width F when n divides it, leaving F / n; a width it left whole is not a
-    multiple of n.  So a local width that n divides was split, and one it does
-    not divide is ambiguous (a whole F, or a split one whose F / n is not a
-    multiple of n) and raises."""
+    the model axis.  The rules split a width F when n divides it, so a local
+    width that n divides was split: a whole one never is a multiple of n.  One
+    that n does not divide is a whole F or a split n·F; the config's width
+    ``full`` (the one ``init_perceiver_params`` gives both MLPs) tells which,
+    and a whole one runs replicated, as JAX's rules leave it.  A checkpoint's
+    MLP may have a width of its own (``models/factory.py::check_params``):
+    such a width raises where n does not divide its local share."""
     n = tp.model_size()
-    if n == 1:
-        return False
-    if gate.shape[-1] % n:
-        raise NotImplementedError(
-            f"{what}: width {gate.shape[-1]} under a model axis of {n}: cannot tell a "
-            "split width from a whole one")
-    return True
+    if n > 1 and gate.shape[-1] % n == 0:
+        return True
+    return tp.is_split(gate, -1, full, what)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +176,7 @@ def vit_forward(
         x = layer_norm(x, params["pre_ln_w"], params["pre_ln_b"], cfg.norm_eps)
 
     Dh = cfg.hidden_size // cfg.num_heads
-    H = tp.local_heads(cfg.num_heads, Dh, "vision q/k/v_proj")
+    H = tp.head_region(cfg.num_heads, cfg.num_heads, Dh)[0]
     n_tokens = x.shape[1]
     use_flash = attn_impl == "flash"
     flash_kmask = None
@@ -202,16 +201,16 @@ def vit_forward(
         residual = x
         hn = tp.copy_to_region(layer_norm(x, lp["ln1_w"], lp["ln1_b"], cfg.norm_eps), split_attn)
         B_, N, _ = hn.shape
-        q = (hn @ lp["q_proj"] + lp["q_bias"]).reshape(B_, N, H, Dh)
-        k = (hn @ lp["k_proj"] + lp["k_bias"]).reshape(B_, N, H, Dh)
-        v = (hn @ lp["v_proj"] + lp["v_bias"]).reshape(B_, N, H, Dh)
+        q, k, v = (tp.gather_from_region(hn @ lp[f"{p}_proj"] + lp[f"{p}_bias"], H * Dh)
+                   .reshape(B_, N, H, Dh) for p in "qkv")
         if use_flash:
             attn, _, _ = flash_attention(
                 q, k, v, flash_kmask, causal=False, need_unmasked=False
             )
         else:
             attn, _ = sdpa_with_lse(q, k, v, mask=key_mask)
-        o = tp.reduce_from_region(attn.reshape(B_, N, H * Dh) @ lp["o_proj"], split_attn)
+        attn = tp.scatter_to_region(attn.reshape(B_, N, H * Dh), lp["o_proj"].shape[0])
+        o = tp.reduce_from_region(attn @ lp["o_proj"], split_attn)
         x = residual + o + lp["o_bias"]
         residual = x
         hn = tp.copy_to_region(layer_norm(x, lp["ln2_w"], lp["ln2_b"], cfg.norm_eps), split_mlp)
@@ -328,9 +327,10 @@ def perceiver_forward(
     """
     if pcfg.style == "idefics1":
         return _perceiver_idefics1(params, pcfg, vision_feats, norm_eps, context_mask)
+    Fd = pcfg.intermediate_size or 4 * params["latents"].shape[-1]  # the config's MLP width
     if "modality_proj" in params:
         mp = params["modality_proj"]
-        split = _connector_split(mp["gate"], "modality_proj gate")
+        split = _connector_split(mp["gate"], Fd, "modality_proj gate")
         x = tp.copy_to_region(vision_feats, split)
         h = F.silu(x @ mp["gate"]) * (x @ mp["up"])
         vision_feats = tp.reduce_from_region(h @ mp["down"], split)
@@ -338,28 +338,31 @@ def perceiver_forward(
     B = vision_feats.shape[0]
     width = vision_feats.shape[-1]
     Dh = pcfg.head_dim or width // pcfg.num_heads
-    H = tp.local_heads(pcfg.num_heads, Dh, "connector q_proj")
-    Hkv = tp.local_heads(pcfg.num_kv_heads or pcfg.num_heads, Dh, "connector k_proj")
+    H_all, Hkv_all = pcfg.num_heads, pcfg.num_kv_heads or pcfg.num_heads
+    H, Hkv = tp.head_region(H_all, Hkv_all, Dh)
     n_lat = params["latents"].shape[0]
     latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
 
     kv_mask = _context_key_mask(context_mask, n_lat)
 
     layers = params["layers"]
-    split_attn = H != pcfg.num_heads
-    split_mlp = _connector_split(layers["gate_proj"], "connector gate_proj")
+    split_q = tp.is_split(layers["q_proj"], -1, H_all * Dh, "connector q_proj")
+    split_kv = tp.is_split(layers["k_proj"], -1, Hkv_all * Dh, "connector k_proj")
+    split_mlp = _connector_split(layers["gate_proj"], Fd, "connector gate_proj")
     for l in range(pcfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         residual = latents
         ln_lat = rms_norm(latents, lp["ln_latents"], norm_eps)
         ln_ctx = rms_norm(vision_feats, lp["ln_context"], norm_eps)
-        kv_input = tp.copy_to_region(torch.cat([ln_ctx, ln_lat], dim=1), split_attn)
+        kv_input = tp.copy_to_region(torch.cat([ln_ctx, ln_lat], dim=1), split_kv)
         nq, nk = ln_lat.shape[1], kv_input.shape[1]
-        q = (tp.copy_to_region(ln_lat, split_attn) @ lp["q_proj"]).reshape(B, nq, H, Dh)
-        k = (kv_input @ lp["k_proj"]).reshape(B, nk, Hkv, Dh)
-        v = (kv_input @ lp["v_proj"]).reshape(B, nk, Hkv, Dh)
+        q = tp.copy_to_region(ln_lat, split_q) @ lp["q_proj"]
+        q = tp.gather_from_region(q, H * Dh).reshape(B, nq, H, Dh)
+        k, v = (tp.gather_from_region(kv_input @ lp[name], Hkv * Dh).reshape(B, nk, Hkv, Dh)
+                for name in ("k_proj", "v_proj"))
         attn, _ = sdpa_with_lse(q, repeat_kv(k, H // Hkv), repeat_kv(v, H // Hkv), kv_mask)
-        o = tp.reduce_from_region(attn.reshape(B, nq, H * Dh) @ lp["o_proj"], split_attn)
+        attn = tp.scatter_to_region(attn.reshape(B, nq, H * Dh), lp["o_proj"].shape[0])
+        o = tp.reduce_from_region(attn @ lp["o_proj"], split_q)
         latents = residual + o
         residual = latents
         ln = tp.copy_to_region(rms_norm(latents, lp["post_ln"], norm_eps), split_mlp)
@@ -389,27 +392,29 @@ def _perceiver_idefics1(
     latents += ReLU-MLP(ln(latents)); then a final LayerNorm."""
     B, _, width = vision_feats.shape
     Dh = pcfg.head_dim or width // pcfg.num_heads
-    H = tp.local_heads(pcfg.num_heads, Dh, "resampler q_proj")
-    split = H != pcfg.num_heads
+    H = tp.head_region(pcfg.num_heads, pcfg.num_heads, Dh)[0]
     n_lat = params["latents"].shape[0]
     latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
     kv_mask = _context_key_mask(context_mask, n_lat)
 
     layers = params["layers"]
+    split = tp.is_split(layers["q_proj"], -1, pcfg.num_heads * Dh, "resampler q_proj")
     for l in range(pcfg.num_layers):
         lp = {name: w[l] for name, w in layers.items()}
         ctx_n = layer_norm(vision_feats, lp["ln_context_w"], lp["ln_context_b"], norm_eps)
         lat_n = layer_norm(latents, lp["ln_latents_w"], lp["ln_latents_b"], norm_eps)
         kv_in = tp.copy_to_region(torch.cat([ctx_n, lat_n], dim=1), split)
         nq, nk = lat_n.shape[1], kv_in.shape[1]
-        q = (tp.copy_to_region(lat_n, split) @ lp["q_proj"]).reshape(B, nq, H, Dh)
-        k = (kv_in @ lp["k_proj"]).reshape(B, nk, H, Dh)
-        v = (kv_in @ lp["v_proj"]).reshape(B, nk, H, Dh)
+        q = tp.copy_to_region(lat_n, split) @ lp["q_proj"]
+        q = tp.gather_from_region(q, H * Dh).reshape(B, nq, H, Dh)
+        k, v = (tp.gather_from_region(kv_in @ lp[name], H * Dh).reshape(B, nk, H, Dh)
+                for name in ("k_proj", "v_proj"))
         if "q_ln_w" in lp:
             q = layer_norm(q, lp["q_ln_w"], lp["q_ln_b"], norm_eps)
             k = layer_norm(k, lp["k_ln_w"], lp["k_ln_b"], norm_eps)
         attn, _ = sdpa_with_lse(q, k, v, kv_mask)
-        latents = latents + tp.reduce_from_region(attn.reshape(B, nq, H * Dh) @ lp["o_proj"], split)
+        attn = tp.scatter_to_region(attn.reshape(B, nq, H * Dh), lp["o_proj"].shape[0])
+        latents = latents + tp.reduce_from_region(attn @ lp["o_proj"], split)
         m = layer_norm(latents, lp["mlp_ln_w"], lp["mlp_ln_b"], norm_eps)
         latents = latents + torch.relu(m @ lp["fc"]) @ lp["c_proj"]
     return layer_norm(latents, params["final_ln_w"], params["final_ln_b"], norm_eps)

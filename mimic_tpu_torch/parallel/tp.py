@@ -1,6 +1,6 @@
 """Tensor-parallel collectives over the current mesh's ``model`` axis.
 
-Megatron's pair of conjugate regions, as ``torch.autograd.Function``s:
+Megatron's conjugate regions, as ``torch.autograd.Function``s:
 
 - ``copy_to_region``: identity forward, ``all_reduce`` backward.  Every
   replicated tensor that enters a head- or column-sharded region goes through
@@ -9,21 +9,34 @@ Megatron's pair of conjugate regions, as ``torch.autograd.Function``s:
   rank saw only its own heads' share.
 - ``reduce_from_region``: ``all_reduce`` forward (a row-parallel product's
   partial sums), identity backward.
-- ``gather_from_region``: the vocab ``all_gather`` of column-parallel logits;
-  backward keeps this rank's columns.
+- ``gather_from_region``: ``all_gather`` of this rank's columns (the vocab of
+  column-parallel logits, a head-split projection's q/k/v); backward keeps
+  this rank's columns.
+- ``scatter_to_region``: this rank's columns of a replicated tensor (a
+  gathered attention's output, cut to this rank's rows of ``o_proj``);
+  backward ``all_gather``s the columns' gradients, so that what reaches the
+  gathered attention is whole on every rank.
 
 With no current mesh, or a ``model`` axis of one rank, each is the identity
 and ``split_width`` the full width: the one-process path runs unchanged.
 
 Which dimension of a weight is split follows the rules of ``mesh.py``: a
 dimension the rules split over ``model`` is split when it divides, so
-``split_width(full)`` is what ``shard_params`` left of it.  A module under a
-``model`` axis expects ``shard_params``' tree and says so when it gets another.
+``split_width(full)`` is what ``shard_params`` left of it.  The rules split
+columns, not heads, so an attention runs in one of two head regions
+(``whole_heads``): where every rank's block holds whole heads, aligned with
+the KV heads its query heads read, each rank attends over its own heads; where
+a block cuts inside a head (or holds query heads whose KV heads lie on another
+rank), q/k/v are gathered to every head, every rank attends over all of them
+and the output is scattered back to this rank's rows of ``o_proj``: the
+result GSPMD gives for an attention it cannot partition.  A module under a
+``model`` axis expects ``shard_params``' tree and says so when it gets
+another.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,18 +63,33 @@ def split_width(full: int) -> int:
     return full // n if n > 1 and full % n == 0 else full
 
 
-def local_heads(heads: int, head_dim: int, what: str) -> int:
-    """The heads this rank holds of a projection of ``heads * head_dim`` columns
-    split over ``model``.  The rules split columns, not heads: a split inside a
-    head (``heads`` not divisible by the axis while the columns are) is not
-    ported and raises."""
-    width = split_width(heads * head_dim)
-    if width % head_dim:
-        raise NotImplementedError(
-            f"{what}: {heads} heads over a model axis of {model_size()} split inside a "
-            "head; tensor parallelism needs the heads to divide the axis"
-        )
-    return width // head_dim
+def whole_heads(heads: int, kv_heads: int, head_dim: int, n: int) -> bool:
+    """Whether a ``model`` axis of ``n`` ranks leaves each rank whole heads of an
+    attention of ``heads`` query heads on ``kv_heads`` KV heads of ``head_dim``,
+    each rank's query heads aligned with the KV heads they read.
+
+    The rules cut q's ``heads * head_dim`` columns (and k/v's, and ``o_proj``'s
+    rows) into ``n`` contiguous blocks where ``n`` divides them.  True where
+    nothing is cut (``n`` 1, or ``n`` does not divide q's columns, and so not
+    k/v's either) or where ``n`` divides the KV heads (and so the query heads,
+    rank r's query heads reading exactly its own KV heads).  False otherwise:
+    a block cuts inside a head, or holds whole query heads whose KV heads lie
+    on another rank; the attention then runs gathered (``head_region``)."""
+    if n == 1 or (heads * head_dim) % n:
+        return True
+    return kv_heads % n == 0
+
+
+def head_region(heads: int, kv_heads: int, head_dim: int) -> Tuple[int, int]:
+    """(query heads, KV heads) of the attention this rank runs under the current
+    mesh: its own blocks where they hold whole heads (``whole_heads``), else
+    every head, gathered.  The KV heads, which size a KV cache or a prefix's
+    slots, depend on ``kv_heads`` alone: ``kv_heads / n`` where the axis
+    divides them, else all of them."""
+    if whole_heads(heads, kv_heads, head_dim, model_size()):
+        return (split_width(heads * head_dim) // head_dim,
+                split_width(kv_heads * head_dim) // head_dim)
+    return heads, kv_heads
 
 
 def local_block(x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
@@ -130,6 +158,21 @@ class _GatherFromRegion(torch.autograd.Function):
         return g[..., r * ctx.width:(r + 1) * ctx.width], None
 
 
+class _ScatterToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, width):
+        ctx.group = group
+        r = dist.get_group_rank(group, dist.get_rank())
+        return x[..., r * width:(r + 1) * width].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        parts = [torch.empty_like(g) for _ in range(dist.get_world_size(ctx.group))]
+        dist.all_gather(parts, g, group=ctx.group)
+        return torch.cat(parts, dim=-1), None, None
+
+
 def copy_to_region(x: torch.Tensor, split: bool = True) -> torch.Tensor:
     """``x`` entering a region sharded over ``model`` (identity where ``split``
     is false: the region is replicated, each rank's gradient already whole)."""
@@ -144,9 +187,36 @@ def reduce_from_region(x: torch.Tensor, split: bool = True) -> torch.Tensor:
     return x if group is None else _ReduceFromRegion.apply(x, group)
 
 
-def gather_from_region(x: torch.Tensor) -> torch.Tensor:
+def _not_region(x: torch.Tensor, width: int, what: str) -> ValueError:
+    return ValueError(
+        f"{what}: {x.shape[-1]} columns, neither the region's {width} nor this rank's share "
+        f"of them under a model axis of {model_size()}")
+
+
+def gather_from_region(x: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """This rank's columns of ``x`` gathered over ``model`` to ``width`` (any
+    width when None).  Where ``x`` already holds all ``width`` (a whole-heads
+    region, or a projection the rules left whole) it is returned as it is;
+    any width but ``width`` and ``width / n`` raises."""
     group = model_group()
-    return x if group is None else _GatherFromRegion.apply(x, group)
+    if group is None or x.shape[-1] == width:
+        return x
+    if width is not None and x.shape[-1] * model_size() != width:
+        raise _not_region(x, width, "gather_from_region")
+    return _GatherFromRegion.apply(x, group)
+
+
+def scatter_to_region(x: torch.Tensor, width: int) -> torch.Tensor:
+    """This rank's block of ``width`` columns of a replicated ``x``, its
+    gradient gathered over ``model``.  Where ``x`` holds ``width`` columns (a
+    whole-heads region, or rows the rules left whole) it is returned as it
+    is; any width but ``width`` and ``n * width`` raises."""
+    group = model_group()
+    if group is None or x.shape[-1] == width:
+        return x
+    if x.shape[-1] != width * model_size():
+        raise _not_region(x, width, "scatter_to_region")
+    return _ScatterToRegion.apply(x, group, width)
 
 
 def shared_heads(x: Optional[torch.Tensor], dim: int, width: int) -> Optional[torch.Tensor]:

@@ -67,8 +67,11 @@ def prefix_forward_args(
     Differentiable with respect to the prefix leaves (expand + concat), so the
     same helper serves the train step and the generation prefill.
     """
-    # under a model axis the cache holds this rank's KV heads
-    kv_heads = tp.local_heads(prefix["k"].shape[2], prefix["k"].shape[3], "prefix")
+    # under a model axis the cache holds the KV heads of this rank's head region:
+    # its own, or every one where the region is gathered (a count that depends on
+    # the KV heads alone, so the query heads are not needed here)
+    Hkv, Dh = prefix["k"].shape[2:]
+    kv_heads = tp.head_region(Hkv, Hkv, Dh)[1]
     k, v = (tp.shared_heads(prefix[name], 2, kv_heads) for name in ("k", "v"))
     L, P, Hkv, Dh = k.shape
     am = batch.attention_mask

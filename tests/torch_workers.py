@@ -18,7 +18,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from mimic_tpu_torch import config as tconfig
 from mimic_tpu_torch import parallel
-from mimic_tpu_torch.bridge import to_numpy, to_torch
+from mimic_tpu_torch.bridge import to_numpy, to_torch, tree_map
 from mimic_tpu_torch.models import decoder as td
 from mimic_tpu_torch.models import generate as tg
 from mimic_tpu_torch.models import lvlm as tlvlm
@@ -27,10 +27,14 @@ from torch_dist import load_inputs, save_outputs
 
 
 def build_cfg(spec):
-    """``(name, top-level fields, text fields)`` → the port's ``ModelConfig``."""
-    name, top, text = spec
+    """``(name, top-level fields, text fields[, perceiver fields])`` → the
+    port's ``ModelConfig``."""
+    name, top, text, *perceiver = spec
     cfg = get_model_config(name).replace(**top)
-    return cfg.replace(text=dataclasses.replace(cfg.text, **text))
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, **text))
+    if perceiver and perceiver[0]:
+        cfg = cfg.replace(perceiver=dataclasses.replace(cfg.perceiver, **perceiver[0]))
+    return cfg
 
 
 def lvlm_batch(arrays) -> tlvlm.LVLMBatch:
@@ -283,4 +287,159 @@ def ring_backward_world(rank, n, workdir):
                                          batch_axis=batch_axis)
             cot = [take(torch.from_numpy(arrays[x])) for x in ("g_out", "g_lse", "g_lse_u")]
             out[(case, name)] = [g.numpy() for g in torch.autograd.grad(got, (q, k, v), cot)]
+    save_outputs(workdir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_head_split.py
+# ---------------------------------------------------------------------------
+
+
+def _loss_grads(cfg, enc, tree, frozen, batch, kw):
+    """``compute_loss``'s gradients of every trainable leaf, as numpy."""
+    from mimic_tpu_torch.shift import params as tsp
+    from mimic_tpu_torch.train import optim as to
+    from mimic_tpu_torch.train import step as ts
+
+    live = {p: x.detach().clone().requires_grad_(True) for p, x in to.flatten(tree).items()}
+    loss, _ = ts.compute_loss(
+        to.unflatten(live), frozen, batch, cfg=cfg, strategy=enc.strategy(),
+        rec_attn=tsp.needs_attn_capture(enc), rec_ffn=tsp.needs_ffn_capture(enc),
+        mh=tsp.multi_head(enc), **kw)
+    return {p: g.numpy() for p, g in zip(live, torch.autograd.grad(loss, list(live.values())))}
+
+
+def _one_step(cfg, case, frozen, mesh):
+    """One ``make_train_step`` step of ``case`` on ``mesh`` (its batch cut to
+    this rank's data rows): (metrics, updated trainables)."""
+    from mimic_tpu_torch.train import optim as to
+    from mimic_tpu_torch.train import step as ts
+
+    tree = parallel.replicate(to_torch(case["trainable"], "cpu"), mesh)
+    tx = to.build_optimizer(tree, **case["opt"])
+    step = ts.make_train_step(cfg, port_enc(case["enc"]), tx, **case["common"])
+    batch = parallel.shard_batch(ts.to_device_batch(SimpleNamespace(**case["batch"]), "cpu"),
+                                 mesh)
+    with parallel.use_mesh(mesh):
+        state, metrics = step(ts.TrainState(tree, tx.init(tree), 0), frozen, batch)
+    return {k: float(v) for k, v in metrics.items()}, to_numpy(state.trainable)
+
+
+def head_split_world(rank, n, workdir):
+    """Every layout of ``shard_params`` that cuts inside a head, on a (data 1 x
+    model 4) and a (data 2 x model 2) mesh: forwards, generation, train steps
+    and gradients, the serve engine, and the raises that stay."""
+    from mimic_tpu_torch.models import lm as tlm
+    from mimic_tpu_torch.ops.quant import quantize_lm_params, quantize_weight
+    from mimic_tpu_torch.serve.engine import ServeEngine, ServeRequest
+    from mimic_tpu_torch.train import step as ts
+
+    inp = load_inputs(workdir)
+    meshes = {4: parallel.make_mesh(1, 4, device_type="cpu"),
+              2: parallel.make_mesh(2, 2, device_type="cpu")}
+    out = {"coord": {m: mesh.get_coordinate() for m, mesh in meshes.items()}}
+    trees = {}
+
+    def frozen(key, m):
+        # a copy of shard_params' tree, as a move to the card makes one: the
+        # layout is read from its shapes, not from the tensors shard_params made
+        if (key, m) not in trees:
+            cut = parallel.shard_params(to_torch(inp["models"][key][1], "cpu"), meshes[m])
+            trees[key, m] = tree_map(lambda t: t.clone(), cut)
+        return trees[key, m]
+
+    def cfg_of(key):
+        return build_cfg(inp["models"][key][0])
+
+    # lvlm_forward's logits of each case on its mesh (the batch cut to this rank's rows)
+    out["logits"] = {}
+    for name, case in inp["forward"].items():
+        mesh = meshes[case["model_axis"]]
+        batch = parallel.shard_batch(lvlm_batch(case["batch"]), mesh)
+        shift = to_torch(case["shift"], "cpu") if case["shift"] is not None else None
+        with parallel.use_mesh(mesh), torch.no_grad():
+            out["logits"][name] = tlvlm.lvlm_forward(
+                frozen(case["model"], case["model_axis"]), cfg_of(case["model"]), batch,
+                shift=shift, multi_head=case["multi_head"]).logits.numpy()
+
+    # greedy and beam-3 tokens, and the KV heads the prefill's cache holds
+    out["generate"] = {}
+    for name, case in inp["generate"].items():
+        mesh = meshes[case["model_axis"]]
+        params, cfg = frozen(case["model"], case["model_axis"]), cfg_of(case["model"])
+        batch = parallel.shard_batch(lvlm_batch(case["batch"]), mesh)
+        ids = (inp["eos"], inp["pad"])
+        with parallel.use_mesh(mesh), torch.no_grad():
+            got = {"greedy": tg.greedy_generate(params, cfg, batch, 4, *ids).tokens.numpy(),
+                   "cache_heads": td.init_kv_cache(cfg.text, 1, 1, "cpu")["k"].shape[3]}
+            if case["beam"]:
+                beam = tg.beam_generate(params, cfg, batch, 4, 3, *ids)
+                got["beam"], got["beam_scores"] = beam.tokens.numpy(), beam.scores.numpy()
+        out["generate"][name] = got
+
+    # one train step, and compute_loss's gradients on the model-4 mesh
+    out["steps"] = {}
+    for name, case in inp["steps"].items():
+        cfg, m = cfg_of(case["model"]), case["model_axis"]
+        got = dict(zip(("metrics", "trainable"), _one_step(cfg, case, frozen(case["model"], m),
+                                                           meshes[m])))
+        if m == 4:
+            batch = ts.to_device_batch(SimpleNamespace(**case["batch"]), "cpu")
+            with parallel.use_mesh(meshes[4]):
+                got["grads"] = _loss_grads(cfg, port_enc(case["enc"]),
+                                           to_torch(case["trainable"], "cpu"),
+                                           frozen(case["model"], 4), batch, case["loss_kw"])
+        out["steps"][name] = got
+
+    # the serve engine on the model-4 mesh
+    eng_case = inp["engine"]
+    with parallel.use_mesh(meshes[4]), torch.no_grad():
+        eng = ServeEngine(cfg_of(eng_case["model"]), frozen(eng_case["model"], 4), num_slots=2,
+                          max_len=48, prefill_buckets=(8, 16, 32), decode_block=2, device="cpu")
+        for i, p in enumerate(eng_case["prompts"]):
+            eng.submit(ServeRequest(uid=i, input_ids=p, max_new_tokens=5))
+        out["engine"] = [r.tokens for r in eng.run()]
+        out["engine_cache_heads"] = eng._cache["k"].shape[3]
+
+    # the entry points: run_train(use_mesh=True) at (data 1 x model 4), and the
+    # eval's LVLMRunner.generate on a shard_params tree under the mesh, cast to
+    # fp64 and back (new tensors of the same values, as a dtype or device move)
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.pipeline.train_entry import run_train
+
+    run = inp["run"]
+    runner = LVLMRunner(cfg_of(run["model"]), to_torch(inp["models"][run["model"]][1], "cpu"),
+                        SimpleTokenizer(padding_side="left"), device="cpu", pad_multiple=32)
+    state = run_train(tconfig.config_from_dict(tconfig.TrainConfig, run["cfg"]),
+                      result_dir=os.path.join(workdir, "run"), runner=runner,
+                      splits=run["splits"], use_mesh=True)
+    out["run_trainable"], out["run_step"] = to_numpy(state.trainable), state.step
+    ev = inp["eval"]
+    with parallel.use_mesh(meshes[4]), torch.no_grad():
+        cast = tree_map(lambda t: t.double().float(), frozen(ev["model"], 4))
+        runner = LVLMRunner(cfg_of(ev["model"]), cast,
+                            SimpleTokenizer(padding_side="left"), device="cpu")
+        out["eval"] = runner.generate(ev["images"], ev["texts"], num_beams=3, max_new_tokens=4)
+
+    # the raises that stay under a model axis of more than one rank
+    key = inp["raises"]["model"]
+    cfg, batch = cfg_of(key), lvlm_batch(inp["raises"]["batch"])
+    whole = to_torch(inp["models"][key][1], "cpu")
+    out["raises"] = {}
+
+    def raised(name, fn):
+        try:
+            with parallel.use_mesh(meshes[4]), torch.no_grad():
+                fn()
+        except NotImplementedError as e:
+            out["raises"][name] = str(e)
+
+    raised("ring", lambda: tlvlm.lvlm_forward(
+        frozen(key, 4), cfg, batch, attn_impl="ring", ring_mesh=meshes[2], ring_axis="model"))
+    raised("int8 decoder", lambda: tlvlm.lvlm_forward(quantize_lm_params(frozen(key, 4)), cfg,
+                                                      batch))
+    lm_tree = {"embed": whole["lm"]["embed"], "lm_head": quantize_weight(whole["lm"]["lm_head"])}
+    raised("int8 lm_head", lambda: tlm.lm_head(lm_tree, cfg.text,
+                                               torch.zeros(1, 1, cfg.text.hidden_size)))
     save_outputs(workdir, rank, out)
