@@ -270,7 +270,7 @@ Phases (any failure propagates: non-zero exit, no result line):
              (a ring of one rank is one diagonal block through the same
              kernels).  Call A under use_mesh(make_mesh(1, 1)) gives the
              tokens of call A without it; the group is destroyed at the end.
-18. head split — last: a (data 1 x model 8) mesh whose model axis cuts inside
+18. head split — a (data 1 x model 8) mesh whose model axis cuts inside
              a head, as 8 processes sharing the card over gloo (each checks
              first that gloo's all_reduce and all_gather take CUDA tensors),
              each with its shard_params trees: llava-interleave-7b's decoder at
@@ -289,6 +289,21 @@ Phases (any failure propagates: non-zero exit, no result line):
              256; (c) the connector on one row of phase 5's 8-shot image
              features (9 x 4900 patches), by (a)'s gates.  The attention per rank and layer
              at all 28 heads beside model 4's 7 (CUDA events, one process).
+19. model axis, rest — last: MODEL_AXIS_RANKS processes share the card over gloo,
+             idefics2-8b-base's text tower at full width cut to 4 layers, bf16.
+             First a probe of gloo's batch_isend_irecv (the ring's exchange)
+             on CUDA tensors: where it refuses them, no ring crosses processes
+             here.  (a) the MimIC step's loss and gradients on the ring at
+             ring_min_len 0 on a ("data", "sp", "model") mesh ((1, 2, 2), or
+             (1, 1, 4) after a refusal), held to one process (loss 1e-3
+             relative, gradient cosine >= 0.99); (b) the record pass at T 4096
+             on the ring (over "model" with every head gathered, or (a)'s
+             ring of one); (c) make_mesh(1, 4) with the runner in "int8",
+             "int8-memory" and "int8-w8a8": its handles bit-equal to one
+             process's, beam 3 on B4 x T1024 (the int8 prompt KV in "int8"),
+             the logits of the prefill and 8 forced decode steps (min row
+             cosine >= MIN_LOGIT_COSINE); every rank's launches of each run
+             against the counts the phase expects.
 
 Every phase prints its seconds ("[time]").
 
@@ -312,6 +327,7 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --serve-only  # build, the 8B runner and phase 16: exit 3, no result line
     python3 chip_smoke.py --parallel-only  # build, the 8B runner and phase 17: exit 3, no result line
     python3 chip_smoke.py --headsplit-only  # build and phase 18: exit 3, no result line
+    python3 chip_smoke.py --model-axis-only  # build and phase 19: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
                                              # and TMA opcodes in their SASS: exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
@@ -5487,24 +5503,27 @@ def headsplit_batches(dev, cfg, c2):
     return prompt, train, feats.to(torch.bfloat16)
 
 
-def forced_decode(params, cfg, batch, forced, shift, dtype=torch.bfloat16):
+def forced_decode(params, cfg, batch, forced, shift, dtype=torch.bfloat16, decode_params=None):
     """fp32 logits [1 + new, B, V]: the prefill's last row, then each decode
     step's, the steps fed ``forced`` [B, new] (greedy_generate's loop with the
-    tokens given, so that two runs read the same inputs)."""
+    tokens given, so that two runs read the same inputs; the steps read
+    ``decode_params`` where given, as the ``"int8"`` mode's do)."""
     from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.decoder import holds_handles
     from mimic_tpu_torch.models.lvlm import LVLMBatch, lvlm_forward
 
     B, T = batch.input_ids.shape
     new = forced.shape[1]
+    dparams = params if decode_params is None else decode_params
     with torch.no_grad():
         last, cache, _ = tg._prefill(params, cfg, batch, T + new, shift, "unmasked", dtype,
-                                     "flash")
+                                     "flash", handles=holds_handles(dparams["lm"]["decoder"]))
         rows, n_real = [last.float()], batch.attention_mask.sum(-1)
         mask = torch.cat([batch.attention_mask, batch.attention_mask.new_zeros(B, new)], dim=-1)
         for i in range(new):
             mask[:, T + i] = 1
-            out = lvlm_forward(params, cfg, LVLMBatch(input_ids=forced[:, i:i + 1],
-                                                      attention_mask=mask),
+            out = lvlm_forward(dparams, cfg, LVLMBatch(input_ids=forced[:, i:i + 1],
+                                                       attention_mask=mask),
                                position_ids=(n_real + i)[:, None], kv_cache=cache,
                                kv_total_len=T + new, shift=shift, logz2="unmasked")
             cache = out.decoder.kv_cache
@@ -5512,10 +5531,10 @@ def forced_decode(params, cfg, batch, forced, shift, dtype=torch.bfloat16):
     return torch.stack(rows)
 
 
-def headsplit_loss_grads(cfg, params, shift, batch):
+def headsplit_loss_grads(cfg, params, shift, batch, attn_impl="flash", **kw):
     """The MimIC step's loss and every shift leaf's gradient (compute_loss and
     its backward through the kernels: what make_train_step runs before the
-    optimizer)."""
+    optimizer); ``kw`` goes to compute_loss (phase 19's ``ring_kwargs``)."""
     from mimic_tpu_torch.config import get_preset
     from mimic_tpu_torch.shift.params import multi_head, needs_attn_capture, needs_ffn_capture
     from mimic_tpu_torch.train import step as ts
@@ -5527,7 +5546,8 @@ def headsplit_loss_grads(cfg, params, shift, batch):
             {"shift": leaves}, params, batch, cfg=cfg, strategy=enc.strategy(),
             rec_attn=needs_attn_capture(enc), rec_ffn=needs_ffn_capture(enc),
             mh=multi_head(enc), ce_loss_weight=peft.ce_loss_weight,
-            align_loss_weight=peft.align_loss_weight, logz2="unmasked", attn_impl="flash")
+            align_loss_weight=peft.align_loss_weight, logz2="unmasked", attn_impl=attn_impl,
+            **kw)
         grads = torch.autograd.grad(loss, list(leaves.values()))
     return float(loss.detach()), {k: g.float().cpu() for k, g in zip(leaves, grads)}
 
@@ -5754,6 +5774,389 @@ def phase_headsplit():
             f"head split (b), {n} ranks": _sum_counts(*(o["launches_b"] for o in ranks))}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the rest of the model axis
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS_RANKS = 4
+MODEL_AXIS_LAYERS = 4
+# (a) the MimIC step at phase 5's sequence shape (B2, record T 2048, shift T
+# 256, 64 gathered tokens); (b) the record pass at T 4096 (a ring of one rank:
+# its block C 4096 > ONEPASS_MAX_S takes flash_fwd); (c) B4 x T1024 with a
+# left-padded row, 8 new tokens, beam 3 (the prompt KV int8 in "int8")
+STEP_B, STEP_T, STEP_T_SHIFT, STEP_M = 2, 2048, 256, 64
+RECORD_T = 4096
+QUANT_B, QUANT_T, QUANT_NEW, QUANT_PAD = 4, 1024, 8, 100
+QUANT_MODES = ("int8", "int8-memory", "int8-w8a8")
+MODEL_AXIS_LOSS_RTOL = 1e-3
+
+
+def model_axis_cfg():
+    """idefics2-8b-base at full width (D4096, H32/8, D128, F14336), the text
+    tower cut to MODEL_AXIS_LAYERS layers, the vision tower and the connector
+    to one (their weights are made, no image reaches them)."""
+    import dataclasses
+
+    from mimic_tpu_torch.models.config import get_model_config
+
+    cfg = get_model_config("idefics2-8b-base")
+    return cfg.replace(text=dataclasses.replace(cfg.text, num_layers=MODEL_AXIS_LAYERS),
+                       vision=dataclasses.replace(cfg.vision, num_layers=1),
+                       perceiver=dataclasses.replace(cfg.perceiver, num_layers=1))
+
+
+def model_axis_inputs(dev, cfg):
+    """From fixed seeds: the bf16 tree, the fp32 MimIC shift, (a)'s dual-pass
+    batch, (b)'s record batch and (c)'s prompt batch."""
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models.lvlm import LVLMBatch, init_lvlm_params
+    from mimic_tpu_torch.shift.params import init_shift_params
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    params = init_lvlm_params(cfg, gen(24), dev, torch.bfloat16)
+    shift = init_shift_params(get_preset("mimic")[0], cfg.text, gen(25), dev)
+    g = gen(26)
+    hi = min(32000, cfg.text.vocab_size)
+
+    def ids(B, T):
+        return torch.randint(hi // 2, hi, (B, T), generator=g, device=dev)
+
+    def ones(B, T, dtype=torch.int32):
+        return torch.ones(B, T, dtype=dtype, device=dev)
+
+    idx = torch.arange(STEP_M, device=dev)[None].expand(STEP_B, STEP_M)
+    train = {"full_ids": ids(STEP_B, STEP_T), "full_mask": ones(STEP_B, STEP_T),
+             "query_ids": ids(STEP_B, STEP_T_SHIFT), "query_mask": ones(STEP_B, STEP_T_SHIFT),
+             "prefix_q_idx": idx + (STEP_T - STEP_M), "shift_q_idx": idx + (STEP_T_SHIFT - STEP_M),
+             "q_valid": ones(STEP_B, STEP_M, torch.bool)}
+    record = LVLMBatch(input_ids=ids(1, RECORD_T), attention_mask=ones(1, RECORD_T))
+    mask = ones(QUANT_B, QUANT_T)
+    mask[1, :QUANT_PAD] = 0
+    prompt = LVLMBatch(input_ids=ids(QUANT_B, QUANT_T), attention_mask=mask)
+    return params, shift, train, record, prompt
+
+
+def model_axis_record(cfg, params, batch, **kw):
+    """The record pass's attention and MLP block outputs at its last
+    STEP_M positions, [2, L, 1, STEP_M, D] on the host."""
+    from mimic_tpu_torch.models.lvlm import lvlm_forward
+
+    idx = torch.arange(RECORD_T - STEP_M, RECORD_T, device=batch.input_ids.device)[None]
+    with torch.no_grad():
+        out = lvlm_forward(params, cfg, batch, capture_attn=True, capture_ffn=True,
+                           capture_gather_idx=idx, **kw).decoder
+    return torch.stack([out.attn_capture, out.ffn_capture]).cpu()
+
+
+def quantized_handles(tree, path=""):
+    """Every int8 handle of a tree, by key path."""
+    from mimic_tpu_torch.ops.quant import is_quantized
+
+    if is_quantized(tree):
+        return {path: tree}
+    if not isinstance(tree, dict):
+        return {}
+    return {p: h for k, v in tree.items() for p, h in quantized_handles(v, f"{path}/{k}").items()}
+
+
+def model_axis_quant(cfg, params, prompt, mode, forced=None):
+    """(c) in ``mode``: ``LVLMRunner(quant=mode)`` on ``params`` (the whole tree,
+    or this rank's cut under the current mesh), its handles' fingerprint,
+    the counted beam-3 run and the launches in it, then the logits of the
+    prefill and each decode step fed ``forced`` (one process's tokens; the
+    beam's best where None)."""
+    from mimic_tpu_torch.models import generate as tg
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+
+    out = {}
+    t = time.perf_counter()
+    runner = LVLMRunner(cfg, params, SimpleTokenizer(padding_side="left"), device="cuda",
+                        quant=mode)
+    out["set_quant_s"] = _since(t)
+    base, dparams = runner.params, runner.decode_params
+    out["handles"] = frozen_fingerprint(quantized_handles(base if dparams is None else dparams))
+    _reset_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        beam = tg.beam_generate(base, cfg, prompt, QUANT_NEW, NUM_BEAMS, cfg.eos_token_id,
+                                cfg.pad_token_id, decode_params=dparams, attn_impl="flash")
+    out["beam_s"], out["launches"] = _since(t), _counts()
+    out["beam"] = beam.tokens.cpu()
+    forced = beam.tokens if forced is None else forced.to(beam.tokens.device)
+    out["logits"] = forced_decode(base, cfg, prompt, forced, None, decode_params=dparams).cpu()
+    return out
+
+
+def model_axis_rank(rank, n, n_sp, workdir):
+    """One rank of phase 19: a ``gloo`` group of n processes on cuda:0.  (a) on a
+    ("data", "sp", "model") mesh of (1, n_sp, n / n_sp); (b) with
+    ``ring_axis="model"`` on ``make_mesh(1, n)`` where the ring may cross
+    processes (n_sp > 1), else on (a)'s mesh; (c) on ``make_mesh(1, n)``; each
+    tree ``shard_params``' cut.  Writes ``rank-{rank}.pt``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from mimic_tpu_torch import parallel
+    from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG, init_kv_cache
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=n)
+    try:
+        dev = torch.device("cuda")
+        cfg = model_axis_cfg()
+        whole, shift, train, record, prompt = model_axis_inputs(dev, cfg)
+        # gloo meshes ("cpu" names the backend); their collectives take the CUDA tensors
+        mesh3 = init_device_mesh("cpu", (1, n_sp, n // n_sp),
+                                 mesh_dim_names=("data", "sp", "model"))
+        mesh = parallel.make_mesh(1, n, device_type="cpu")
+        step_tree = parallel.shard_params(whole, mesh3)
+        params = parallel.shard_params(whole, mesh)
+        del whole
+        torch.cuda.empty_cache()
+        refs = torch.load(os.path.join(workdir, "forced.pt"))
+        out = {}
+        dist.barrier()
+        _reset_counts()
+        ATTN_PATH_LOG.clear()
+        t = time.perf_counter()
+        with parallel.use_mesh(mesh3):
+            out["loss"], out["grads"] = headsplit_loss_grads(
+                cfg, step_tree, shift, train, attn_impl="ring",
+                ring_kwargs=dict(ring_mesh=mesh3, ring_axis="sp", ring_min_len=0))
+        out["a_s"], out["launches_a"], out["paths_a"] = _since(t), _counts(), list(ATTN_PATH_LOG)
+        ring_tree, ring_mesh, ring_axis = ((params, mesh, "model") if n_sp > 1
+                                           else (step_tree, mesh3, "sp"))
+        dist.barrier()
+        _reset_counts()
+        ATTN_PATH_LOG.clear()
+        t = time.perf_counter()
+        with parallel.use_mesh(ring_mesh):
+            out["record"] = model_axis_record(cfg, ring_tree, record, attn_impl="ring",
+                                              ring_mesh=ring_mesh, ring_axis=ring_axis)
+        out["b_s"], out["launches_b"], out["paths_b"] = _since(t), _counts(), list(ATTN_PATH_LOG)
+        del step_tree, ring_tree
+        # the KV cache's bytes a token on this rank: its own KV heads, and every
+        # one (what a call whose decode steps read int8 handles holds)
+        with parallel.use_mesh(mesh):
+            out["kv_token_bytes"] = {
+                handles: sum(c.nbytes for c in init_kv_cache(
+                    cfg.text, 1, 1, dev, torch.bfloat16, handles=handles).values()
+                    if isinstance(c, torch.Tensor))
+                for handles in (False, True)}
+        out["c"] = {}
+        for mode in QUANT_MODES:
+            dist.barrier()
+            torch.cuda.empty_cache()  # 4 processes share the card
+            with parallel.use_mesh(mesh):
+                out["c"][mode] = model_axis_quant(cfg, params, prompt, mode, refs[mode])
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(out, os.path.join(workdir, f"rank-{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _p2p_probe_rank(rank, n, workdir):
+    """One rank of the probe: the ring's own exchange (``_exchange``, gloo's
+    ``batch_isend_irecv``) of a CUDA tensor to the next rank, in bf16 and fp32.
+    Writes ``probe-{rank}.pt``: per dtype "ok", "wrong values" or the error
+    (after an error the pair's connection is gone: no barrier follows)."""
+    import torch.distributed as dist
+
+    from mimic_tpu_torch.ops.ring_attention import _exchange, _wait
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/probe-store", rank=rank,
+                            world_size=n)
+    try:
+        result = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.full((1 << 20,), rank + 1.0, dtype=dtype, device="cuda")
+            try:
+                recv, reqs = _exchange([x], (rank + 1) % n, (rank - 1) % n, None)
+                _wait(reqs)
+                torch.cuda.synchronize()
+                want = (rank - 1) % n + 1.0
+                result[str(dtype)] = "ok" if bool((recv[0] == want).all()) else "wrong values"
+            except RuntimeError as e:
+                result[str(dtype)] = f"refused: {str(e).splitlines()[0][:200]}"
+        torch.save(result, os.path.join(workdir, f"probe-{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_p2p_probe(workdir, n: int = 2):
+    """Start the probe of gloo's point-to-point ops on CUDA tensors: n
+    processes on cuda:0 (``finish_p2p_probe`` reads them)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_p2p_probe_rank, args=(r, n, workdir)) for r in range(n)]
+    for p in procs:
+        p.start()
+    return procs, workdir
+
+
+def finish_p2p_probe(procs, workdir) -> bool:
+    """Whether every rank of the probe received what its peer sent.  A rank
+    that gloo refuses aborts inside gloo, and its peer may wait on it: one
+    deadline for all."""
+    deadline = time.perf_counter() + 60
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    ranks = []
+    for r, p in enumerate(procs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            ranks.append("hung, killed")
+        elif p.exitcode:
+            ranks.append(f"exit code {p.exitcode}")
+        else:
+            ranks.append(torch.load(os.path.join(workdir, f"probe-{r}.pt")))
+    ok = all(isinstance(r, dict) and set(r.values()) == {"ok"} for r in ranks)
+    log(f"[model axis] probe: gloo's batch_isend_irecv (the ring's exchange) of CUDA bf16 and "
+        f"fp32 tensors between {len(procs)} processes on one card: "
+        f"{'takes them' if ok else 'refuses them'} ({ranks})")
+    return ok
+
+
+def phase_model_axis():
+    """Phase 19: the rest of the model axis, as MODEL_AXIS_RANKS processes
+    sharing the card over ``gloo``, idefics2-8b-base cut to 4 layers (bf16).
+    First the probe of gloo's point-to-point ops on CUDA tensors, the ring's
+    exchange: where it takes them (a) runs a ring of 2 under model 2 and (b)
+    the ring over ``model`` itself, every head gathered; else both run a ring
+    of one rank under model 4, and a ring across processes is held on the CPU
+    only.  (a) The MimIC step (``compute_loss`` and its backward) on the ring
+    at ``ring_min_len`` 0; (b) the record pass at T 4096; (c) the runner in the three int8 modes under ``make_mesh(1,
+    4)``: its handles, a beam-3 run with the int8 prompt KV in ``"int8"``,
+    and the logits of the prefill and each decode step; each against one
+    process on the card.  Returns the ranks' launches."""
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    n, L = MODEL_AXIS_RANKS, MODEL_AXIS_LAYERS
+    with tempfile.TemporaryDirectory(prefix="mimic_model_axis_") as workdir:
+        probe = start_p2p_probe(workdir)
+        cfg = model_axis_cfg()
+        params, shift, train, record, prompt = model_axis_inputs(dev, cfg)
+        ref_loss, ref_grads = headsplit_loss_grads(cfg, params, shift, train, attn_impl="flash")
+        ref_record = model_axis_record(cfg, params, record, attn_impl="flash")
+        ref_c = {mode: model_axis_quant(cfg, params, prompt, mode) for mode in QUANT_MODES}
+        del params, shift, train, record, prompt
+        torch.cuda.empty_cache()
+        torch.save({mode: r["beam"] for mode, r in ref_c.items()},
+                   os.path.join(workdir, "forced.pt"))
+        one_s = _since(t0)
+        n_sp = 2 if finish_p2p_probe(*probe) else 1
+        t = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=model_axis_rank, args=(r, n, n_sp, workdir))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.perf_counter() + 600
+        for p in procs:
+            p.join(max(0.0, deadline - time.perf_counter()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            raise AssertionError(f"phase 19: rank exit codes {codes}")
+        ranks = [torch.load(os.path.join(workdir, f"rank-{r}.pt"), weights_only=False)
+                 for r in range(n)]
+        ranks_s = time.perf_counter() - t
+    log(f"[model axis] one process (a)-(c) {one_s:.1f} s; {n} ranks (spawn, trees, (a)-(c)) "
+        f"{ranks_s:.1f} s; (a) on a (data 1, sp {n_sp}, model {n // n_sp}) mesh, (b) "
+        + (f"ring_axis 'model' on (data 1, model {n})" if n_sp > 1 else "on (a)'s mesh"))
+    steps = QUANT_NEW - 1
+    zero = dict.fromkeys(KERNEL_META, 0)
+    want_a = {**zero, "onepass_fwd": 2 * L * n_sp ** 2, "flash_bwd_dq": (L - 1) * n_sp ** 2,
+              "flash_bwd_dkv": (L - 1) * n_sp ** 2}
+    # a ring of n over model: n² blocks of C T/n a layer; a ring of one: one
+    # block of C 4096, flash_fwd's
+    want_b = ({**zero, "onepass_fwd": L * n ** 2} if n_sp > 1 else {**zero, "flash_fwd": L})
+    # the prefill's attention once a layer; each decode step q/k/v and o a layer
+    # and the lm head (2-D), the MLP a layer; "int8": the prompt attention a
+    # layer; "int8-memory" / "int8-w8a8": the prefill's lm head (M 4); W8A8: the
+    # prefill's four products a layer, each with its row quantization
+    want_c = {mode: {**zero, "onepass_fwd": L, "int8_matmul": steps * (2 * L + 1),
+                     "fused_mlp_int8": steps * L} for mode in QUANT_MODES}
+    want_c["int8"]["prompt_attn_int8"] = steps * L
+    for mode in ("int8-memory", "int8-w8a8"):
+        want_c[mode]["int8_matmul"] += 1
+    want_c["int8-w8a8"].update(w8a8_matmul=4 * L, quantize_rows=4 * L)
+
+    def counted(d):
+        return {k: d.get(k, 0) for k in KERNEL_META}
+
+    for mode, r in ref_c.items():
+        log(f"[model axis] one process (c) {mode}: set_quant {r['set_quant_s']:.3f} s, beam "
+            f"{r['beam_s']:.3f} s, tokens {r['beam'].tolist()}")
+        if counted(r["launches"]) != want_c[mode]:
+            raise AssertionError(f"(c) {mode}, one process: launches {r['launches']}, want "
+                                 f"{want_c[mode]}")
+    for r, out in enumerate(ranks):
+        loss_rel = abs(out["loss"] - ref_loss) / abs(ref_loss)
+        grad_cos = _grad_cosines(out["grads"], ref_grads)
+        rec_cos = _row_cosine(out["record"].flatten(0, -2), ref_record.flatten(0, -2))
+        rec_rms = _rel_rms(out["record"], ref_record)
+        log(f"[model axis] rank {r}: (a) loss {out['loss']:.6g} (relative {loss_rel:.3e}), "
+            f"gradient cosines {({k: round(c, 6) for k, c in grad_cos.items()})}, "
+            f"{out['a_s']:.3f} s, paths {out['paths_a']}, launches "
+            f"{({k: v for k, v in out['launches_a'].items() if v})}. (b) record pass captures: "
+            f"min row cosine {rec_cos:.6f}, rms difference {rec_rms:.3e} of one process's, "
+            f"{out['b_s']:.3f} s, paths {out['paths_b']}, launches "
+            f"{({k: v for k, v in out['launches_b'].items() if v})}. (c) KV cache "
+            f"{out['kv_token_bytes'][True]} B a token (every KV head; "
+            f"{out['kv_token_bytes'][False]} B with its own); peak {out['peak_gib']:.2f} GiB")
+        if counted(out["launches_a"]) != want_a or out["paths_a"] != ["ring", "ring"]:
+            raise AssertionError(f"(a) rank {r}: launches {out['launches_a']}, paths "
+                                 f"{out['paths_a']}; want {want_a}")
+        if counted(out["launches_b"]) != want_b or out["paths_b"] != ["ring"]:
+            raise AssertionError(f"(b) rank {r}: launches {out['launches_b']}, paths "
+                                 f"{out['paths_b']}; want {want_b}")
+        if not (loss_rel <= MODEL_AXIS_LOSS_RTOL and min(grad_cos.values()) >= MIN_GRAD_COSINE):
+            raise AssertionError(f"(a) rank {r}: the step disagrees with one process's")
+        if not rec_cos >= MIN_LOGIT_COSINE:
+            raise AssertionError(f"(b) rank {r}: the record pass disagrees with one process's")
+        for mode in QUANT_MODES:
+            got, ref = out["c"][mode], ref_c[mode]
+            cos = _row_cosine(got["logits"].flatten(0, 1), ref["logits"].flatten(0, 1))
+            diff = (got["logits"] - ref["logits"]).abs().max().item()
+            same = int((got["beam"] == ref["beam"]).sum())
+            log(f"[model axis] rank {r}: (c) {mode}: handles {len(got['handles'])} parts, "
+                f"{'equal' if got['handles'] == ref['handles'] else 'NOT equal'} to one "
+                f"process's; set_quant {got['set_quant_s']:.3f} s, beam {got['beam_s']:.3f} s, "
+                f"{same} of {ref['beam'].numel()} tokens as one process's; logits of the prefill "
+                f"and {QUANT_NEW} decode steps: min row cosine {cos:.6f}, max difference "
+                f"{diff:.3e}; launches {({k: v for k, v in got['launches'].items() if v})}")
+            if got["handles"] != ref["handles"] or not ref["handles"]:
+                raise AssertionError(f"(c) {mode} rank {r}: handles differ from one process's")
+            if counted(got["launches"]) != want_c[mode]:
+                raise AssertionError(f"(c) {mode} rank {r}: launches {got['launches']}, want "
+                                     f"{want_c[mode]}")
+            if not cos >= MIN_LOGIT_COSINE:
+                raise AssertionError(f"(c) {mode} rank {r}: logits disagree with one process's")
+    log(f"[time] phase 19 model axis: {_since(t0):.1f} s")
+    out = {f"model axis (a), {n} ranks": _sum_counts(*(o["launches_a"] for o in ranks)),
+           f"model axis (b), {n} ranks": _sum_counts(*(o["launches_b"] for o in ranks))}
+    for mode in QUANT_MODES:
+        out[f"model axis (c) {mode}, {n} ranks"] = _sum_counts(
+            *(o["c"][mode]["launches"] for o in ranks))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available (torch.cuda.is_available() is False)",
@@ -5859,6 +6262,11 @@ def main() -> int:
         log("[card] partial run (--headsplit-only): phase 18 passed; no result line")
         return 3
 
+    if sys.argv[1:] == ["--model-axis-only"]:
+        phase_model_axis()
+        log("[card] partial run (--model-axis-only): phase 19 passed; no result line")
+        return 3
+
     if sys.argv[1:] == ["--idefics1-only"]:
         check_kernel(*CLIP_VIT_CASE[:-1])
         for case in CLIP_FP32_CASES:
@@ -5927,6 +6335,7 @@ def main() -> int:
     idefics_launches, idefics_kernels = timed("phase 14 idefics-9b", phase_idefics_9b)
     llava_launches, llava_kernels = timed("phase 15 llava", phase_llava)
     headsplit_launches = phase_headsplit()
+    model_axis_launches = phase_model_axis()
     # the kernels at idefics-9b's and llava's shapes: their errors count, the times
     # stay those of the main-path shapes above
     for r in idefics_kernels + llava_kernels:
@@ -5937,13 +6346,14 @@ def main() -> int:
     # steps, the warm cached call A, the sampled calls, the LoRA steps, the
     # prefix steps and calls, the LoRA eval, the serve engine's runs and the
     # tracing utilities, int8 serving, the W8A8 eval, the idefics-9b ICL calls
-    # and train steps, the llava calls, step and eval, the head split's ranks),
+    # and train steps, the llava calls, step and eval, the head split's ranks,
+    # the model axis's ranks),
     # each driven with the counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
              **peft_launches, **serve_engine_launches, **parallel_launches,
              "int8 serving": int8_launches,
              "W8A8 eval": eval_launches, **idefics_launches, **llava_launches,
-             **headsplit_launches}
+             **headsplit_launches, **model_axis_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:

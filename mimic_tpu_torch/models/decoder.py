@@ -43,10 +43,16 @@ them, their gradients summed over ``model``.  Where a block cuts inside a head
 the attention's region is gathered: q/k/v (their biases and LoRA deltas added
 on this rank's columns) are gathered to every head, each rank attends over all
 of them with the whole shift leaves, the KV cache holds every KV head, and the
-output is scattered back to this rank's rows of ``o_proj``.  Ring attention
-(``attn_impl="ring"`` with ``ring_mesh``) runs the cacheless attention of long
-sequences as a sequence-parallel ring (``ops/ring_attention.py``), and
-records gradients through its ``RingAttentionDiff``.
+output is scattered back to this rank's rows of ``o_proj``.  Int8 handles
+are whole on every rank, as JAX's rules leave them: their layers run every
+head with no collective (the split q/k/v biases gathered), the KV cache holds
+every KV head, and so does the cache of a prefill whose decode steps read
+them (``init_kv_cache(handles=True)``: one region per call, read off the
+cache).  Ring attention (``attn_impl="ring"`` with ``ring_mesh``) runs the
+cacheless attention of long sequences as a sequence-parallel ring
+(``ops/ring_attention.py``) over the region's heads, and records gradients
+through its ``RingAttentionDiff``; a ring over the ``model`` axis itself runs
+in the gathered region.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ import torch.utils.checkpoint
 
 from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
-from ..ops.quant import fused_mlp, qdot
+from ..ops.quant import fused_mlp, is_quantized, qdot
 from ..ops.ring_attention import ring_attention_sharded
 from ..parallel import tp
 from ..parallel.mesh import axis_rank, axis_size, current_mesh
@@ -163,12 +169,25 @@ def init_decoder_params(
     return params
 
 
+def holds_handles(params: Params) -> bool:
+    """Whether a decoder tree's self-attention layers hold int8 handles (the
+    decode tree of an int8 mode): whole on every rank under a model axis."""
+    return _stack_handles(params["layers"])
+
+
+def _stack_handles(stack: Params) -> bool:
+    return any(is_quantized(w) for w in stack.values())
+
+
 def init_kv_cache(
-    cfg: TextConfig, batch: int, max_len: int, device, dtype=torch.float32
+    cfg: TextConfig, batch: int, max_len: int, device, dtype=torch.float32, *,
+    handles: bool = False,
 ) -> Dict[str, Any]:
     """An empty cache of the KV heads this rank's attention holds (all of them
-    without a model axis, or in a gathered head region)."""
-    kv_heads = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)[1]
+    without a model axis, in a gathered head region, or where the decode tree
+    holds int8 handles: ``handles``, see ``tp.head_region``)."""
+    kv_heads = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size,
+                              handles=handles)[1]
     shape = (cfg.num_layers, batch, max_len, kv_heads, cfg.head_size)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -232,11 +251,11 @@ def _project(x: torch.Tensor, x_split: torch.Tensor, w: Any, full: int, what: st
 def _attn_out(attn: torch.Tensor, o_proj: Any, cfg: TextConfig) -> tuple:
     """(the attention output [B,T,H·Dh] cut to this rank's rows of ``o_proj``,
     whether those rows are split): in a gathered region the rows are scattered
-    out of every head's output."""
+    out of every head's output; an int8 handle's rows are whole."""
     full = cfg.num_heads * cfg.head_size
     rows_split = not isinstance(o_proj, dict) and tp.is_split(o_proj, 0, full, "o_proj")
     flat = attn.reshape(*attn.shape[:2], -1)
-    return tp.scatter_to_region(flat, tp.split_width(full)), rows_split
+    return tp.scatter_to_region(flat, tp.split_width(full) if rows_split else full), rows_split
 
 
 def _mlp(hn: torch.Tensor, gate: Any, up: Any, down: Any, F: int) -> torch.Tensor:
@@ -248,13 +267,14 @@ def _mlp(hn: torch.Tensor, gate: Any, up: Any, down: Any, F: int) -> torch.Tenso
 
 def _project_qkv(
     lp: Params, ad: Params, x: torch.Tensor, cfg: TextConfig, scaling: float,
-    keeps: Optional[list], rate: float,
+    keeps: Optional[list], rate: float, region: tuple,
 ):
+    """q, k, v over the ``region``'s (query heads, KV heads)."""
     B, T, _ = x.shape
-    H, Hkv = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)
+    H, Hkv = region
     Dh = cfg.head_size
     if "qkv_proj" in lp:
-        # the int8 serving tree fuses q/k/v into one matmul
+        # the int8 serving tree fuses q/k/v into one matmul, whole on every rank
         qkv = qdot(x, lp["qkv_proj"])
         q = qkv[..., : H * Dh]
         k = qkv[..., H * Dh : (H + Hkv) * Dh]
@@ -265,7 +285,9 @@ def _project_qkv(
         k, v = (_project(x, x_in, lp[name], cfg.num_kv_heads * Dh, name)
                 for name in ("k_proj", "v_proj"))
     if "q_bias" in lp:
-        q, k, v = q + lp["q_bias"], k + lp["k_bias"], v + lp["v_bias"]
+        # the rules split the biases; beside a whole int8 handle they are gathered
+        q, k, v = (y + tp.gather_from_region(lp[f"{name}_bias"], y.shape[-1])
+                   for name, y in (("q", q), ("k", k), ("v", v)))
     out = []
     for slot, (name, y, heads) in enumerate((("q", q, H), ("k", k, Hkv), ("v", v, Hkv))):
         delta = _lora_delta(ad, name, x, scaling, keeps[slot] if keeps else None, rate,
@@ -322,15 +344,16 @@ def _self_attention(
     prompt_mask: Optional[torch.Tensor] = None,
     prefix_merge_len: int = 0,
     ring: Optional[tuple] = None,
+    region: Optional[tuple] = None,
 ):
     """Returns (attn block output [B,T,D], new k block, new v block).
 
     ``prefix_merge_len`` (P > 0, the prefix-tuning prefill): the cache holds
     only the P prefix slots; the block takes the cacheless path and
     ``_merge_prefix`` adds them.  ``ring``: (mesh, sequence axis, batch axis)
-    of the ring attention path."""
+    of the ring attention path.  ``region``: the call's ``tp.head_region``."""
     B, T, _ = x.shape
-    q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate)
+    q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate, region)
     q, k = apply_rope(q, k, cos, sin)
     if cfg.qk_layernorm:
         # after RoPE, as the JAX package orders them (HF's Qwen3 norms before it)
@@ -408,7 +431,8 @@ def _cross_attention(
     A text row before the first image has an all-false mask row: the plain
     ``sdpa_with_lse`` gives it the mean of v, never NaN, as in JAX."""
     B, T, _ = x.shape
-    H, Hkv = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size)
+    H, Hkv = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size,
+                            handles=_stack_handles(cp))
     Dh = cfg.head_size
     S = cross_states.shape[1]
     h = rms_norm(x, cp["input_ln"], cfg.norm_eps)
@@ -542,14 +566,6 @@ def decoder_forward(
     same order on every rank.
     """
     B, T, D = input_embeds.shape
-    if tp.model_size() > 1:
-        stacks = (params["layers"], params.get("cross") or {})
-        if any(isinstance(w, dict) for stack in stacks for w in stack.values()):
-            raise NotImplementedError(
-                "decoder_forward: int8 weight handles under a model axis are not ported")
-        if ring_mesh is not None:
-            raise NotImplementedError(
-                "decoder_forward: ring attention with a model axis is not ported")
     if cache_write_pos is not None and (kv_cache is None or T != 1):
         raise ValueError("cache_write_pos needs a kv_cache and a one-token step (T = 1)")
     cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
@@ -592,6 +608,11 @@ def decoder_forward(
         ring_min_len=ring_min_len, on_card=input_embeds.device.type == "cuda",
     )
     ring = (ring_mesh, ring_axis, ring_batch_axis) if selected == "ring" else None
+    # the heads every layer's self-attention runs over, one region for the call
+    region = tp.head_region(
+        cfg.num_heads, cfg.num_kv_heads, cfg.head_size, handles=holds_handles(params),
+        ring_axis=ring_axis if ring is not None else None,
+        cache_heads=kv_cache["k"].shape[3] if use_cache else None)
     ATTN_PATH_LOG.append(selected + "+prefix" if prefix_merge else selected)
     if prompt_quant:
         ATTN_PATH_LOG.append("quant_kv")  # once per call, as JAX logs it once per trace
@@ -643,7 +664,7 @@ def decoder_forward(
             prompt_v=_layer_view(kv_cache["prompt_v"], l) if has_prompt else None,
             prompt_mask=prompt_mask,
             prefix_merge_len=prefix_flash_len if prefix_merge else 0,
-            ring=ring,
+            ring=ring, region=region,
         )
         attn_out = apply_output_shift(
             attn_out, os_.get("attn_out_shift"), os_.get("attn_out_scale")
@@ -828,6 +849,15 @@ def make_causal_mask(
         causal = causal & ((idx[:, None] - idx[None, :]) < sliding_window)
     key_ok = attention_mask[:, None, None, :].bool()
     return causal[None, None] & key_ok
+
+
+def make_decode_mask(attention_mask: torch.Tensor, total_len: int) -> torch.Tensor:
+    """[B,S'] running key mask → [B,1,1,total_len] boolean mask of a one-token
+    decode step (the slots past S' closed)."""
+    pad = total_len - attention_mask.shape[1]
+    if pad > 0:
+        attention_mask = torch.nn.functional.pad(attention_mask, (0, pad))
+    return attention_mask[:, None, None, :].bool()
 
 
 def positions_from_mask(attention_mask: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,7 @@ from ..bridge import tree_leaves
 from ..ops.decode_attention import quantize_prompt_kv
 from .config import ModelConfig
 from ..shift.prefix import prefix_forward_args, prefix_len
-from .decoder import init_kv_cache
+from .decoder import holds_handles, init_kv_cache
 from .lvlm import LVLMBatch, encode_images, lvlm_forward
 
 NEG = -1.0e9
@@ -90,11 +90,13 @@ class GenerateResult(NamedTuple):
 def _prefill(
     params, cfg: ModelConfig, batch: LVLMBatch, total_len: int, shift, logz2: str,
     dtype, attn_impl: str = "xla", image_feats: Optional[torch.Tensor] = None,
-    adapters=None, lora_scaling: float = 1.0, prefix=None,
+    adapters=None, lora_scaling: float = 1.0, prefix=None, handles: bool = False,
 ):
     """Run the prompt through the model: a cache-empty prefill, or with a
     ``prefix`` a prefill into a cache whose slots ``[0, P)`` hold it
-    (``total_len`` includes P).
+    (``total_len`` includes P).  ``handles``: the decode steps read int8
+    handles, so under a model axis the cache holds every KV head and the
+    prefill runs in that region (``tp.head_region``).
 
     Returns (last_logits [B,V], cache with the prompt written, image_feats),
     the image features for the decode steps to reuse (``image_feats`` as
@@ -106,12 +108,13 @@ def _prefill(
             params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
         )
     if prefix is None:
-        cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype)
+        cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype,
+                              handles=handles)
         extra = dict(kv_cache=cache, cache_empty=True)
     else:
         P = prefix_len(prefix)
         batch, pos, cache, _ = prefix_forward_args(
-            prefix, batch, dtype, extra_len=total_len - P - T
+            prefix, batch, dtype, extra_len=total_len - P - T, handles=handles
         )
         extra = dict(kv_cache=cache, position_ids=pos, prefix_flash_len=P)
     out = lvlm_forward(
@@ -155,7 +158,7 @@ def greedy_generate(
     lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
         params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
-        **lora,
+        handles=holds_handles(dparams["lm"]["decoder"]), **lora,
     )
     am = batch.attention_mask
     n_real = am.sum(-1)  # [B]
@@ -234,7 +237,7 @@ def beam_generate(
     lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
         params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
-        **lora,
+        handles=holds_handles(dparams["lm"]["decoder"]), **lora,
     )
     V = last_logits.shape[-1]
     dev = last_logits.device
@@ -422,7 +425,7 @@ def sample_generate(
     lora = dict(adapters=adapters, lora_scaling=lora_scaling)
     last_logits, cache, image_feats = _prefill(
         params, cfg, batch, total, shift, logz2, dtype, attn_impl, image_feats, prefix=prefix,
-        **lora,
+        handles=holds_handles(dparams["lm"]["decoder"]), **lora,
     )
 
     def draw(logits):

@@ -4,7 +4,8 @@
 Under a model axis whose size divides the vocab (``parallel.shard_params``'
 tree) the embedding holds this rank's vocab rows: the lookup is masked to
 them and summed over ``model``; the lm head (or the tied embedding) gives
-this rank's vocab columns, gathered over ``model`` into the full logits."""
+this rank's vocab columns, gathered over ``model`` into the full logits; an
+int8 lm head is whole on every rank and gives them whole."""
 
 from __future__ import annotations
 
@@ -56,8 +57,7 @@ def lm_head(params: Params, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tens
     after (JAX accumulates into fp32 outputs directly; in fp32 the two agree);
     an int8 ``lm_head`` writes fp32 logits from its fp32 sums (``qdot``)."""
     w = params["embed"].t() if cfg.tie_word_embeddings else params["lm_head"]
-    if isinstance(w, dict) and tp.split_width(cfg.vocab_size) != cfg.vocab_size:
-        raise NotImplementedError("lm_head: an int8 handle under a model axis is not ported")
+    # an int8 handle is whole on every rank (JAX's rules never split it): whole logits
     split = not isinstance(w, dict) and tp.is_split(w, -1, cfg.vocab_size, "lm_head")
     hidden = tp.copy_to_region(hidden, split)
     if cfg.tie_word_embeddings:

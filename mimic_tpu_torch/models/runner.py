@@ -21,6 +21,7 @@ import torch
 from ..bridge import ParamModule
 from ..device import DeviceLike, resolve_device
 from ..ops.quant import is_quantized, quantize_lm_params
+from ..parallel import tp
 from ..data.templates import apply_prompt_template as render_template
 from .config import ModelConfig
 from .feature_cache import VisionFeatureCache, image_key
@@ -46,6 +47,35 @@ def _has_quantized(tree: Any) -> bool:
     if is_quantized(tree):
         return True
     return isinstance(tree, dict) and any(_has_quantized(v) for v in tree.values())
+
+
+def _whole_matmuls(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
+    """``params`` with every weight ``quantize_lm_params`` quantizes whole: each
+    one ``shard_params`` split is gathered over the current mesh's ``model``
+    axis (``tp.gather_split``, the bits before the cut), so that its scales and
+    the fused ``qkv_proj`` / ``gateup_proj`` columns are those of the whole
+    weight.  The rest of the tree is shared as it is."""
+    t = cfg.text
+    q, kv = t.num_heads * t.head_size, t.num_kv_heads * t.head_size
+    # the split dimension, from the end, and its full width
+    widths = {"q_proj": (-1, q), "k_proj": (-1, kv), "v_proj": (-1, kv), "o_proj": (-2, q),
+              "gate_proj": (-1, t.intermediate_size), "up_proj": (-1, t.intermediate_size),
+              "down_proj": (-2, t.intermediate_size)}
+
+    def whole(name, w, what):
+        if name not in widths or is_quantized(w):
+            return w
+        dim, full = widths[name]
+        return tp.gather_split(w, w.dim() + dim, full, what)
+
+    lm, dec = dict(params["lm"]), dict(params["lm"]["decoder"])
+    for group in ("layers", "cross"):
+        if group in dec:
+            dec[group] = {k: whole(k, w, f"{group} {k}") for k, w in dec[group].items()}
+    lm["decoder"] = dec
+    if "lm_head" in lm and not is_quantized(lm["lm_head"]):
+        lm["lm_head"] = tp.gather_split(lm["lm_head"], 1, t.vocab_size, "lm_head")
+    return dict(params, lm=lm)
 
 
 class LVLMRunner:
@@ -139,6 +169,10 @@ class LVLMRunner:
         ``ValueError``.
         Quantization runs one layer at a time on the runner's device; the
         scales stay fp32 (never cast a tree that holds quantized handles).
+        Under a model axis the runner's tree is ``shard_params``' cut: the
+        weights are gathered whole first (``_whole_matmuls``), so the handles
+        are the whole tree's, bit for bit, whole on every rank as JAX's rules
+        leave them; the rest of the tree stays cut.
         The vision-feature cache is emptied: the tree it was filled from changes.
         """
         if self.vision_cache is not None:
@@ -151,12 +185,13 @@ class LVLMRunner:
             if already:
                 raise ValueError("params already int8-quantized (int8-memory mode)")
             with torch.no_grad():
-                self.decode_params = quantize_lm_params(self.params)
+                self.decode_params = quantize_lm_params(_whole_matmuls(self.params, self.cfg))
         elif quant in ("int8-memory", "int8-w8a8"):
             self.decode_params = None
             if not already:
                 with torch.no_grad():
-                    quantized = quantize_lm_params(self.params, act_quant=quant == "int8-w8a8")
+                    quantized = quantize_lm_params(_whole_matmuls(self.params, self.cfg),
+                                                   act_quant=quant == "int8-w8a8")
                 self.module = ParamModule(quantized)
         else:
             raise ValueError(

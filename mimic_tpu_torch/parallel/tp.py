@@ -29,9 +29,14 @@ the KV heads its query heads read, each rank attends over its own heads; where
 a block cuts inside a head (or holds query heads whose KV heads lie on another
 rank), q/k/v are gathered to every head, every rank attends over all of them
 and the output is scattered back to this rank's rows of ``o_proj``: the
-result GSPMD gives for an attention it cannot partition.  A module under a
-``model`` axis expects ``shard_params``' tree and says so when it gets
-another.
+result GSPMD gives for an attention it cannot partition.  ``head_region``
+decides it, from the facts its callers pass: besides the shapes, whether the
+layer's projections are int8 handles (whole on every rank: every head, no
+collective), whether a ring runs over ``model`` itself (gathered), and how
+many KV heads the call's cache holds.  A module under a ``model`` axis
+expects ``shard_params``' tree and says so when it gets another;
+``gather_split`` makes a split weight whole again (what int8 quantization
+reads).
 """
 
 from __future__ import annotations
@@ -80,16 +85,50 @@ def whole_heads(heads: int, kv_heads: int, head_dim: int, n: int) -> bool:
     return kv_heads % n == 0
 
 
-def head_region(heads: int, kv_heads: int, head_dim: int) -> Tuple[int, int]:
+def head_region(
+    heads: int, kv_heads: int, head_dim: int, *, handles: bool = False,
+    ring_axis: Optional[str] = None, cache_heads: Optional[int] = None,
+) -> Tuple[int, int]:
     """(query heads, KV heads) of the attention this rank runs under the current
     mesh: its own blocks where they hold whole heads (``whole_heads``), else
-    every head, gathered.  The KV heads, which size a KV cache or a prefix's
+    every head.  Every head, too, where
+
+    - ``handles``: the layer's projections are int8 handles, which the rules
+      never split (JAX replicates them): q/k/v come out whole on every rank;
+    - ``ring_axis`` is ``"model"``: the ring runs over the model axis itself,
+      and a rank's own heads cannot travel a ring whose peers hold others, so
+      q/k/v are gathered to every head first (what GSPMD gives);
+    - ``cache_heads``, the KV heads of the call's cache, is ``kv_heads``: the
+      cache holds every KV head (a prefill whose decode steps read handles),
+      and one call keeps one cache region.  A cache of any other count than
+      the region's raises.
+
+    Without those facts the KV heads, which size a KV cache or a prefix's
     slots, depend on ``kv_heads`` alone: ``kv_heads / n`` where the axis
     divides them, else all of them."""
-    if whole_heads(heads, kv_heads, head_dim, model_size()):
-        return (split_width(heads * head_dim) // head_dim,
-                split_width(kv_heads * head_dim) // head_dim)
-    return heads, kv_heads
+    own = (whole_heads(heads, kv_heads, head_dim, model_size()) and not handles
+           and ring_axis != "model")
+    region = ((split_width(heads * head_dim) // head_dim,
+               split_width(kv_heads * head_dim) // head_dim) if own else (heads, kv_heads))
+    if cache_heads is None or cache_heads == region[1]:
+        return region
+    if cache_heads == kv_heads:
+        return heads, kv_heads
+    raise ValueError(
+        f"head_region: the cache holds {cache_heads} KV heads, this rank's region "
+        f"{region[1]} of {kv_heads}; size it with init_kv_cache(handles=...) as the call runs")
+
+
+def gather_split(w: torch.Tensor, dim: int, full: int, what: str) -> torch.Tensor:
+    """The whole of a weight whose ``dim`` (``full`` unsplit) the rules split
+    over ``model``: the ranks' blocks gathered along ``dim`` (no gradient; the
+    bits of the weight before ``shard_params``).  ``w`` itself where it is whole."""
+    if not is_split(w, dim, full, what):
+        return w
+    w = w.contiguous()
+    parts = [torch.empty_like(w) for _ in range(model_size())]
+    dist.all_gather(parts, w, group=model_group())
+    return torch.cat(parts, dim=dim)
 
 
 def local_block(x: torch.Tensor, dim: int, width: int) -> torch.Tensor:

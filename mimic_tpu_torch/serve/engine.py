@@ -55,7 +55,7 @@ import torch
 from ..bridge import tree_map
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
-from ..models.decoder import init_kv_cache
+from ..models.decoder import holds_handles, init_kv_cache
 from ..models.generate import _param_dtype, _prefill
 from ..models.lvlm import LVLMBatch, lvlm_forward
 
@@ -141,8 +141,10 @@ class ServeEngine:
         self.dtype = _param_dtype(self.params)
 
         dev = self.device
-        # this rank's KV heads under a model axis
-        self._cache = dict(init_kv_cache(cfg.text, self.S, self.T, dev, self.dtype), length=self.T)
+        # this rank's KV heads under a model axis (every one beside int8 handles)
+        self._handles = holds_handles(self.decode_params["lm"]["decoder"])
+        self._cache = dict(init_kv_cache(cfg.text, self.S, self.T, dev, self.dtype,
+                                         handles=self._handles), length=self.T)
         # per-slot host state (deterministic schedule: never read from the device)
         self._alive = np.zeros(self.S, bool)
         self._blocks_left = np.zeros(self.S, np.int64)
@@ -225,7 +227,7 @@ class ServeEngine:
         )
         last_logits, pcache, _ = _prefill(
             self.params, self.cfg, batch, bucket, self.shift, "masked", self.dtype,
-            self.attn_impl, image_feats=feats,
+            self.attn_impl, image_feats=feats, handles=self._handles,
         )
         first = last_logits.argmax(-1)
         self._cache["k"][:, slots, :bucket] = pcache["k"]

@@ -52,7 +52,7 @@ def prefix_len(prefix: Optional[PrefixParams]) -> int:
 
 
 def prefix_forward_args(
-    prefix: PrefixParams, batch, dtype, extra_len: int = 0,
+    prefix: PrefixParams, batch, dtype, extra_len: int = 0, handles: bool = False,
 ) -> Tuple[object, torch.Tensor, Dict[str, object], int]:
     """Thread a learned prefix into a forward as pre-written cache slots.
 
@@ -65,13 +65,14 @@ def prefix_forward_args(
       for the T current and ``extra_len`` future tokens.
 
     Differentiable with respect to the prefix leaves (expand + concat), so the
-    same helper serves the train step and the generation prefill.
+    same helper serves the train step and the generation prefill.  ``handles``:
+    the decode steps read int8 handles (``tp.head_region``).
     """
     # under a model axis the cache holds the KV heads of this rank's head region:
     # its own, or every one where the region is gathered (a count that depends on
     # the KV heads alone, so the query heads are not needed here)
     Hkv, Dh = prefix["k"].shape[2:]
-    kv_heads = tp.head_region(Hkv, Hkv, Dh)[1]
+    kv_heads = tp.head_region(Hkv, Hkv, Dh, handles=handles)[1]
     k, v = (tp.shared_heads(prefix[name], 2, kv_heads) for name in ("k", "v"))
     L, P, Hkv, Dh = k.shape
     am = batch.attention_mask

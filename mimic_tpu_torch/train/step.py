@@ -253,7 +253,10 @@ def make_train_step(
 
     def data_group():
         """The data-parallel group of this call: the current mesh's data axis,
-        else the ring mesh's batch axis; None for one rank."""
+        else the ring mesh's batch axis; None for one rank.  On a ("data",
+        "sp", "model") mesh the gradients are summed over ``data`` alone:
+        every rank of the ring ends with the full gradients, and
+        ``copy_to_region`` has already summed the trainables' over ``model``."""
         mesh = current_mesh()
         if mesh is not None:
             return axis_group(mesh, "data")

@@ -124,9 +124,21 @@ def test_port_imports_nothing_of_the_jax_package():
     assert not (PORT / "shared.py").exists()
 
 
+def _public_names(path: Path):
+    """The public top-level functions and classes a module defines."""
+    return {n.name for n in ast.parse(path.read_text(), filename=str(path)).body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")}
+
+
 def test_every_module_of_the_jax_package_has_a_counterpart():
     """The port is whole: each module of ``mimic_tpu`` has one of the same
-    relative name in ``mimic_tpu_torch`` (copied or ported)."""
-    missing = sorted(str(p.relative_to(SRC)) for p in SRC.rglob("*.py")
-                     if "__pycache__" not in p.parts and not (PORT / p.relative_to(SRC)).exists())
+    relative name in ``mimic_tpu_torch`` (copied or ported), and each public
+    top-level function and class of it one of the same name there (no
+    exceptions: the private Pallas bodies are not public names)."""
+    modules = [p.relative_to(SRC) for p in SRC.rglob("*.py") if "__pycache__" not in p.parts]
+    missing = sorted(str(rel) for rel in modules if not (PORT / rel).exists())
     assert not missing, missing
+    names = {str(rel): sorted(_public_names(SRC / rel) - _public_names(PORT / rel))
+             for rel in modules}
+    assert not {rel: n for rel, n in names.items() if n}, names

@@ -45,8 +45,9 @@ its ``shard_batch`` rows, in fp32:
   not divide either: JAX's logits.
 - The serve engine on tiny-text at model 4 gives the unsharded engine's
   tokens, its cache holding both KV heads.
-- The raises that stay: ring attention with a model axis, int8 handles in the
-  decoder and in the lm head under a model axis.
+
+Ring attention and int8 handles under a model axis are held in
+``tests/test_torch_model_axis.py``.
 """
 
 import dataclasses
@@ -375,7 +376,6 @@ def world(tmp_path_factory):
         "models": models, "forward": forward, "generate": generate,
         "steps": {k: {f: v for f, v in s.items() if f != "jax_enc"} for k, s in steps.items()},
         "engine": {"model": "text", "prompts": prompts},
-        "raises": {"model": "idefics2-gen", "batch": text},
         "run": {"model": "idefics2-gen", "cfg": tconfig.config_to_dict(train_cfg),
                 "splits": synthetic_vqa_splits(n_train=16)},
         "eval": {"model": "idefics2", "images": _images(4),
@@ -525,14 +525,3 @@ def test_entry_points_on_a_gathered_region(world, tmp_path):
             np.testing.assert_allclose(out["run_trainable"]["shift"][name], w.detach().numpy(),
                                        rtol=TOL, atol=TOL, err_msg=name)
         assert out["eval"] == want
-
-
-@pytest.mark.parametrize("name, message", [
-    ("ring", "decoder_forward: ring attention with a model axis is not ported"),
-    ("int8 decoder", "decoder_forward: int8 weight handles under a model axis are not ported"),
-    ("int8 lm_head", "lm_head: an int8 handle under a model axis is not ported"),
-])
-def test_raises_that_stay(world, name, message):
-    *_, outs = world
-    for out in outs:
-        assert out["raises"].get(name) == message

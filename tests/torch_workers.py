@@ -309,7 +309,7 @@ def _loss_grads(cfg, enc, tree, frozen, batch, kw):
     return {p: g.numpy() for p, g in zip(live, torch.autograd.grad(loss, list(live.values())))}
 
 
-def _one_step(cfg, case, frozen, mesh):
+def _one_step(cfg, case, frozen, mesh, **step_kw):
     """One ``make_train_step`` step of ``case`` on ``mesh`` (its batch cut to
     this rank's data rows): (metrics, updated trainables)."""
     from mimic_tpu_torch.train import optim as to
@@ -317,7 +317,7 @@ def _one_step(cfg, case, frozen, mesh):
 
     tree = parallel.replicate(to_torch(case["trainable"], "cpu"), mesh)
     tx = to.build_optimizer(tree, **case["opt"])
-    step = ts.make_train_step(cfg, port_enc(case["enc"]), tx, **case["common"])
+    step = ts.make_train_step(cfg, port_enc(case["enc"]), tx, **case["common"], **step_kw)
     batch = parallel.shard_batch(ts.to_device_batch(SimpleNamespace(**case["batch"]), "cpu"),
                                  mesh)
     with parallel.use_mesh(mesh):
@@ -328,9 +328,7 @@ def _one_step(cfg, case, frozen, mesh):
 def head_split_world(rank, n, workdir):
     """Every layout of ``shard_params`` that cuts inside a head, on a (data 1 x
     model 4) and a (data 2 x model 2) mesh: forwards, generation, train steps
-    and gradients, the serve engine, and the raises that stay."""
-    from mimic_tpu_torch.models import lm as tlm
-    from mimic_tpu_torch.ops.quant import quantize_lm_params, quantize_weight
+    and gradients, the serve engine."""
     from mimic_tpu_torch.serve.engine import ServeEngine, ServeRequest
     from mimic_tpu_torch.train import step as ts
 
@@ -422,24 +420,124 @@ def head_split_world(rank, n, workdir):
                             SimpleTokenizer(padding_side="left"), device="cpu")
         out["eval"] = runner.generate(ev["images"], ev["texts"], num_beams=3, max_new_tokens=4)
 
-    # the raises that stay under a model axis of more than one rank
-    key = inp["raises"]["model"]
-    cfg, batch = cfg_of(key), lvlm_batch(inp["raises"]["batch"])
-    whole = to_torch(inp["models"][key][1], "cpu")
-    out["raises"] = {}
-
-    def raised(name, fn):
-        try:
-            with parallel.use_mesh(meshes[4]), torch.no_grad():
-                fn()
-        except NotImplementedError as e:
-            out["raises"][name] = str(e)
-
-    raised("ring", lambda: tlvlm.lvlm_forward(
-        frozen(key, 4), cfg, batch, attn_impl="ring", ring_mesh=meshes[2], ring_axis="model"))
-    raised("int8 decoder", lambda: tlvlm.lvlm_forward(quantize_lm_params(frozen(key, 4)), cfg,
-                                                      batch))
-    lm_tree = {"embed": whole["lm"]["embed"], "lm_head": quantize_weight(whole["lm"]["lm_head"])}
-    raised("int8 lm_head", lambda: tlm.lm_head(lm_tree, cfg.text,
-                                               torch.zeros(1, 1, cfg.text.hidden_size)))
     save_outputs(workdir, rank, out)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_model_axis.py
+# ---------------------------------------------------------------------------
+
+
+def _handles(tree):
+    """Every int8 handle of a tree, by key path, as numpy."""
+    from mimic_tpu_torch.ops.quant import is_quantized
+
+    if is_quantized(tree):
+        return {"": {k: v.numpy() for k, v in tree.items()}}
+    if not isinstance(tree, dict):
+        return {}
+    return {f"{k}/{p}": h for k, v in tree.items() for p, h in _handles(v).items()}
+
+
+def model_axis_world(rank, n, workdir):
+    """Ring attention on meshes with a ``model`` axis (forwards, a MimIC step,
+    its gradients), and the int8 modes under ``model > 1`` (``set_quant``'s
+    handles, greedy and beam tokens, logits)."""
+    from mimic_tpu_torch.models.runner import LVLMRunner
+    from mimic_tpu_torch.models.tokenizer import SimpleTokenizer
+    from mimic_tpu_torch.parallel.mesh import axis_group
+    from mimic_tpu_torch.train import step as ts
+
+    inp = load_inputs(workdir)
+    meshes = {
+        (1, 4): parallel.make_mesh(1, 4, device_type="cpu"),
+        (2, 2): parallel.make_mesh(2, 2, device_type="cpu"),
+        (1, 2, 2): init_device_mesh("cpu", (1, 2, 2), mesh_dim_names=("data", "sp", "model")),
+        (2, 1, 2): init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=("data", "sp", "model")),
+    }
+    out = {"coord": {m: mesh.get_coordinate() for m, mesh in meshes.items()}}
+    trees = {}
+
+    def frozen(key, m):
+        if (key, m) not in trees:
+            cut = parallel.shard_params(to_torch(inp["models"][key][1], "cpu"), meshes[m])
+            trees[key, m] = tree_map(lambda t: t.clone(), cut)
+        return trees[key, m]
+
+    def cfg_of(key):
+        return build_cfg(inp["models"][key][0])
+
+    out["ring"] = {}
+    for name, case in inp["ring"].items():
+        key, m = case["model"], case["mesh"]
+        mesh, cfg = meshes[m], cfg_of(key)
+        ring = dict(ring_mesh=mesh, ring_axis=case["ring_axis"],
+                    ring_batch_axis="data" if m[0] > 1 else None)
+        got = {"forward": {}, "paths": []}
+        batch = parallel.shard_batch(lvlm_batch(case["batch"]), mesh)
+        shift = to_torch(case["shift"], "cpu")
+        with parallel.use_mesh(mesh), torch.no_grad():
+            for logz2 in ("unmasked", "masked"):
+                td.ATTN_PATH_LOG.clear()
+                o = tlvlm.lvlm_forward(frozen(key, m), cfg, batch, shift=shift, logz2=logz2,
+                                       attn_impl="ring", capture_attn=True, **ring)
+                got["forward"][logz2] = (o.logits.numpy(), o.decoder.attn_capture.numpy())
+                got["paths"] += td.ATTN_PATH_LOG
+        step = case["step"]
+        td.ATTN_PATH_LOG.clear()
+        got["metrics"], got["trainable"] = _one_step(cfg, step, frozen(key, m), mesh,
+                                                     attn_impl="ring", **ring)
+        got["step_paths"] = list(td.ATTN_PATH_LOG)
+        sb = parallel.shard_batch(ts.to_device_batch(SimpleNamespace(**step["batch"]), "cpu"),
+                                  mesh)
+        data = axis_group(mesh, "data")
+        with parallel.use_mesh(mesh):
+            grads = _loss_grads(cfg, port_enc(step["enc"]), to_torch(step["trainable"], "cpu"),
+                                frozen(key, m), sb, dict(step["loss_kw"], attn_impl="ring",
+                                                         ring_kwargs=ring, data_group=data))
+        if data is not None:  # as the step sums them
+            for g in grads.values():
+                t = torch.from_numpy(g)
+                dist.all_reduce(t, group=data)
+        got["grads"] = grads
+        out["ring"][name] = got
+
+    out["int8"] = {}
+    ids = (inp["eos"], inp["pad"])
+    for name, case in inp["int8"].items():
+        key, m = case["model"], case["mesh"]
+        mesh, cfg = meshes[m], cfg_of(key)
+        batch = parallel.shard_batch(lvlm_batch(case["batch"]), mesh)
+        with parallel.use_mesh(mesh), torch.no_grad():
+            runner = LVLMRunner(cfg, frozen(key, m), SimpleTokenizer(padding_side="left"),
+                                device="cpu", quant=case["mode"])
+            params, dparams = runner.params, runner.decode_params
+            quantized = params if dparams is None else dparams
+            got = {"handles": _handles(quantized),
+                   "logits": tlvlm.lvlm_forward(quantized, cfg, batch).logits.numpy(),
+                   "greedy": tg.greedy_generate(params, cfg, batch, case["new"], *ids,
+                                                decode_params=dparams).tokens.numpy()}
+            if case["beam"]:
+                beam = tg.beam_generate(params, cfg, batch, case["new"], 3, *ids,
+                                        decode_params=dparams)
+                got["beam"], got["beam_scores"] = beam.tokens.numpy(), beam.scores.numpy()
+        out["int8"][name] = got
+
+    # the serve engine in the "int8" layout: the prefill on the cut bf16 tree,
+    # the decode on whole handles, the slot cache holding every KV head
+    from mimic_tpu_torch.serve.engine import ServeEngine, ServeRequest
+
+    eng_case = inp["engine"]
+    key = eng_case["model"]
+    with parallel.use_mesh(meshes[1, 4]), torch.no_grad():
+        runner = LVLMRunner(cfg_of(key), frozen(key, (1, 4)), SimpleTokenizer(padding_side="left"),
+                            device="cpu", quant="int8")
+        eng = ServeEngine(cfg_of(key), runner.params, decode_params=runner.decode_params,
+                          num_slots=2, max_len=48, prefill_buckets=(8, 16, 32), decode_block=2,
+                          device="cpu")
+        for i, p in enumerate(eng_case["prompts"]):
+            eng.submit(ServeRequest(uid=i, input_ids=p, max_new_tokens=5))
+        out["engine"] = [r.tokens for r in eng.run()]
+        out["engine_cache_heads"] = eng._cache["k"].shape[3]
+    save_outputs(workdir, rank, out)
+
