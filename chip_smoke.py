@@ -20,7 +20,11 @@ Phases (any failure propagates: non-zero exit, no result line):
              tiles; max error against stated tolerances, a second launch
              bit-identical, and both times from CUDA events (the backward
              kernels' as device time through CUDA graphs), beside the backward
-             of scaled_dot_product_attention at the shift pass as a yardstick.
+             of scaled_dot_product_attention at the shift pass as a yardstick;
+             then the CLIP towers' rows (idefics-9b's at head dim 80,
+             llava-1.5's at 64) as device time through CUDA graphs, onepass_fwd
+             through its wrapper and scaled_dot_product_attention in turns,
+             beside the bound.
 3. slice   — a tiny idefics2 in fp32 (ViT head dim 72, text head dim 128): the
              serving path through the kernels on the card must give the beam-3
              tokens of the plain path on the CPU, and prefill logits within 1e-4;
@@ -318,10 +322,11 @@ The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
-    python3 chip_smoke.py --idefics1-only  # build, phase 2's head-dim-80 cases and phase 14:
+    python3 chip_smoke.py --idefics1-only  # build, phase 2's head-dim-80 cases, the CLIP rows'
+                                           # device times and phase 14: exit 3, no result line
+    python3 chip_smoke.py --llava-only     # build, phase 2's head-dim-64 cases, the CLIP rows'
+                                           # device times, phase 6's G 7 case and phase 15:
                                            # exit 3, no result line
-    python3 chip_smoke.py --llava-only     # build, phase 2's head-dim-64 cases, phase 6's G 7
-                                           # case and phase 15: exit 3, no result line
     python3 chip_smoke.py --cache-only  # build, the 8B runner and phase 12: exit 3, no result line
     python3 chip_smoke.py --peft-only   # build, the 8B runner and phase 13: exit 3, no result line
     python3 chip_smoke.py --serve-only  # build, the 8B runner and phase 16: exit 3, no result line
@@ -329,7 +334,9 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --headsplit-only  # build and phase 18: exit 3, no result line
     python3 chip_smoke.py --model-axis-only  # build and phase 19: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
-                                             # and TMA opcodes in their SASS: exit 3, no result line
+                                             # and TMA opcodes in the SASS of all 8 instantiations
+                                             # (head dims 64, 72, 80, 128, with and without lse_u):
+                                             # exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
                                              # prompt_attn_int8 cluster-split sweeps, then the HMMA
                                              # opcodes of the int8 kernels' SASS: exit 3, no result line
@@ -466,6 +473,20 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def kv_nbytes(k, v, allowed, need_unmasked: bool, mean_of_v: bool) -> int:
+    """The bytes of an attention's k and v [B, S, Hkv, D] that its function needs,
+    each read once: every key for lse_u; else a batch's keys that some row may
+    attend to (``allowed`` [B, T, S]), and all of its v where a row attends to
+    none and ``mean_of_v`` (onepass_fwd: that row is the mean of v over every key)."""
+    if need_unmasked:
+        return nbytes(k, v)
+    S = k.shape[1]
+    keys = allowed.any(1).sum(-1)
+    v_keys = torch.where(~allowed.any(-1).all(-1), S, keys) if mean_of_v else keys
+    per_key = k[0, 0].numel() * k.element_size()
+    return int((keys + v_keys).sum().item()) * per_key
+
+
 def bound(n_bytes: int, n_ops: int, op_type: str) -> dict:
     """The least time the card could take: every input byte read once and every
     output byte written once at the memory peak, or the operations at the
@@ -590,7 +611,8 @@ def check_kernel(label, name, seed, B, T, S, H, Hkv, D, key_mask, causal, need_u
     # work these inputs need: scores on every (query, key) pair when lse_u is
     # wanted, else on the attendable pairs; p @ v on the attendable pairs
     pairs = int(allowed.expand(B, T, S).sum().item())
-    b = bound(nbytes(q, k, v, km, got[0], got[1], got[2] if need_unmasked else None),
+    b = bound(nbytes(q, km, got[0], got[1], got[2] if need_unmasked else None)
+              + kv_nbytes(k, v, allowed.expand(B, T, S), need_unmasked, name == "onepass_fwd"),
               2 * H * D * ((B * T * S if need_unmasked else pairs) + pairs), "bf16")
     # one PyTorch call gives the same function only without lse_u and lse
     library_ms = None
@@ -696,30 +718,41 @@ def phase_kernels():
             s.update({k: r[k] for k in TIMING_KEYS})
     for case in CLIP_FP32_CASES + D64_FP32_CASES:
         check_kernel_fp32(*case)
-    d64_device_times()
+    clip_device_times()
     return summary
 
 
-def d64_device_times():
-    """The CLIP ViT-L rows at head dim 64 take tens of microseconds, as long as a
-    launch from Python: onepass_fwd and scaled_dot_product_attention again as
-    device time through CUDA graphs, in turns."""
+def clip_device_times():
+    """The CLIP towers' rows (idefics-9b's at head dim 80, llava-1.5's at 64) as
+    device time through CUDA graphs, in turns: onepass_fwd through its wrapper, as
+    the towers call it, and scaled_dot_product_attention on the same inputs, with
+    the bound beside them."""
     from mimic_tpu_torch.ops import flash_attention as tfa
 
-    *_, B, T, S, H, Hkv, D, key_mask = CLIP_L_VIT_CASE_ARGS
-    q, k, v, km = kernel_inputs(19, B, T, S, H, Hkv, D, key_mask)
-    allowed = (km > 0)[:, None, None, :]
-    runs = {
-        "onepass_fwd": lambda: tfa._launch("onepass_fwd", q, k, v, km, False, None, False),
-        "scaled_dot_product_attention": lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=allowed),
-    }
-    times = {name: [] for name in runs}
-    for name in ("onepass_fwd", "scaled_dot_product_attention") * 2:
-        times[name].append(cuda_ms(runs[name], 50, graph=True))
-    log(f"[kernels] clip-l-vit-d64 as device time through CUDA graphs (B{B} T{T} S{S} H{H} "
-        f"D{D}, 577 keys), in turns: " + "; ".join(
-            f"{name} {', '.join(f'{t:.4f}' for t in ts)} ms" for name, ts in times.items()))
+    for label, name, seed, B, T, S, H, Hkv, D, key_mask, *_ in (CLIP_VIT_CASE,
+                                                                CLIP_L_VIT_CASE_ARGS):
+        q, k, v, km = kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask)
+        mask = (km > 0)[:, None, None, :]
+        runs = {
+            name: lambda: tfa._launch(name, q, k, v, km, False, None, False),
+            "scaled_dot_product_attention": lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask),
+        }
+        times = {run: [] for run in runs}
+        for run in (*runs, *reversed(runs)) * 2:
+            times[run].append(cuda_ms(runs[run], 50, graph=True))
+        # as check_kernel counts it: k and v of the attendable keys, both products
+        # on the attendable pairs
+        got = runs[name]()
+        allowed = mask[:, 0].expand(B, T, S)
+        b = bound(nbytes(q, km, got[0], got[1]) + kv_nbytes(k, v, allowed, False, True),
+                  2 * H * D * 2 * int(allowed.sum().item()), "bf16")
+        kernel_min = min(times[name])
+        log(f"[kernels] {label} as device time through CUDA graphs (B{B} T{T} S{S} H{H} D{D}, "
+            f"{int(km[0].sum().item())} keys), in turns: " + "; ".join(
+                f"{run} {', '.join(f'{t:.4f}' for t in ts)} ms" for run, ts in times.items())
+            + f"; {bound_text(b)}: the kernel at {b['bound_ms'] / kernel_min:.1%} of it, "
+            f"SDPA / kernel {min(times['scaled_dot_product_attention']) / kernel_min:.2f}")
 
 
 def clip_vit_mask(B):
@@ -6195,7 +6228,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--attention-only"]:
         phase_kernels()
-        sass_counts(info["path"], ("attn_fwd_mma_kernel",), ("HGMMA", "UTMALDG"), 4)
+        # head dims 64, 72, 80 and 128, each with and without lse_u
+        sass_counts(info["path"], ("attn_fwd_mma_kernel",), ("HGMMA", "UTMALDG"), 8)
         log("[card] partial run (--attention-only): phase 2's forward kernels passed; "
             "no result line")
         return 3
@@ -6271,6 +6305,7 @@ def main() -> int:
         check_kernel(*CLIP_VIT_CASE[:-1])
         for case in CLIP_FP32_CASES:
             check_kernel_fp32(*case)
+        clip_device_times()
         t = time.perf_counter()
         phase_idefics_9b()
         log(f"[time] phase 14 idefics-9b: {time.perf_counter() - t:.1f} s")
@@ -6283,7 +6318,7 @@ def main() -> int:
             check_kernel(*case[:-1])
         for case in D64_FP32_CASES:
             check_kernel_fp32(*case)
-        d64_device_times()
+        clip_device_times()
         check_llava_prompt_attn()
         t = time.perf_counter()
         phase_llava()

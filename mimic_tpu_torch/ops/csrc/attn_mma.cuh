@@ -10,8 +10,15 @@
 // beside them and not between them.
 //
 // Design (Hopper: wgmma + TMA + mbarrier, warp-specialised).
-//  * A CTA is NWG consumer warpgroups (2: 128 query rows) and one producer
-//    warp.  Each warpgroup owns 64 query rows and walks the key axis in tiles of
+//  * Two forms of CTA (CfgT).  At D72 and D128 a CTA is two consumer warpgroups
+//    (128 query rows) and one producer warp.  At D64 and D80, the CLIP towers'
+//    short rows (384 and 640 keys), it is one warpgroup of 64 rows whose thread 0
+//    issues the loads, so that four (D80) or five (D64) CTAs share an SM: each
+//    CTA's prologue (barrier init, Q's load from device memory), per-tile chain
+//    (Q.K^T, wait, softmax, P.V, wait) and epilogue then run beside the other
+//    CTAs' products instead of leaving the SM idle (measured on the H100: the
+//    two-warpgroup form at one CTA per SM took 0.32 ms at idefics-9b's D80 rows,
+//    this one 0.18; PERF.md).  Each warpgroup walks the key axis in tiles of
 //    BN keys (64 at D64, D72 and D80; 128 at D128, where the longer tile took 6-10 %
 //    off by halving the per-tile costs); all warpgroups of a CTA share the K/V tiles.
 //  * Products.  S = Q.K^T is wgmma m64nBNk16 with both operands read from shared
@@ -39,14 +46,21 @@
 //  * Loads.  The producer warp's lane 0 issues one TMA box per tile and block
 //    (cp.async.bulk.tensor.4d over the [B, rows, heads, D] array: batch and head
 //    are coordinates, rows beyond T or S arrive as zeros) into a ring of STAGES
-//    slots (3 at D64, D72 and D80, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
+//    slots (3 at D72, 2 of the longer tiles at D128).  full[slot] / empty[slot] mbarriers carry the hand-over: the
 //    producer waits for empty, arms full with the slot's byte count and issues;
 //    a consumer warp waits for full, and arrives on empty after the last wgmma
 //    that reads the slot has been waited for.  There is no __syncthreads in the
 //    loop, so the warpgroups drift apart and one's softmax runs under the
 //    other's products.  The first form of this kernel loaded with 16-byte
 //    cp.async from the computing warps: they stalled on the load pipe and the
-//    loads' time added to the products' instead of hiding under it.
+//    loads' time added to the products' instead of hiding under it.  The
+//    one-warpgroup form has no empty barriers: after a tile, a __syncthreads
+//    (the warpgroup is the CTA) and thread 0 refills the slot with the tile
+//    STAGES ahead (2 slots: a third cost a CTA per SM and measured slower).
+//    Its products and softmax do not overlap within the warpgroup; the other
+//    CTAs on the SM fill those gaps.  Issuing the refill under the tile's Q.K^T
+//    or from all four warps, or loading the first tiles before the key mask is
+//    read, measured no faster (PERF.md).
 //  * One sweep, online softmax in registers and in the log2 domain: the fp32
 //    accumulator is multiplied by scale * log2(e) (q is never pre-scaled: a bf16
 //    operand cannot carry 1/sqrt(D)), p = ex2(x - m), row max by two quad
@@ -73,15 +87,26 @@
 //    at the CTA's causal diagonal and passes over wholly masked tiles without
 //    looking at their rows (a row with no attendable key then gets the mean
 //    over the visited tiles: the documented difference of flash_fwd).
+//    In the one-warpgroup form without lse_u the CTA also reads its batch's key
+//    mask once: tiles past the last attendable key are dead for every row, and
+//    where each row would drop them anyway (skip_tiles, or every row of the CTA
+//    has an attendable key: the batch has one and, causal, its first lies at or
+//    before the CTA's first row) the sweep ends there and they are never loaded
+//    (the ViT's padded keys: idefics-9b's 257 of 384 end it after 5 of 6 tiles).
 //  * Causal CTAs are scheduled heaviest first (blockIdx.x reversed).
 //
 // Registers per consumer thread: 4 * D/8 output accumulators (64 at D128, 40 at
 // D80, 36 at D72, 32 at D64) and BN / 2 for the score tile, which become the BN / 4
 // of P.  D72 runs two CTAs of 288 threads per SM (96 registers, 80 KB of shared
-// memory each), and so does D64 (65 KB), which holds four accumulators fewer.  D80 runs one (84 KB): capped for two it also gets 96 registers, and
-// there its four more accumulators make ptxas serialize every wgmma (C7512, seen
-// with -Xptxas=-v on the card; chip_smoke.py fails the build on that line).
-// D128 runs one (about 160 registers, 162 KB).
+// memory each); D128 one (168 registers, 162 KB).  D80 runs four CTAs of 128
+// threads (capped at 128 registers: 112 without lse_u, 127 with, no spills; 53 KB
+// each) and D64 five (96 registers, no spills; 42 KB).  At
+// 96 registers D80's wgmmas are serialized by ptxas (C7512, seen when the
+// two-warpgroup form was capped for two CTAs; chip_smoke.py fails the build on
+// that line), so five CTAs are not an option there.  The warpgroup's vote over
+// its rows uses the CTA's own barrier in this form: with the named barrier of
+// warpgroup_all ptxas reserved 16 barriers a CTA, which held D64 to four CTAs
+// per SM.
 
 #pragma once
 
@@ -97,25 +122,28 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float HALF_NEG = 0.5f * NEG;  // a running max below this has seen no real score
 
-template <int D>
-struct Cfg {
+// The tiling of one instantiation: NWG_ consumer warpgroups per CTA, STAGES_ slots in
+// the K/V ring, MINB_ CTAs per SM that the registers are capped for.  NWG_ = 1 is the
+// short-row form (SHORT): the warpgroup is the whole CTA and its thread 0 issues the
+// loads; with NWG_ = 2 a producer warp does.
+template <int D, int NWG_, int STAGES_, int MINB_>
+struct CfgT {
   static_assert(D == 64 || D == 72 || D == 80 || D == 128,
                 "one or two 64-column blocks, and a tail of 8 (D72) or 16 (D80) columns");
-  // warpgroups per CTA, 64 query rows each; one more warp feeds them
-  static constexpr int NWG = 2;
+  static_assert(NWG_ == 1 || NWG_ == 2, "one or two consumer warpgroups");
+  static constexpr int NWG = NWG_;  // warpgroups per CTA, 64 query rows each
+  static constexpr bool SHORT = NWG == 1;
   static constexpr int BM = 64 * NWG;
   static constexpr int BN = D <= 80 ? 64 : 128;  // keys per tile
   static_assert(BN == 64 || BN == 128, "the score tile is one wgmma of n = BN");
   static constexpr int NW = BN / 32;  // 32-bit words of a tile's key mask
-  static constexpr int THREADS = 128 * NWG + 32;
+  static constexpr int THREADS = 128 * NWG + (SHORT ? 0 : 32);
   static constexpr int NBLK = D / 64;       // 64-column blocks of a row (128-byte swizzle)
   static constexpr bool TAIL = D % 64 != 0; // D = 72: columns 64..71; D = 80: 64..79
   static constexpr int VT = (D % 64) / 8;   // 8-column tail tiles of V (1 at D72, 2 at D80)
   static constexpr int NATOMS = D / 8;      // n8 atoms of the output
-  static constexpr int STAGES = D <= 80 ? 3 : 2;  // slots of the K/V ring
-  // CTAs per SM the registers are capped for: two at D64 and D72; at D80 two would
-  // cap a thread at 96 registers, where ptxas serializes the wgmmas (C7512), so one
-  static constexpr int MINB = D <= 72 ? 2 : 1;
+  static constexpr int STAGES = STAGES_;    // slots of the K/V ring
+  static constexpr int MINB = MINB_;
   // shared tiles, each 1024-byte aligned: 64-column blocks [rows][128 B]; the tail
   // of Q and K as [rows][32 B] (columns 64..79; at D72 72..79 are zero), of V as
   // VT tiles [rows][16 B]
@@ -130,6 +158,13 @@ struct Cfg {
   static constexpr int BAR_BYTES = (2 * STAGES + 1) * 8;
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * SLOT_BYTES + BAR_BYTES;  // 1024: alignment slack
 };
+
+// D72 and D128: two warpgroups and a producer warp, three and two slots, two and one
+// CTAs per SM.  D64 and D80 (the CLIP towers' short rows): one warpgroup per CTA,
+// two slots, five and four CTAs per SM (96 and 128 registers a thread)
+template <int D>
+using Cfg = CfgT<D, (D == 64 || D == 80) ? 1 : 2, D == 72 ? 3 : 2,
+                 D == 64 ? 5 : D == 80 ? 4 : D == 72 ? 2 : 1>;
 
 // the TMA descriptors of one launch: the 64-column blocks of q, k, v and, at D = 72
 // and 80, their tails (v_tail is one 8-column tile, loaded once per tail tile)
@@ -249,11 +284,10 @@ __device__ __forceinline__ void score_step(float (&s)[BN / 2], uint64_t desc_q, 
   }
 }
 
-// UNM: also carry the unmasked (max, sum) pair for lse_u
-template <int D, bool UNM>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
+// UNM: also carry the unmasked (max, sum) pair for lse_u; C: the tiling
+template <int D, bool UNM, class C = Cfg<D>>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
     attn_fwd_mma_kernel(AttnArgs a, int skip_tiles, const __grid_constant__ TensorMaps maps) {
-  using C = Cfg<D>;
   constexpr int BM = C::BM, BN = C::BN, NW = C::NW;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte-swizzled tiles want 1024-byte alignment
@@ -283,33 +317,64 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
     mbar_init(q_bar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();  // the last one: from here the roles run on barriers only
+  __syncthreads();  // with a producer warp the last one: from here its roles run on barriers only
 
-  if (warp == C::NWG * 4) {
+  // TMA: the CTA's rows of Q, and key tile `it` into ring slot `slot`
+  auto load_q = [&]() {
+    mbar_expect_tx(q_bar, C::Q_BYTES);
+#pragma unroll
+    for (int blk = 0; blk < C::NBLK; ++blk)
+      tma_load(sQ + blk * BM * 128, &maps.q, q_bar, blk * 64, h, q0, b);
+    if (C::TAIL) tma_load(sQ + C::Q_MAIN, &maps.q_tail, q_bar, C::NBLK * 64, h, q0, b);
+  };
+  auto load_kv = [&](int it, int slot) {
+    const uint32_t bar = full_bar(slot), sK = sKV + slot * C::SLOT_BYTES, sV = sK + C::K_BYTES;
+    mbar_expect_tx(bar, C::SLOT_BYTES);
+#pragma unroll
+    for (int blk = 0; blk < C::NBLK; ++blk) {
+      tma_load(sK + blk * BN * 128, &maps.k, bar, blk * 64, hk, it * BN, b);
+      tma_load(sV + blk * BN * 128, &maps.v, bar, blk * 64, hk, it * BN, b);
+    }
+    if (C::TAIL) {
+      tma_load(sK + C::K_MAIN, &maps.k_tail, bar, C::NBLK * 64, hk, it * BN, b);
+#pragma unroll
+      for (int vt = 0; vt < C::VT; ++vt)
+        tma_load(sV + C::V_MAIN + vt * BN * 16, &maps.v_tail, bar, C::NBLK * 64 + 8 * vt, hk,
+                 it * BN, b);
+    }
+  };
+  const int32_t* km = a.key_mask + static_cast<size_t>(b) * a.S;
+
+  if constexpr (C::SHORT) {
+    // ---- one warpgroup, its thread 0 the producer: Q, then the first STAGES tiles ----
+    if (tid == 0) load_q();
+    // Keys past the batch's last attendable one are dead for every row.  A row
+    // that already has a real max drops such a tile unseen, and so does
+    // skip_tiles: then (without lse_u) the sweep ends at the last attendable key,
+    // and those tiles are never loaded.  Every row has a real max there unless it
+    // has no attendable key at all (none in the batch; causal rows before the first).
+    if constexpr (!UNM) {
+      int lo = 0x7fffffff, hi = -1;
+      for (int s = lane; s < a.S; s += 32)
+        if (km[s] != 0) {
+          lo = min(lo, s);
+          hi = s;
+        }
+      lo = __reduce_min_sync(0xffffffffu, lo);
+      hi = __reduce_max_sync(0xffffffffu, hi);
+      if (skip_tiles || (hi >= 0 && (!a.causal || lo <= q0)))
+        ntiles = min(ntiles, hi < 0 ? 0 : hi / BN + 1);
+    }
+    if (tid == 0)
+      for (int it = 0; it < min(C::STAGES, ntiles); ++it) load_kv(it, it);
+  } else if (warp == C::NWG * 4) {
     // ---- the producer warp: one lane keeps the ring of K/V tiles full through TMA ----
     if (lane == 0) {
-      mbar_expect_tx(q_bar, C::Q_BYTES);
-#pragma unroll
-      for (int blk = 0; blk < C::NBLK; ++blk)
-        tma_load(sQ + blk * BM * 128, &maps.q, q_bar, blk * 64, h, q0, b);
-      if (C::TAIL) tma_load(sQ + C::Q_MAIN, &maps.q_tail, q_bar, C::NBLK * 64, h, q0, b);
+      load_q();
       int slot = 0, phase = 0;
       for (int it = 0; it < ntiles; ++it) {
         mbar_wait(empty_bar(slot), phase ^ 1);  // passes at once on the first round
-        const uint32_t bar = full_bar(slot), sK = sKV + slot * C::SLOT_BYTES, sV = sK + C::K_BYTES;
-        mbar_expect_tx(bar, C::SLOT_BYTES);
-#pragma unroll
-        for (int blk = 0; blk < C::NBLK; ++blk) {
-          tma_load(sK + blk * BN * 128, &maps.k, bar, blk * 64, hk, it * BN, b);
-          tma_load(sV + blk * BN * 128, &maps.v, bar, blk * 64, hk, it * BN, b);
-        }
-        if (C::TAIL) {
-          tma_load(sK + C::K_MAIN, &maps.k_tail, bar, C::NBLK * 64, hk, it * BN, b);
-#pragma unroll
-          for (int vt = 0; vt < C::VT; ++vt)
-            tma_load(sV + C::V_MAIN + vt * BN * 16, &maps.v_tail, bar, C::NBLK * 64 + 8 * vt, hk,
-                     it * BN, b);
-        }
+        load_kv(it, slot);
         if (++slot == C::STAGES) {
           slot = 0;
           phase ^= 1;
@@ -320,7 +385,6 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
   }
 
   // ---- the consumer warpgroups ----
-  const int32_t* km = a.key_mask + static_cast<size_t>(b) * a.S;
   auto mask_at = [&](int s) -> bool { return s < a.S && km[s] != 0; };
   bool mk[NW];  // this lane's keys of the next tile
 #pragma unroll
@@ -346,10 +410,21 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
   for (int it = 0; it < ntiles;
        ++it, phase ^= (slot + 1 == C::STAGES), slot = (slot + 1 == C::STAGES ? 0 : slot + 1)) {
     const int k0 = it * BN;
-    // hand the slot back to the producer: every path out of this iteration takes it
+    if constexpr (C::SHORT) {
+      // the warpgroup is the CTA: once every warp is done with the last tile's slot,
+      // thread 0 refills it with the tile STAGES ahead of that one
+      if (it > 0) {
+        __syncthreads();
+        if (tid == 0 && it - 1 + C::STAGES < ntiles)
+          load_kv(it - 1 + C::STAGES, slot == 0 ? C::STAGES - 1 : slot - 1);
+      }
+    }
+    // hand the slot back to the producer warp: every path out of this iteration takes it
     auto release = [&]() {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty_bar(slot));
+      if constexpr (!C::SHORT) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty_bar(slot));
+      }
     };
     mbar_wait(full_bar(slot), phase);
     // bit i of bits[w]: key k0 + 32 w + i is attendable by the key mask
@@ -372,7 +447,12 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, Cfg<D>::MINB)
         release();
         continue;
       }
-      do_pv = !warpgroup_all(wgi, m[0] > HALF_NEG && m[1] > HALF_NEG);
+      const bool settled = m[0] > HALF_NEG && m[1] > HALF_NEG;
+      // one warpgroup: the CTA's own barrier, so ptxas reserves no named barriers
+      if constexpr (C::SHORT)
+        do_pv = __syncthreads_and(settled) == 0;
+      else
+        do_pv = !warpgroup_all(wgi, settled);
       if (!UNM && !do_pv) {
         release();
         continue;
@@ -629,9 +709,8 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int L, int heads
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool UNM>
+template <int D, bool UNM, class C = Cfg<D>>
 cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
-  using C = Cfg<D>;
   TensorMaps maps = {};
   bool ok = make_map(&maps.q, a.q, a.B, a.T, a.H, D, 64, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
             make_map(&maps.k, a.k, a.B, a.S, a.Hkv, D, 64, C::BN, CU_TENSOR_MAP_SWIZZLE_128B) &&
@@ -641,8 +720,12 @@ cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
          make_map(&maps.k_tail, a.k, a.B, a.S, a.Hkv, D, 16, C::BN, CU_TENSOR_MAP_SWIZZLE_32B) &&
          make_map(&maps.v_tail, a.v, a.B, a.S, a.Hkv, D, 8, C::BN, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = attn_fwd_mma_kernel<D, UNM>;
+  auto kernel = attn_fwd_mma_kernel<D, UNM, C>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
+  // the short-row form counts on MINB CTAs sharing an SM's shared memory
+  if (e == cudaSuccess && C::SHORT)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   dim3 grid((a.T + C::BM - 1) / C::BM, a.H, a.B);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(a, skip_tiles, maps);

@@ -60,10 +60,11 @@ ONEPASS_MAX_S_NONCAUSAL = 8192
 KERNEL_HEAD_DIMS = (64, 72, 80, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the bf16 kernel's tiling: query rows per CTA and per warpgroup; keys per tile
-# by head dim (the library's mimic_attn_fwd_tiling reports the compiled values;
+# the bf16 kernel's tiling by head dim: query rows per CTA (one warpgroup of
+# TILE_GROUP_ROWS at the CLIP towers' head dims 64 and 80, two elsewhere) and keys
+# per tile (the library's mimic_attn_fwd_tiling reports the compiled values;
 # tests/test_torch_kernels.py holds the two together on the card)
-TILE_BLOCK_M = 128
+TILE_BLOCK_M = {64: 64, 72: 128, 80: 64, 128: 128}
 TILE_GROUP_ROWS = 64
 TILE_BLOCK_N = {64: 64, 72: 64, 80: 64, 128: 128}
 
@@ -134,9 +135,9 @@ def attention_tiled_plain(
     """The bf16 kernel's algorithm, tile by tile, in plain PyTorch (tests only).
 
     What ``csrc/attn_mma.cuh`` does, at its granularity: a CTA of
-    ``TILE_BLOCK_M`` query rows, warpgroups of ``TILE_GROUP_ROWS`` rows that
-    decide together, key tiles of ``TILE_BLOCK_N[D]`` (64 for other head
-    dims); fp32 scores scaled AFTER the product, an online
+    ``TILE_BLOCK_M[D]`` query rows, warpgroups of ``TILE_GROUP_ROWS`` rows that
+    decide together, key tiles of ``TILE_BLOCK_N[D]`` (128 and 64 for other
+    head dims); fp32 scores scaled AFTER the product, an online
     softmax in the log2 domain, p rounded to v's dtype for P·V with fp32 row
     sums, ``lse_unmasked`` from the attendable p rescaled plus the masked
     pairs' own exponentials.  The rules it shares with the kernel:
@@ -148,7 +149,12 @@ def attention_tiled_plain(
       over every key, as in ``attention_plain``);
     - ``skip_tiles`` (``flash_fwd`` without ``need_unmasked``) ends the sweep
       at the CTA's causal diagonal and passes over dead tiles unseen: a row
-      with no attendable key then averages the visited tiles only.
+      with no attendable key then averages the visited tiles only;
+    - a CTA of one warpgroup (head dims 64 and 80) without ``need_unmasked``
+      ends its sweep at its batch's last attendable key when every tile past
+      it would be dropped anyway: under ``skip_tiles``, or when each of its
+      rows has an attendable key (the batch has one and, causal, its first
+      lies at or before the CTA's first row).  Those tiles are never loaded.
 
     ``onepass_fwd`` is ``skip_tiles=False``; ``flash_fwd`` is
     ``skip_tiles=not need_unmasked``.
@@ -162,11 +168,16 @@ def attention_tiled_plain(
     sc = scale if scale is not None else 1.0 / (D**0.5)
     c = sc * _LOG2E
     half_neg = 0.5 * NEG
-    block_m, group_rows, block_n = TILE_BLOCK_M, TILE_GROUP_ROWS, TILE_BLOCK_N.get(D, 64)
+    block_m, group_rows = TILE_BLOCK_M.get(D, 128), TILE_GROUP_ROWS
+    block_n = TILE_BLOCK_N.get(D, 64)
     qf = q.float().transpose(1, 2)                          # [B, H, T, D]
     kf = repeat_kv(k, H // Hkv).float().transpose(1, 2)     # [B, H, S, D]
     vf = repeat_kv(v, H // Hkv).float().transpose(1, 2)
     km = torch.ones(B, S, dtype=torch.bool) if key_mask is None else key_mask != 0
+    keys = torch.arange(S)
+    has_key = km.any(-1)                                                  # [B]
+    first_key = torch.where(km, keys, S).amin(-1)
+    last_tile = torch.where(km, keys, -1).amax(-1) // block_n             # -1: no key
     out = torch.empty(B, H, T, D, dtype=torch.float32)
     lse = torch.empty(B, H, T, dtype=torch.float32)
     lse_u = torch.empty(B, H, T, dtype=torch.float32)
@@ -175,6 +186,12 @@ def attention_tiled_plain(
         ntiles = -(-S // block_n)
         if skip_tiles and causal:
             ntiles = min(ntiles, (q0 + block_m - 1) // block_n + 1)
+        # per batch: the sweep ends after the last attendable key's tile
+        ends = torch.full((B,), ntiles)
+        if block_m == group_rows and not need_unmasked:
+            trims = has_key & (first_key <= q0) if causal else has_key
+            trims = trims | skip_tiles
+            ends = where(trims, torch.clamp(last_tile + 1, max=ntiles), ends)
         for g0 in range(q0, min(q0 + block_m, T), group_rows):
             rows = torch.arange(g0, min(g0 + group_rows, T))
             R = rows.numel()
@@ -189,6 +206,7 @@ def attention_tiled_plain(
                 # P·V wanted: a live tile, or a row of the warpgroup still without a key
                 do_pv = ~dead | ~(m > half_neg).all(-1)
                 skip = dead if skip_tiles else torch.zeros_like(dead)
+                skip = skip | (k0 // block_n >= ends)[:, None]  # past the batch's sweep
                 upd_pv = (~skip & do_pv)[..., None]                          # [B, H, 1]
                 upd_lu = (~skip & need_unmasked)[..., None]  # (under upd_pv)
                 x = (qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)) * c  # log2 domain

@@ -1,9 +1,9 @@
 """The bf16 attention forward kernel's algorithm, tile by tile, on the CPU.
 
 ``attention_tiled_plain`` (mimic_tpu_torch/ops/flash_attention.py) is what
-``csrc/attn_mma.cuh`` computes at its own granularity: CTAs of 128 query rows,
-warpgroups of 64 rows that decide together, key tiles of 64 (head dims 72 and
-80) or 128 (head dim 128), scores scaled
+``csrc/attn_mma.cuh`` computes at its own granularity: CTAs of 128 query rows
+(64 at head dims 64 and 80), warpgroups of 64 rows that decide together, key
+tiles of 64 (head dims 64, 72 and 80) or 128 (head dim 128), scores scaled
 after the product, an online softmax in the log2 domain, bf16-rounded p with
 fp32 row sums, and the two tile-visiting rules (``onepass_fwd``: every tile is
 looked at; ``flash_fwd`` without ``need_unmasked``: the sweep ends at the
@@ -153,52 +153,85 @@ def test_tiled_algorithm_matches_jax_pallas_kernels(kernel, causal, need_unmaske
            kernel == "onepass_fwd", JAX_OUT_ATOL)
 
 
-@pytest.mark.parametrize("need_unmasked", [True, False])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
-def test_tiled_algorithm_at_clip_head_dim(kernel, causal, need_unmasked):
-    """Head dim 80 (the idefics-9b CLIP tower: 16 columns past the 64-column
-    block, none of them zero-filled) at the tower's own rows: the class token and
-    256 patches of a 224 px image, padded to 384 keys, the pad keys masked."""
-    rng = np.random.default_rng(80)
-    q = rng.normal(size=(2, 384, 2, 80)).astype(np.float32)
-    k, v = (rng.normal(size=(2, 384, 2, 80)).astype(np.float32) for _ in range(2))
-    km = np.zeros((2, 384), np.int32)
-    km[:, :257] = 1
+# The CLIP towers' rows and the edges of their one-warpgroup tiling (64 query rows a
+# CTA, the sweep ended at the batch's last attendable key when every row may drop
+# the tiles past it): the tower's own rows; T not a multiple of 64 with a batch
+# left-padded past its first key tile; keys only inside the second and third
+# tiles, so leading and trailing tiles are wholly masked and causal rows before
+# the first key have none, beside a batch with no attendable key at all
+CLIP_CASES = ("tower", "ragged-rows", "masked-ends")
+
+
+def _clip_inputs(case, B, T, S, Hkv, D, live, seed):
+    rng = np.random.default_rng(seed)
+    if case == "ragged-rows":
+        T = 200
+    q = rng.normal(size=(B, T, 2, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, S, Hkv, D)).astype(np.float32) for _ in range(2))
+    km = np.zeros((B, S), np.int32)
+    km[:, :live] = 1
+    if case == "ragged-rows":
+        km[-1, :70] = 0
+    elif case == "masked-ends":
+        km[:] = 0
+        km[0, 100:150] = 1  # batch 1 (or the second half of the rows) has no key
+        if B == 1:
+            q = np.concatenate([q, q[:, ::-1]])
+            k, v = (np.concatenate([x, x[:, ::-1]]) for x in (k, v))
+            km = np.concatenate([km, np.zeros_like(km)])
+    return q, k, v, km
+
+
+def _check_clip_case(kernel, causal, need_unmasked, q, k, v, km):
+    """The tiled version against the plain version and JAX's fallback, and against
+    the Pallas kernel its CUDA kernel replaces, in interpret mode."""
     skip_tiles = kernel == "flash_fwd" and not need_unmasked
     got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
                                     need_unmasked=need_unmasked, skip_tiles=skip_tiles)
     plain = [x.numpy() for x in tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
                                                      need_unmasked=need_unmasked)]
-    jax_ref = [np.asarray(x) for x in _jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                                jnp.asarray(km), causal, None, need_unmasked)]
+    args = [jnp.asarray(x) for x in (q, k, v, km)]
+    jax_ref = [np.asarray(x) for x in _jax_sdpa(*args, causal, None, need_unmasked)]
+    if kernel == "onepass_fwd":
+        pallas = jfa.onepass_attention(*args, causal=causal, need_unmasked=need_unmasked,
+                                       interpret=True)
+    else:
+        pallas = jfa.flash_attention(*args, causal=causal, need_unmasked=need_unmasked,
+                                     block_q=64, block_k=64, interpret=True)
+    pallas = [np.asarray(x) for x in pallas]
     if not need_unmasked:
         jax_ref[2] = jax_ref[1]
+        pallas[2] = pallas[1]
     _check(got, plain, km, causal, need_unmasked, not skip_tiles, ATOL)
     _check(got, jax_ref, km, causal, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
+    # the JAX online kernel averages only the blocks it visited on rows with no
+    # attendable key, under either flag: its out is compared on the other rows
+    _check(got, pallas, km, causal, need_unmasked, kernel == "onepass_fwd", JAX_OUT_ATOL)
 
 
+@pytest.mark.parametrize("case", CLIP_CASES)
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_at_clip_head_dim(kernel, causal, need_unmasked, case):
+    """Head dim 80 (the idefics-9b CLIP tower: 16 columns past the 64-column
+    block, none of them zero-filled) at the tower's own rows: the class token and
+    256 patches of a 224 px image, padded to 384 keys, the pad keys masked; and
+    the tiling's edges (CLIP_CASES)."""
+    q, k, v, km = _clip_inputs(case, 2, 384, 384, 2, 80, 257, 80)
+    _check_clip_case(kernel, causal, need_unmasked, q, k, v, km)
+
+
+@pytest.mark.parametrize("case", CLIP_CASES)
 @pytest.mark.parametrize("need_unmasked", [True, False])
 @pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
-def test_tiled_algorithm_at_clip_l_head_dim(kernel, need_unmasked):
+def test_tiled_algorithm_at_clip_l_head_dim(kernel, need_unmasked, case):
     """Head dim 64 (the llava-1.5 CLIP ViT-L tower: one 64-column block, no
     tail) at the tower's own rows: the class token and 576 patches of a 336 px
-    image, padded to 640 keys, the pad keys masked; non-causal, as the tower runs."""
-    rng = np.random.default_rng(64)
-    q, k, v = (rng.normal(size=(1, 640, 2, 64)).astype(np.float32) for _ in range(3))
-    km = np.zeros((1, 640), np.int32)
-    km[:, :577] = 1
-    skip_tiles = kernel == "flash_fwd" and not need_unmasked
-    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=False,
-                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
-    plain = [x.numpy() for x in tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=False,
-                                                     need_unmasked=need_unmasked)]
-    jax_ref = [np.asarray(x) for x in _jax_sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                                jnp.asarray(km), False, None, need_unmasked)]
-    if not need_unmasked:
-        jax_ref[2] = jax_ref[1]
-    _check(got, plain, km, False, need_unmasked, not skip_tiles, ATOL)
-    _check(got, jax_ref, km, False, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
+    image, padded to 640 keys, the pad keys masked; non-causal, as the tower runs;
+    and the tiling's edges (CLIP_CASES)."""
+    q, k, v, km = _clip_inputs(case, 1, 640, 640, 2, 64, 577, 64)
+    _check_clip_case(kernel, False, need_unmasked, q, k, v, km)
 
 
 def test_rows_without_keys_follow_each_kernels_rule():

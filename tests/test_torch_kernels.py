@@ -152,7 +152,8 @@ KERNEL_CASES = [
     ("flash_fwd", 1, 640, 640, 8, 2, 128, True, True, 20),
     ("flash_fwd", 2, 1000, 1000, 4, 4, 72, False, True, 0),
     ("flash_fwd", 2, 300, 300, 8, 2, 128, True, False, 10),
-    # the tensor-core kernel's tiles (128 query rows per CTA, 64 per warpgroup, 64 keys):
+    # the tensor-core kernel's tiles (128 query rows per CTA at D72 and D128, 64 per
+    # warpgroup, 64 keys at D72):
     # the first key tiles fully masked (left padding past whole tiles)
     ("flash_fwd", 2, 512, 512, 8, 2, 128, True, True, 200),
     ("onepass_fwd", 2, 384, 384, 4, 4, 72, False, False, 130),
@@ -185,6 +186,22 @@ KERNEL_CASES = [
     ("flash_fwd", 2, 640, 640, 4, 4, 64, False, False, 0, ((577, 640),)),
     ("onepass_fwd", 2, 384, 384, 4, 4, 64, False, False, 70),
     ("flash_fwd", 2, 500, 500, 4, 4, 64, True, True, 77),
+    # D64 and D80 run one warpgroup of 64 rows per CTA and end the sweep at the batch's
+    # last attendable key where every row may drop the tiles past it: a last CTA of
+    # ragged rows with the first two key tiles and the last two wholly masked; causal
+    # without lse_u, where the CTAs before a batch's first key keep every tile; the
+    # sweep ended under flash_fwd's diagonal; a batch with no attendable key at all
+    # (nothing to end at: left padding over every key); causal with lse_u under flash_fwd
+    ("onepass_fwd", 2, 200, 384, 4, 4, 80, False, False, 130, ((257, 384),)),
+    ("flash_fwd", 2, 200, 384, 4, 4, 80, False, False, 130, ((257, 384),)),
+    ("onepass_fwd", 2, 333, 333, 4, 4, 80, True, False, 150),
+    ("onepass_fwd", 2, 200, 333, 8, 2, 80, False, False, 333),
+    ("flash_fwd", 2, 500, 500, 4, 4, 80, True, True, 77),
+    ("onepass_fwd", 2, 200, 640, 4, 4, 64, False, False, 130, ((577, 640),)),
+    ("flash_fwd", 2, 200, 640, 4, 4, 64, False, False, 130, ((577, 640),)),
+    ("onepass_fwd", 2, 333, 333, 4, 4, 64, True, False, 150),
+    ("flash_fwd", 2, 1000, 1000, 4, 4, 64, True, False, 300),
+    ("onepass_fwd", 2, 200, 333, 8, 2, 64, False, False, 333),
 ]
 
 
@@ -245,7 +262,7 @@ def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
         D, ctypes.byref(block_m), ctypes.byref(group_rows), ctypes.byref(block_n))
     assert rc == 0
     assert (block_m.value, group_rows.value, block_n.value) == (
-        tfa.TILE_BLOCK_M, tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
+        tfa.TILE_BLOCK_M[D], tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
 
 
 # (B, T, S, H, Hkv, causal, need_unmasked, left_pad[, zero key spans]); head dim 128
