@@ -616,6 +616,7 @@ def decoder_forward(
     ATTN_PATH_LOG.append(selected + "+prefix" if prefix_merge else selected)
     if prompt_quant:
         ATTN_PATH_LOG.append("quant_kv")  # once per call, as JAX logs it once per trace
+    del ATTN_PATH_LOG[:-ATTN_PATH_LOG_MAX]
     use_flash = selected == "flash"
     layer_key_mask = key_mask[:, :T] if (use_cache and cache_empty) else key_mask
     drop = dropout_generator is not None and lora_dropout > 0.0 and bool(adapters)
@@ -780,8 +781,10 @@ def decoder_forward(
 # ---------------------------------------------------------------------------
 
 # log of the attention path each decoder_forward call selected — tests and the
-# chip smoke run assert which implementation actually ran
+# chip smoke run assert which implementation actually ran; every call appends,
+# so it keeps only the newest ATTN_PATH_LOG_MAX entries
 ATTN_PATH_LOG: list = []
+ATTN_PATH_LOG_MAX = 1024
 
 
 def select_attn_path(

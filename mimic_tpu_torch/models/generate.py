@@ -40,6 +40,7 @@ from ..bridge import tree_leaves
 from ..ops.decode_attention import quantize_prompt_kv
 from .config import ModelConfig
 from ..shift.prefix import prefix_forward_args, prefix_len
+from ..utils.tracing import span
 from .decoder import holds_handles, init_kv_cache
 from .lvlm import LVLMBatch, encode_images, lvlm_forward
 
@@ -100,37 +101,40 @@ def _prefill(
 
     Returns (last_logits [B,V], cache with the prompt written, image_feats),
     the image features for the decode steps to reuse (``image_feats`` as
-    given, else encoded from ``batch.pixel_values``).
+    given, else encoded from ``batch.pixel_values``).  Runs in the
+    ``generate.prefill`` span; each decode step's forward runs in a
+    ``generate.decode_step`` span.
     """
-    B, T = batch.input_ids.shape
-    if image_feats is None and batch.pixel_values is not None:
-        image_feats = encode_images(
-            params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
+    with span("generate.prefill"):
+        B, T = batch.input_ids.shape
+        if image_feats is None and batch.pixel_values is not None:
+            image_feats = encode_images(
+                params, cfg, batch.pixel_values, batch.patch_mask, attn_impl=attn_impl
+            )
+        if prefix is None:
+            cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype,
+                                  handles=handles)
+            extra = dict(kv_cache=cache, cache_empty=True)
+        else:
+            P = prefix_len(prefix)
+            batch, pos, cache, _ = prefix_forward_args(
+                prefix, batch, dtype, extra_len=total_len - P - T, handles=handles
+            )
+            extra = dict(kv_cache=cache, position_ids=pos, prefix_flash_len=P)
+        out = lvlm_forward(
+            params, cfg, batch,
+            image_feats=image_feats,
+            kv_total_len=total_len,
+            shift=shift,
+            adapters=adapters,
+            lora_scaling=lora_scaling,
+            logz2=logz2,
+            attn_impl=attn_impl,
+            last_logit_only=True,
+            **extra,
         )
-    if prefix is None:
-        cache = init_kv_cache(cfg.text, B, total_len, batch.input_ids.device, dtype,
-                              handles=handles)
-        extra = dict(kv_cache=cache, cache_empty=True)
-    else:
-        P = prefix_len(prefix)
-        batch, pos, cache, _ = prefix_forward_args(
-            prefix, batch, dtype, extra_len=total_len - P - T, handles=handles
-        )
-        extra = dict(kv_cache=cache, position_ids=pos, prefix_flash_len=P)
-    out = lvlm_forward(
-        params, cfg, batch,
-        image_feats=image_feats,
-        kv_total_len=total_len,
-        shift=shift,
-        adapters=adapters,
-        lora_scaling=lora_scaling,
-        logz2=logz2,
-        attn_impl=attn_impl,
-        last_logit_only=True,
-        **extra,
-    )
-    # left padding → the last position is the prompt end
-    return out.logits[:, -1], out.decoder.kv_cache, image_feats
+        # left padding → the last position is the prompt end
+        return out.logits[:, -1], out.decoder.kv_cache, image_feats
 
 
 @torch.no_grad()
@@ -170,17 +174,18 @@ def greedy_generate(
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
         mask_full[:, P + T + i] = 1
-        out = lvlm_forward(
-            dparams, cfg,
-            LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
-            image_feats=image_feats,
-            position_ids=(n_real + P + i)[:, None],
-            kv_cache=cache,
-            kv_total_len=total,
-            shift=shift,
-            logz2=logz2,
-            **lora,
-        )
+        with span("generate.decode_step"):
+            out = lvlm_forward(
+                dparams, cfg,
+                LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
+                image_feats=image_feats,
+                position_ids=(n_real + P + i)[:, None],
+                kv_cache=cache,
+                kv_total_len=total,
+                shift=shift,
+                logz2=logz2,
+                **lora,
+            )
         cache = out.decoder.kv_cache
         finished = finished | (tok == eos_token_id)
         toks.append(tok)
@@ -298,58 +303,61 @@ def beam_generate(
 
     for i in range(1, max_new_tokens):
         mask_full[:, Tq + i - 1] = 1
-        out = lvlm_forward(
-            dparams, cfg,
-            LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full,
-                      **images),
-            image_feats=image_feats,
-            position_ids=(n_real + P + i - 1)[:, None],
-            kv_cache=cache,
-            kv_total_len=total,
-            shift=shift,
-            logz2=logz2,
-            **lora,
-        )
-        logprobs = F.log_softmax(out.logits[:, -1].float(), dim=-1).reshape(B, K, V)
-        cand = torch.where(alive[..., None], scores[..., None] + logprobs, NEG)
-        top_scores, top_flat = _top_k(cand.reshape(B, K * V), 2 * K)  # [B,2K]
-        parent = top_flat // V
-        tok = top_flat % V
+        with span("generate.decode_step"):
+            out = lvlm_forward(
+                dparams, cfg,
+                LVLMBatch(input_ids=last_tok.reshape(B * K)[:, None], attention_mask=mask_full,
+                          **images),
+                image_feats=image_feats,
+                position_ids=(n_real + P + i - 1)[:, None],
+                kv_cache=cache,
+                kv_total_len=total,
+                shift=shift,
+                logz2=logz2,
+                **lora,
+            )
+        with span("generate.beam"):
+            logprobs = F.log_softmax(out.logits[:, -1].float(), dim=-1).reshape(B, K, V)
+            cand = torch.where(alive[..., None], scores[..., None] + logprobs, NEG)
+            top_scores, top_flat = _top_k(cand.reshape(B, K * V), 2 * K)  # [B,2K]
+            parent = top_flat // V
+            tok = top_flat % V
 
-        # the K running beams are the top K non-EOS among the 2K candidates
-        is_eos_cand = tok == eos_token_id
-        _, keep_idx = _top_k(torch.where(is_eos_cand, NEG, top_scores), K)
-        run_parent = torch.gather(parent, 1, keep_idx)
-        run_tok = torch.gather(tok, 1, keep_idx)
-        run_scores = torch.gather(top_scores, 1, keep_idx)
-        run_alive = run_scores > NEG / 2
+            # the K running beams are the top K non-EOS among the 2K candidates
+            is_eos_cand = tok == eos_token_id
+            _, keep_idx = _top_k(torch.where(is_eos_cand, NEG, top_scores), K)
+            run_parent = torch.gather(parent, 1, keep_idx)
+            run_tok = torch.gather(tok, 1, keep_idx)
+            run_scores = torch.gather(top_scores, 1, keep_idx)
+            run_alive = run_scores > NEG / 2
 
-        # EOS candidates finish directly (their sequence = parent's tokens + EOS)
-        eos_tokens = _take_rows(tokens, parent)
-        eos_tokens[:, :, i] = eos_token_id
-        eos_len = torch.gather(lengths, 1, parent) + 1
-        eos_pen = torch.where(is_eos_cand, top_scores, NEG) / (eos_len.float() ** length_penalty)
-        eos_pen = torch.where(is_eos_cand, eos_pen, NEG)
-        fin_scores, fin_idx = _top_k(torch.cat([fin_scores, eos_pen], dim=1), K)
-        fin_tokens = _take_rows(torch.cat([fin_tokens, eos_tokens], dim=1), fin_idx)
+            # EOS candidates finish directly (their sequence = parent's tokens + EOS)
+            eos_tokens = _take_rows(tokens, parent)
+            eos_tokens[:, :, i] = eos_token_id
+            eos_len = torch.gather(lengths, 1, parent) + 1
+            eos_pen = (torch.where(is_eos_cand, top_scores, NEG)
+                       / (eos_len.float() ** length_penalty))
+            eos_pen = torch.where(is_eos_cand, eos_pen, NEG)
+            fin_scores, fin_idx = _top_k(torch.cat([fin_scores, eos_pen], dim=1), K)
+            fin_tokens = _take_rows(torch.cat([fin_tokens, eos_tokens], dim=1), fin_idx)
 
-        # reorder the running state by parent beam; only the generated region
-        # of the cache is per-beam, the shared prompt region never moves
-        tokens = _take_rows(tokens, run_parent)
-        tokens[:, :, i] = run_tok
-        flat_parent = (torch.arange(B, device=dev)[:, None] * K + run_parent).reshape(B * K)
-        step_cache = out.decoder.kv_cache
-        cache = {
-            "prompt_k": step_cache["prompt_k"],
-            "prompt_v": step_cache["prompt_v"],
-            "k": step_cache["k"].index_select(1, flat_parent),
-            "v": step_cache["v"].index_select(1, flat_parent),
-            "length": step_cache["length"],
-        }
-        lengths = torch.gather(lengths, 1, run_parent) + 1
-        last_tok = run_tok
-        scores = torch.where(run_alive, run_scores, NEG)
-        alive = run_alive
+            # reorder the running state by parent beam; only the generated region
+            # of the cache is per-beam, the shared prompt region never moves
+            tokens = _take_rows(tokens, run_parent)
+            tokens[:, :, i] = run_tok
+            flat_parent = (torch.arange(B, device=dev)[:, None] * K + run_parent).reshape(B * K)
+            step_cache = out.decoder.kv_cache
+            cache = {
+                "prompt_k": step_cache["prompt_k"],
+                "prompt_v": step_cache["prompt_v"],
+                "k": step_cache["k"].index_select(1, flat_parent),
+                "v": step_cache["v"].index_select(1, flat_parent),
+                "length": step_cache["length"],
+            }
+            lengths = torch.gather(lengths, 1, run_parent) + 1
+            last_tok = run_tok
+            scores = torch.where(run_alive, run_scores, NEG)
+            alive = run_alive
 
     # close out still-running beams at max length
     run_pen = torch.where(alive, scores / (lengths.float() ** length_penalty), NEG)
@@ -444,17 +452,18 @@ def sample_generate(
     for i in range(max_new_tokens):
         tok = torch.where(finished, pad_token_id, tok)
         mask_full[:, P + T + i] = 1
-        out = lvlm_forward(
-            dparams, cfg,
-            LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
-            image_feats=image_feats,
-            position_ids=(n_real + P + i)[:, None],
-            kv_cache=cache,
-            kv_total_len=total,
-            shift=shift,
-            logz2=logz2,
-            **lora,
-        )
+        with span("generate.decode_step"):
+            out = lvlm_forward(
+                dparams, cfg,
+                LVLMBatch(input_ids=tok[:, None], attention_mask=mask_full, **images),
+                image_feats=image_feats,
+                position_ids=(n_real + P + i)[:, None],
+                kv_cache=cache,
+                kv_total_len=total,
+                shift=shift,
+                logz2=logz2,
+                **lora,
+            )
         cache = out.decoder.kv_cache
         finished = finished | (tok == eos_token_id)
         toks.append(tok)

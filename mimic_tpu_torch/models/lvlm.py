@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.decode_attention import prompt_kv_len
+from ..utils.tracing import count, span
 from .config import ModelConfig
 from .decoder import make_causal_mask, positions_from_mask
 from .lm import LMOutput, embed_tokens, init_lm_params, lm_forward
@@ -78,36 +79,39 @@ def encode_images(
 ) -> torch.Tensor:
     """pixel_values [B,N,H,W,C] → image tokens [B, N*S, D_text] (idefics2:
     S latents; llava: S patches), or cross-attention states [B, N*latents,
-    D_vision] (idefics1)."""
+    D_vision] (idefics1).  Counts the B*N rows the tower runs on as
+    ``images_encoded``, inside the ``lvlm.encode_images`` span."""
     _check_family(cfg)
     B, N = pixel_values.shape[:2]
-    flat = pixel_values.reshape((B * N,) + tuple(pixel_values.shape[2:]))
-    flat_patch = (
-        patch_mask.reshape((B * N,) + tuple(patch_mask.shape[2:]))
-        if patch_mask is not None
-        else None
-    )
-    feats = vit_forward(
-        params["vision"], cfg.vision, flat, patch_mask=flat_patch, attn_impl=attn_impl
-    )
-    ctx_mask = flat_patch.reshape(B * N, -1) if flat_patch is not None else None
-    if cfg.family == "idefics2":
-        feats = perceiver_forward(
-            params["connector"], cfg.perceiver, feats,
-            norm_eps=cfg.text.norm_eps, context_mask=ctx_mask,
+    count("images_encoded", B * N)
+    with span("lvlm.encode_images"):
+        flat = pixel_values.reshape((B * N,) + tuple(pixel_values.shape[2:]))
+        flat_patch = (
+            patch_mask.reshape((B * N,) + tuple(patch_mask.shape[2:]))
+            if patch_mask is not None
+            else None
         )
-    elif cfg.family == "idefics1":
-        # HF IdeficsPerceiverResampler uses torch's LayerNorm default eps 1e-5
-        feats = perceiver_forward(
-            params["perceiver"], cfg.perceiver, feats, norm_eps=1e-5, context_mask=ctx_mask,
+        feats = vit_forward(
+            params["vision"], cfg.vision, flat, patch_mask=flat_patch, attn_impl=attn_impl
         )
-    else:
-        if cfg.vision.use_class_token:
-            # llava-1.5: vision_feature_select_strategy="default" drops the class token
-            feats = feats[:, 1:]
-        feats = llava_project(params["projector"], feats)
-    S = feats.shape[1]
-    return feats.reshape(B, N * S, feats.shape[-1])
+        ctx_mask = flat_patch.reshape(B * N, -1) if flat_patch is not None else None
+        if cfg.family == "idefics2":
+            feats = perceiver_forward(
+                params["connector"], cfg.perceiver, feats,
+                norm_eps=cfg.text.norm_eps, context_mask=ctx_mask,
+            )
+        elif cfg.family == "idefics1":
+            # HF IdeficsPerceiverResampler uses torch's LayerNorm default eps 1e-5
+            feats = perceiver_forward(
+                params["perceiver"], cfg.perceiver, feats, norm_eps=1e-5, context_mask=ctx_mask,
+            )
+        else:
+            if cfg.vision.use_class_token:
+                # llava-1.5: vision_feature_select_strategy="default" drops the class token
+                feats = feats[:, 1:]
+            feats = llava_project(params["projector"], feats)
+        S = feats.shape[1]
+        return feats.reshape(B, N * S, feats.shape[-1])
 
 
 def splice_image_embeds(

@@ -13,6 +13,7 @@ passed into every forward.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -26,8 +27,9 @@ from ..data.templates import apply_prompt_template as render_template
 from .config import ModelConfig
 from .feature_cache import VisionFeatureCache, image_key
 from .generate import beam_generate, greedy_generate, sample_generate
+from ..utils.tracing import count, span
 from .lvlm import PORTED_FAMILIES, LVLMBatch
-from .processor import LVLMProcessor
+from .processor import ImageProcessor, LVLMProcessor
 
 # the prompt template of each family (JAX runner.py's table)
 _FAMILY_TEMPLATE = {
@@ -37,6 +39,29 @@ _FAMILY_TEMPLATE = {
     # text-only towers (the reference's mistral / qwen2 wrappers) use the ChatML template
     "text": "llava-interleave",
 }
+
+
+class _SpannedImageProcessor(ImageProcessor):
+    """The copy's image processor with each resize in a ``processor.resize`` span."""
+
+    def _resize(self, arr: np.ndarray, h: int, w: int) -> np.ndarray:
+        with span("processor.resize", device=False):
+            return super()._resize(arr, h, w)
+
+
+class _SpannedProcessor(LVLMProcessor):
+    """``LVLMProcessor`` (a held copy of the JAX package's, left as it is) with
+    its image work (resize, rescale, normalise, padding, stacking) in a
+    ``processor.images`` span and each resize in a ``processor.resize`` span;
+    its outputs are the copy's."""
+
+    def __init__(self, cfg: ModelConfig, tokenizer, image_size: Optional[int] = None):
+        super().__init__(cfg, tokenizer, image_size=image_size)
+        self.image_processor = _SpannedImageProcessor(**dataclasses.asdict(self.image_processor))
+
+    def _process_images(self, batch_images, max_images):
+        with span("processor.images", device=False):
+            return super()._process_images(batch_images, max_images)
 
 
 def _round_up(n: int, m: int) -> int:
@@ -102,7 +127,7 @@ class LVLMRunner:
             self.set_quant(quant)
         self.tokenizer = tokenizer
         self.template = _FAMILY_TEMPLATE[cfg.family]
-        self.processor = LVLMProcessor(cfg, tokenizer, image_size=image_size)
+        self.processor = _SpannedProcessor(cfg, tokenizer, image_size=image_size)
         self.shift = None
         self.adapters = None
         self.lora_scaling = 1.0
@@ -203,7 +228,10 @@ class LVLMRunner:
 
     def _to_batch(self, enc: Dict[str, np.ndarray], pixels: bool = True) -> LVLMBatch:
         def t(name):
-            return torch.from_numpy(enc[name]).to(self.device) if name in enc else None
+            if name not in enc:
+                return None
+            count("host_syncs")  # on a card, a blocking copy from pageable memory
+            return torch.from_numpy(enc[name]).to(self.device)
 
         return LVLMBatch(
             input_ids=t("input_ids").long(),
@@ -273,61 +301,67 @@ class LVLMRunner:
         the pixels of a hit never reach the device.  ``do_sample=True``
         samples (``temperature``, ``top_k``, ``top_p``) from a
         ``torch.Generator`` on the runner's device seeded with ``seed``;
-        ``num_beams`` is then ignored, as in the JAX runner.
+        ``num_beams`` is then ignored, as in the JAX runner.  The call is
+        the root of an ``eval.generate`` span; the processor's two calls run
+        in ``processor.probe`` and ``processor.encode`` spans.
         """
-        old_side = self.tokenizer.padding_side
-        self.tokenizer.padding_side = "left"
-        try:
-            rendered = (
-                text
-                if isinstance(text, str)
-                or (isinstance(text, list) and text and isinstance(text[0], str))
-                else self.apply_prompt_template(text)
-            )
-            # the padded width depends on the text alone: probe without images
-            T = self.processor(None, rendered)["input_ids"].shape[1]
-            pad_to = _round_up(T, self.pad_multiple)
-            fitting = [b for b in self.length_buckets if b >= T]
-            if fitting:
-                pad_to = min(fitting)
-            enc = self.processor(images, rendered, pad_to=pad_to)
-        finally:
-            self.tokenizer.padding_side = old_side
+        with span("eval.generate"):
+            old_side = self.tokenizer.padding_side
+            self.tokenizer.padding_side = "left"
+            try:
+                rendered = (
+                    text
+                    if isinstance(text, str)
+                    or (isinstance(text, list) and text and isinstance(text[0], str))
+                    else self.apply_prompt_template(text)
+                )
+                # the padded width depends on the text alone: probe without images
+                with span("processor.probe", device=False):
+                    T = self.processor(None, rendered)["input_ids"].shape[1]
+                pad_to = _round_up(T, self.pad_multiple)
+                fitting = [b for b in self.length_buckets if b >= T]
+                if fitting:
+                    pad_to = min(fitting)
+                with span("processor.encode", device=False):
+                    enc = self.processor(images, rendered, pad_to=pad_to)
+            finally:
+                self.tokenizer.padding_side = old_side
 
-        attn_impl = "flash" if self.device.type == "cuda" else "xla"
-        image_feats = None
-        use_cache = self.vision_cache is not None and "pixel_values" in enc
-        if use_cache:
-            image_feats = self.vision_cache.get_features(
-                self.params, self.cfg, enc["pixel_values"], enc.get("patch_mask"),
-                self._image_cache_keys(images, enc), attn_impl=attn_impl,
+            attn_impl = "flash" if self.device.type == "cuda" else "xla"
+            image_feats = None
+            use_cache = self.vision_cache is not None and "pixel_values" in enc
+            if use_cache:
+                image_feats = self.vision_cache.get_features(
+                    self.params, self.cfg, enc["pixel_values"], enc.get("patch_mask"),
+                    self._image_cache_keys(images, enc), attn_impl=attn_impl,
+                )
+            batch = self._to_batch(enc, pixels=not use_cache)
+            common = dict(
+                max_new_tokens=max_new_tokens,
+                eos_token_id=self.tokenizer.eos_token_id,
+                pad_token_id=self.tokenizer.pad_token_id,
+                shift=self.shift,
+                adapters=self.adapters,
+                lora_scaling=self.lora_scaling,
+                prefix=self.prefix,
+                logz2=self.logz2,
+                attn_impl=attn_impl,
+                decode_params=self.decode_params,
+                image_feats=image_feats,
             )
-        batch = self._to_batch(enc, pixels=not use_cache)
-        common = dict(
-            max_new_tokens=max_new_tokens,
-            eos_token_id=self.tokenizer.eos_token_id,
-            pad_token_id=self.tokenizer.pad_token_id,
-            shift=self.shift,
-            adapters=self.adapters,
-            lora_scaling=self.lora_scaling,
-            prefix=self.prefix,
-            logz2=self.logz2,
-            attn_impl=attn_impl,
-            decode_params=self.decode_params,
-            image_feats=image_feats,
-        )
-        if do_sample:
-            generator = torch.Generator(device=self.device).manual_seed(seed)
-            result = sample_generate(
-                self.params, self.cfg, batch, generator=generator,
-                temperature=temperature, top_k=top_k, top_p=top_p, **common,
-            )
-        elif num_beams > 1:
-            result = beam_generate(
-                self.params, self.cfg, batch, num_beams=num_beams,
-                length_penalty=length_penalty, **common,
-            )
-        else:
-            result = greedy_generate(self.params, self.cfg, batch, **common)
-        tokens = result.tokens.cpu().numpy()
-        return [self.tokenizer.decode(row, skip_special_tokens=True) for row in tokens]
+            if do_sample:
+                generator = torch.Generator(device=self.device).manual_seed(seed)
+                result = sample_generate(
+                    self.params, self.cfg, batch, generator=generator,
+                    temperature=temperature, top_k=top_k, top_p=top_p, **common,
+                )
+            elif num_beams > 1:
+                result = beam_generate(
+                    self.params, self.cfg, batch, num_beams=num_beams,
+                    length_penalty=length_penalty, **common,
+                )
+            else:
+                result = greedy_generate(self.params, self.cfg, batch, **common)
+            count("host_syncs")  # the tokens read back
+            tokens = result.tokens.cpu().numpy()
+            return [self.tokenizer.decode(row, skip_special_tokens=True) for row in tokens]

@@ -28,6 +28,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def _global(count: torch.Tensor, group) -> torch.Tensor:
     """``count`` summed over ``group`` (no gradient flows through a count)."""
@@ -62,6 +64,7 @@ def layer_wise_mse(
     L, _, _, D = s.shape
     counts = valid.bool().sum(1).clamp_min(1)                       # [B]
     per_sample = per_sample / (L * counts * D)
+    tracing.count("host_syncs")  # the row count copied to the device
     return per_sample.sum() / _global(per_sample.new_tensor(per_sample.shape[0]), group)
 
 
@@ -84,6 +87,7 @@ def layer_wise_cos(
     cos = torch.where(valid.bool()[None], cos, 0.0)
     counts = valid.bool().sum(1).clamp_min(1)                       # [B]
     mean_t = cos.sum(2) / counts[None]                              # [L,B]
+    tracing.count("host_syncs")  # the row count copied to the device
     return (1.0 - mean_t).sum() / _global(mean_t.new_tensor(mean_t.numel()), group)
 
 

@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
+
 Tree = Dict[str, Any]
 
 
@@ -141,6 +143,7 @@ def build_optimizer(
         g = {p: x.float() for p, x in grads.items()}
         if grad_clip:
             norm = torch.sqrt(sum(torch.sum(x**2) for x in g.values()))
+            tracing.count("host_syncs")  # the clip's branch reads the norm back
             if not bool(norm < grad_clip):
                 g = {p: (x / norm) * grad_clip for p, x in g.items()}
         count = state["count"]
@@ -149,6 +152,7 @@ def build_optimizer(
         bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** count_inc
         mu, nu, updates = {}, {}, {}
         for p, x in g.items():
+            tracing.count("host_syncs", 2)  # bc1 and bc2 copied to the leaf's device
             mu[p] = (1 - b1) * x + b1 * state["mu"][p]
             nu[p] = (1 - b2) * x**2 + b2 * state["nu"][p]
             u = (mu[p] / bc1.to(x.device)) / (torch.sqrt(nu[p] / bc2.to(x.device)) + eps)

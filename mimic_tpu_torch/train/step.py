@@ -35,6 +35,7 @@ from ..models.lvlm import LVLMBatch, lvlm_forward
 from ..parallel.mesh import axis_group, current_mesh
 from ..shift.params import multi_head, needs_attn_capture, needs_ffn_capture
 from ..shift.prefix import prefix_forward_args
+from ..utils.tracing import count, span
 from .losses import layer_wise_cos, layer_wise_mse, lm_cross_entropy, logits_kl
 from .optim import Optimizer, apply_updates, flatten, global_norm, unflatten
 
@@ -44,7 +45,8 @@ Tree = Dict[str, Any]
 def to_device_batch(tb, device) -> Dict[str, torch.Tensor]:
     """numpy ``TrainBatch`` → dict of tensors on ``device`` (non-None leaves;
     ``*_image_keys`` are host-side cache keys and stay out).  Token ids and
-    gather indices become int64 for indexing."""
+    gather indices become int64 for indexing.  Each tensor's copy is counted
+    in ``host_syncs``: on a card it blocks the host (pageable memory)."""
     out = {}
     for k, v in vars(tb).items():
         if v is None or k.endswith("_image_keys"):
@@ -52,6 +54,7 @@ def to_device_batch(tb, device) -> Dict[str, torch.Tensor]:
         t = torch.from_numpy(np.ascontiguousarray(v))
         if k.endswith("_ids") or k.endswith("_idx"):
             t = t.long()
+        count("host_syncs")
         out[k] = t.to(device)
     return out
 
@@ -113,7 +116,7 @@ def compute_loss(
     if strategy != Strategy.LM_LOSS:
         # record pass: frozen weights, no shift, no graph; only the KL
         # strategies read its logits, the others unembed the last row only
-        with torch.no_grad():
+        with torch.no_grad(), span("train.record_pass"):
             out1 = lvlm_forward(
                 frozen, cfg, _full_lvlm_batch(batch),
                 image_feats=batch.get("full_feats"),
@@ -127,59 +130,60 @@ def compute_loss(
         prefix_attn = out1.decoder.attn_capture
         prefix_ffn = out1.decoder.ffn_capture
 
-    qb = _query_lvlm_batch(batch)
-    prefix_kwargs = {}
-    if prefix is not None:
-        # the learned KV rides as a pre-written cache of length P and the
-        # forward takes the cached attention: every query attends the P slots,
-        # causal within the real block (HF past_key_values semantics)
-        qb, pos, cache, total = prefix_forward_args(prefix, qb, _param_dtype(frozen))
-        prefix_kwargs = dict(position_ids=pos, kv_cache=cache, kv_total_len=total)
-    out2 = lvlm_forward(
-        frozen, cfg, qb,
-        image_feats=batch.get("query_feats"),
-        shift=shift, adapters=lora, lora_scaling=lora_scaling,
-        lora_dropout=lora_dropout, dropout_generator=dropout_generator,
-        multi_head=mh, capture_attn=rec_attn, capture_ffn=rec_ffn,
-        logz2=logz2, attn_impl=attn_impl, remat=shift_remat, **prefix_kwargs, **ring_kwargs,
-        capture_gather_idx=batch.get("shift_q_idx") if layer_wise else None,
-    )
-
-    if Strategy.LM_LOSS in strategy:
-        ce = lm_cross_entropy(out2.logits, batch["query_ids"], batch["query_mask"],
-                              group=data_group)
-        metrics["ce_loss"] = ce
-        w = 1.0 if strategy == Strategy.LM_LOSS else ce_loss_weight
-        loss = loss + w * ce
-
-    if layer_wise:
-        mse = Strategy.LAYER_WISE_MSE in strategy
-        loss_fn = layer_wise_mse if mse else layer_wise_cos
-        suffix = "mse_loss" if mse else "cos_sim"
-        align = torch.zeros_like(loss)
-        for name, shift_cap, prefix_cap in (
-            ("attn", out2.decoder.attn_capture, prefix_attn),
-            ("ffn", out2.decoder.ffn_capture, prefix_ffn),
-        ):
-            if shift_cap is None or prefix_cap is None:
-                continue
-            # the captures are already gathered at the query tokens
-            M = shift_cap.shape[2]
-            ident = torch.arange(M, device=shift_cap.device)[None].expand(shift_cap.shape[1], M)
-            part = loss_fn(shift_cap, prefix_cap, ident, ident, batch["q_valid"],
-                           group=data_group)
-            metrics[f"{name}_{suffix}"] = part
-            align = align + part
-        loss = loss + align_loss_weight * align
-
-    if Strategy.LOGITS_KL_DIV in strategy:
-        kl = logits_kl(
-            out2.logits, prefix_logits,
-            batch["query_ans_idx"], batch["prefix_ans_idx"], batch["ans_valid"],
-            group=data_group,
+    with span("train.shift_forward"):
+        qb = _query_lvlm_batch(batch)
+        prefix_kwargs = {}
+        if prefix is not None:
+            # the learned KV rides as a pre-written cache of length P and the
+            # forward takes the cached attention: every query attends the P slots,
+            # causal within the real block (HF past_key_values semantics)
+            qb, pos, cache, total = prefix_forward_args(prefix, qb, _param_dtype(frozen))
+            prefix_kwargs = dict(position_ids=pos, kv_cache=cache, kv_total_len=total)
+        out2 = lvlm_forward(
+            frozen, cfg, qb,
+            image_feats=batch.get("query_feats"),
+            shift=shift, adapters=lora, lora_scaling=lora_scaling,
+            lora_dropout=lora_dropout, dropout_generator=dropout_generator,
+            multi_head=mh, capture_attn=rec_attn, capture_ffn=rec_ffn,
+            logz2=logz2, attn_impl=attn_impl, remat=shift_remat, **prefix_kwargs, **ring_kwargs,
+            capture_gather_idx=batch.get("shift_q_idx") if layer_wise else None,
         )
-        metrics["logits_kl_loss"] = kl
-        loss = loss + align_loss_weight * kl
+
+        if Strategy.LM_LOSS in strategy:
+            ce = lm_cross_entropy(out2.logits, batch["query_ids"], batch["query_mask"],
+                                  group=data_group)
+            metrics["ce_loss"] = ce
+            w = 1.0 if strategy == Strategy.LM_LOSS else ce_loss_weight
+            loss = loss + w * ce
+
+        if layer_wise:
+            mse = Strategy.LAYER_WISE_MSE in strategy
+            loss_fn = layer_wise_mse if mse else layer_wise_cos
+            suffix = "mse_loss" if mse else "cos_sim"
+            align = torch.zeros_like(loss)
+            for name, shift_cap, prefix_cap in (
+                ("attn", out2.decoder.attn_capture, prefix_attn),
+                ("ffn", out2.decoder.ffn_capture, prefix_ffn),
+            ):
+                if shift_cap is None or prefix_cap is None:
+                    continue
+                # the captures are already gathered at the query tokens
+                M = shift_cap.shape[2]
+                ident = torch.arange(M, device=shift_cap.device)[None].expand(shift_cap.shape[1], M)
+                part = loss_fn(shift_cap, prefix_cap, ident, ident, batch["q_valid"],
+                               group=data_group)
+                metrics[f"{name}_{suffix}"] = part
+                align = align + part
+            loss = loss + align_loss_weight * align
+
+        if Strategy.LOGITS_KL_DIV in strategy:
+            kl = logits_kl(
+                out2.logits, prefix_logits,
+                batch["query_ans_idx"], batch["prefix_ans_idx"], batch["ans_valid"],
+                group=data_group,
+            )
+            metrics["logits_kl_loss"] = kl
+            loss = loss + align_loss_weight * kl
 
     metrics["loss"] = loss
     return loss, metrics
@@ -262,7 +266,7 @@ def make_train_step(
             return axis_group(mesh, "data")
         return axis_group(ring_mesh, ring_batch_axis) if ring_batch_axis else None
 
-    def step_fn(state: TrainState, frozen: Tree, batch: Dict[str, Any]):
+    def step(state: TrainState, frozen: Tree, batch: Dict[str, Any]):
         live = {p: x.detach().requires_grad_(True) for p, x in flatten(state.trainable).items()}
         generator = None
         if lora_dropout > 0.0:
@@ -273,7 +277,8 @@ def make_train_step(
             loss, metrics = compute_loss(unflatten(live), frozen, batch,
                                          dropout_generator=generator, data_group=group,
                                          **loss_kwargs)
-            raw = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
+            with span("train.backward"):
+                raw = torch.autograd.grad(loss, list(live.values()), allow_unused=True)
         flat = {p: torch.zeros_like(x) if g is None else g for (p, x), g in zip(live.items(), raw)}
         metrics = {k: v.detach().clone() for k, v in metrics.items()}
         if group is not None:
@@ -281,9 +286,14 @@ def make_train_step(
             for t in (*flat.values(), *metrics.values()):
                 dist.all_reduce(t, group=group)
         grads = unflatten(flat)
-        updates, opt_state = optimizer.update(grads, state.opt_state, state.trainable)
-        trainable = apply_updates(state.trainable, updates)
-        metrics["grad_norm"] = global_norm(grads)
+        with span("train.optimizer"):
+            updates, opt_state = optimizer.update(grads, state.opt_state, state.trainable)
+            trainable = apply_updates(state.trainable, updates)
+            metrics["grad_norm"] = global_norm(grads)
         return TrainState(trainable, opt_state, state.step + 1), metrics
+
+    def step_fn(state: TrainState, frozen: Tree, batch: Dict[str, Any]):
+        with span("train.step"):
+            return step(state, frozen, batch)
 
     return step_fn
