@@ -24,7 +24,11 @@ Phases (any failure propagates: non-zero exit, no result line):
              then the CLIP towers' rows (idefics-9b's at head dim 80,
              llava-1.5's at 64) as device time through CUDA graphs, onepass_fwd
              through its wrapper and scaled_dot_product_attention in turns,
-             beside the bound.
+             beside the bound; then the row-norm kernel (ops/norms.py) at the
+             idefics2-8b train step's rows (NORM_SHAPES): within one bf16 ulp
+             of its plain version, the share of elements bit-equal, its device
+             time through CUDA graphs beside the plain version's, the bound of
+             its bytes and F.layer_norm / F.rms_norm (the yardstick).
 3. slice   — a tiny idefics2 in fp32 (ViT head dim 72, text head dim 128): the
              serving path through the kernels on the card must give the beam-3
              tokens of the plain path on the CPU, and prefill logits within 1e-4;
@@ -322,6 +326,7 @@ The next-to-last line is {"kernels": [...]}, the last {"ok": true, "device": ...
 Without a CUDA card the script exits non-zero and prints no result.
 
     python3 chip_smoke.py --eval-only   # phase 11 alone, while working on it: exit 3, no result line
+    python3 chip_smoke.py --norms-only  # build and phase 2's row-norm kernel: exit 3, no result line
     python3 chip_smoke.py --idefics1-only  # build, phase 2's head-dim-80 cases, the CLIP rows'
                                            # device times and phase 14: exit 3, no result line
     python3 chip_smoke.py --llava-only     # build, phase 2's head-dim-64 cases, the CLIP rows'
@@ -462,6 +467,16 @@ KERNEL_META = {
         "replaces": "mimic_tpu/ops/quant.py:370",
     },
 }
+# the kernels line: KERNEL_META's kernels, whose launches ``_counts()`` reports on
+# every path, and the row-norm kernel, counted on phase 4's serving path alone.  Not
+# a Pallas kernel: the port's form of the XLA fusions of both norms (the vision
+# towers' and connectors' calls)
+RESULT_META = {**KERNEL_META, "row_norm": {
+    "route": "cuda",
+    "source": "mimic_tpu_torch/ops/csrc/row_norm.cu",
+    "replaces": "mimic_tpu/models/layers.py:28",
+    "also_replaces": ["mimic_tpu/models/layers.py:20"],
+}}
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s and tensor-core operations/s by input type.
@@ -882,6 +897,80 @@ def ptxas_lines(info: dict, kernels, strict_sources=(), strict_kernels=()) -> No
     bad = [x for x in lines if "Performance Loss" in x and any(k in x for k in strict_kernels)]
     if bad:
         raise AssertionError(f"ptxas serializes {strict_kernels}: {bad}")
+
+
+# the idefics2-8b train step's norm rows (PERF.md §4): the SigLIP tower's LayerNorms
+# over 20 images x 4992 padded patches x 1152, the connector's RMSNorms of the
+# context (20 x 4900 x 4096) and of the latents (20 x 64 x 4096)
+NORM_SHAPES = (("layer_norm", 99840, 1152), ("rms_norm", 98000, 4096), ("rms_norm", 1280, 4096))
+NORM_REPS = 20
+
+
+def bf16_ulps(got, want):
+    """|got - want| in units of bf16's spacing at max(|want|, 2^-10) (as
+    tests/test_torch_kernels.py::_bf16_ulps)."""
+    g, w = got.float(), want.float()
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(torch.clamp(w.abs(), min=2.0 ** -10))) - 7)
+
+
+def phase_norm_kernels():
+    """ops.norms' row-norm kernel against its plain version on the card, bf16
+    rows and weights, at NORM_SHAPES: at most one ulp apart, the share of
+    elements bit-equal; device times through CUDA graphs of the kernel, the
+    plain version and F.layer_norm / F.rms_norm (the yardstick, never called by
+    the port), beside the bound of the bytes (rows read once and written once,
+    w and b once).  The entry of the kernels line is the SigLIP shape's."""
+    import torch.nn.functional as F
+
+    from mimic_tpu_torch.ops import norms as tn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rows, eps = [], 1e-6
+    for norm, M, D in NORM_SHAPES:
+        x = (torch.randn(M, D, generator=gen, device=dev) * 3 + 0.5).to(torch.bfloat16)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        b = (0.1 * torch.randn(D, generator=gen, device=dev)).to(torch.bfloat16)
+        if norm == "layer_norm":
+            kernel = lambda: tn.layer_norm(x, w, b, eps)  # noqa: E731
+            plain = lambda: tn.layer_norm_plain(x, w, b, eps)  # noqa: E731
+            library = lambda: F.layer_norm(x, (D,), w, b, eps)  # noqa: E731
+        else:
+            kernel = lambda: tn.rms_norm(x, w, eps)  # noqa: E731
+            plain = lambda: tn.rms_norm_plain(x, w, eps)  # noqa: E731
+            library = (lambda: F.rms_norm(x, (D,), w, eps)) if hasattr(F, "rms_norm") else None
+        before = tn.LAUNCHES[norm]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if tn.LAUNCHES[norm] != before + 1:
+            raise AssertionError(f"{norm}: {tn.LAUNCHES[norm] - before} launches, want 1")
+        ulps = bf16_ulps(got, want).max().item()
+        equal = (got == want).float().mean().item()
+        err = (got.float() - want.float()).abs().max().item()
+        if not ulps <= 1:
+            raise AssertionError(f"{norm} [{M}, {D}]: {ulps} bf16 ulps from the plain version")
+        del got, want
+        ms = cuda_ms(kernel, NORM_REPS, True)
+        plain_ms = cuda_ms(plain, NORM_REPS, True)
+        library_ms = None if library is None else cuda_ms(library, NORM_REPS, True)
+        bnd = bound(2 * nbytes(x) + nbytes(w) + (nbytes(b) if norm == "layer_norm" else 0), 0,
+                    "bf16")
+        lanes, vectors = tn.kernel_plan(D, x.dtype)
+        yardstick = (f"F.{norm} {library_ms:.4f} ms" if library is not None
+                     else f"no F.rms_norm in torch {torch.__version__}")
+        log(f"[norms] {norm} [{M}, {D}] bf16 ({lanes} lanes a row, {vectors} x 16 B a lane): "
+            f"kernel {ms:.4f} ms ({bnd['bound_ms'] / ms:.1%} of the bound), plain {plain_ms:.4f} "
+            f"ms, {yardstick}; {bound_text(bnd)}; max {ulps:.0f} ulp ({err:.3g} abs), "
+            f"{equal:.4%} of the elements bit-equal (device time through CUDA graphs)")
+        rows.append({"norm": norm, "M": M, "D": D, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": bnd["bound_ms"], "max_abs_err": err,
+                     "bit_equal": equal})
+        del x
+        torch.cuda.empty_cache()
+    first = rows[0]
+    return {"row_norm": {"max_abs_err": max(r["max_abs_err"] for r in rows), "ms": first["ms"],
+                         "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                         "bound_by": "bytes", "library_ms": first["library_ms"], "shapes": rows}}
 
 
 def backward_launcher(args, name, split=None):
@@ -1396,6 +1485,7 @@ def main_runner():
 def phase_main():
     from mimic_tpu_torch.models import generate as tg
     from mimic_tpu_torch.models.decoder import ATTN_PATH_LOG
+    from mimic_tpu_torch.ops import norms as tn
     from mimic_tpu_torch.ops.flash_attention import LAUNCHES, reset_launch_counts
 
     runner = main_runner()
@@ -1414,6 +1504,7 @@ def phase_main():
         log(f"[main] warm-up call {name}: {secs:.3f} s")
 
     reset_launch_counts()
+    tn.reset_launch_counts()
     ATTN_PATH_LOG.clear()
     timings = {}
     for name, (images, texts, bucket) in calls.items():
@@ -1424,7 +1515,7 @@ def phase_main():
         log(f"[main] call {name}: {len(texts)} requests, prompt bucket {bucket}, beam "
             f"{NUM_BEAMS}, {MAX_NEW_TOKENS} new tokens: {secs:.3f} s = "
             f"{len(texts) / secs:.3f} q/s; decoded {json.dumps(out)}")
-    launches = dict(LAUNCHES)
+    launches = {**LAUNCHES, "row_norm": sum(tn.LAUNCHES.values())}
     paths = list(ATTN_PATH_LOG)
     log(f"[main] kernel launches in the counted run: {launches}")
     log(f"[main] decoder attention paths: {paths.count('flash')} flash, "
@@ -6220,7 +6311,7 @@ def main() -> int:
     # registers, spills and shared memory of the tensor-core kernels; a serialized
     # wgmma (or mma) in the kernels redesigned last fails the run
     ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp",
-                       "w8a8", "prompt_attn_mma", "quantize_rows"),
+                       "w8a8", "prompt_attn_mma", "quantize_rows", "row_norm"),
                 ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"),
                 # the bf16 forward's head-dim-64 and -80 instantiations (the CLIP towers)
                 ("attn_fwd_mma_kernelILi64", "attn_fwd_mma_kernelILi80"))
@@ -6262,6 +6353,11 @@ def main() -> int:
             sass_counts(info["path"], BWD_MMA_KERNELS, ("HGMMA",), 2)
         log(f"[card] partial run (--backward-only{'' if other is None else ' ' + other}): "
             "phase 2's backward kernels passed; no result line")
+        return 3
+
+    if sys.argv[1:] == ["--norms-only"]:
+        phase_norm_kernels()
+        log("[card] partial run (--norms-only): phase 2's row-norm kernel passed; no result line")
         return 3
 
     if sys.argv[1:] == ["--cache-only"]:
@@ -6346,6 +6442,7 @@ def main() -> int:
 
     summary = timed("phase 2 kernels", phase_kernels)
     summary.update(timed("phase 2 backward kernels", phase_backward_kernels))
+    summary.update(timed("phase 2 row-norm kernel", phase_norm_kernels))
     summary.update(timed("phase 6 int8 kernels", phase_int8_kernels))
     timed("phase 6 qdot cut-off", int8_crossover)
     summary.update(timed("phase 9 W8A8 kernels", phase_w8a8_kernels))
@@ -6389,15 +6486,15 @@ def main() -> int:
              "int8 serving": int8_launches,
              "W8A8 eval": eval_launches, **idefics_launches, **llava_launches,
              **headsplit_launches, **model_axis_launches}
-    launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in KERNEL_META}
+    launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in RESULT_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched on its main path: {launches}")
     kernels = [
-        {"name": name, **KERNEL_META[name], "launches": launches[name], **summary[name]}
+        {"name": name, **RESULT_META[name], "launches": launches[name], **summary[name]}
         for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      "int8_matmul", "fused_mlp_int8", "prompt_attn_int8", "w8a8_matmul",
-                     "quantize_rows")
+                     "quantize_rows", "row_norm")
     ]
     for k in kernels:
         missing = [key for key in ("max_abs_err", *TIMING_KEYS) if key not in k]

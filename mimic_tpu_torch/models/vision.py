@@ -31,13 +31,34 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import norms
 from ..ops.flash_attention import ONEPASS_MAX_S_NONCAUSAL, flash_attention
 from ..parallel import tp
 from .config import PerceiverConfig, VisionConfig
 from .decoder import dense_init
-from .layers import gelu_act, layer_norm, repeat_kv, rms_norm, sdpa_with_lse
+from .layers import gelu_act, repeat_kv, sdpa_with_lse
 
 Params = Dict[str, Any]
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], eps: float
+) -> torch.Tensor:
+    """``ops.norms.layer_norm`` (the one-pass kernel on a card), or its plain,
+    differentiable version where autograd records the call.  The towers are
+    frozen in every method and pixels carry no gradient, so the train and eval
+    paths take the kernel."""
+    if norms.needs_grad(x, weight, bias):
+        return norms.layer_norm_plain(x, weight, bias, eps)
+    return norms.layer_norm(x, weight, bias, eps)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """``ops.norms.rms_norm``, or its plain version where autograd records the
+    call (as ``layer_norm``)."""
+    if norms.needs_grad(x, weight):
+        return norms.rms_norm_plain(x, weight, eps)
+    return norms.rms_norm(x, weight, eps)
 
 
 def _connector_split(gate: torch.Tensor, full: int, what: str) -> bool:
@@ -219,7 +240,7 @@ def vit_forward(
         x = residual + tp.reduce_from_region(hn @ lp["fc2"], split_mlp) + lp["fc2_bias"]
 
     if use_flash and x.shape[1] != n_tokens:
-        x = x[:, :n_tokens]
+        x = x[:, :n_tokens].contiguous()  # whole rows for the norm kernel and the connector
     if not cfg.post_layernorm:
         return x
     return layer_norm(x, params["post_ln_w"], params["post_ln_b"], cfg.norm_eps)
@@ -341,7 +362,7 @@ def perceiver_forward(
     H_all, Hkv_all = pcfg.num_heads, pcfg.num_kv_heads or pcfg.num_heads
     H, Hkv = tp.head_region(H_all, Hkv_all, Dh)
     n_lat = params["latents"].shape[0]
-    latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
+    latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype).contiguous()
 
     kv_mask = _context_key_mask(context_mask, n_lat)
 
@@ -394,7 +415,7 @@ def _perceiver_idefics1(
     Dh = pcfg.head_dim or width // pcfg.num_heads
     H = tp.head_region(pcfg.num_heads, pcfg.num_heads, Dh)[0]
     n_lat = params["latents"].shape[0]
-    latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype)
+    latents = params["latents"][None].expand(B, n_lat, width).to(vision_feats.dtype).contiguous()
     kv_mask = _context_key_mask(context_mask, n_lat)
 
     layers = params["layers"]

@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = (
     "flash_fwd.cu", "onepass_fwd.cu", "flash_bwd.cu",
     "int8_matmul.cu", "fused_mlp_int8.cu", "prompt_attn_int8.cu", "w8a8_matmul.cu",
-    "quantize_rows.cu",
+    "quantize_rows.cu", "row_norm.cu",
 )
 HEADERS = ("attn_common.cuh", "attn_mma.cuh", "attn_wgmma_ops.cuh", "attn_bwd_mma.cuh",
            "int8_common.cuh", "int8_mma.cuh")
@@ -160,6 +160,12 @@ def load_library() -> ctypes.CDLL:
     # x, x8, s, M, K, dtype, stream
     lib.mimic_quantize_rows.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.mimic_quantize_rows.restype = i
+    # D, dtype -> out: lanes a row, 16-byte vectors a lane
+    lib.mimic_row_norm_plan.argtypes = [i, i] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.mimic_row_norm_plan.restype = i
+    # x, w, b, y, M, D, dtype, w_dtype, rms, eps, stream
+    lib.mimic_row_norm.argtypes = [p] * 4 + [i] * 5 + [f, p]
+    lib.mimic_row_norm.restype = i
     lib.mimic_cuda_error_string.argtypes = [i]
     lib.mimic_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -945,3 +945,194 @@ def test_prompt_attention_int8_kernels_per_call_on_card(cuda_device, dtype):
     assert (got[1] - want[1]).abs().max().item() <= (1e-5 if dtype == "float32" else 1e-3)
     for a, b in ((got[0], want[0]), (got[2], want[2])):
         assert (a - b).abs().max().item() <= tol * b.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# ops.norms: the row-norm kernel (LayerNorm and RMSNorm) against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _norm_inputs(norm, M, D, dtype, device, seed, w_dtype=None):
+    """Rows of every scale around an offset (the LayerNorm's mean), weights
+    near 1 and a small bias; fp32 numbers rounded to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, D)) * rng.uniform(0.1, 10, size=(M, 1)) + rng.normal(size=(M, 1))
+    w = 1 + 0.1 * rng.normal(size=D)
+    b = 0.1 * rng.normal(size=D) if norm == "layer_norm" else None
+    w_dtype = w_dtype or dtype
+    return (_t(x.astype(np.float32)).to(device, dtype),
+            _t(w.astype(np.float32)).to(device, w_dtype),
+            None if b is None else _t(b.astype(np.float32)).to(device, w_dtype))
+
+
+def _norm_call(norm, fn_name, x, w, b, eps=1e-6):
+    from mimic_tpu_torch.ops import norms as tn
+
+    fn = getattr(tn, norm + fn_name)
+    return fn(x, w, eps) if norm == "rms_norm" else fn(x, w, b, eps)
+
+
+def _bf16_ulps(got, want):
+    """|got - want| in units of bf16's spacing at max(|want|, 2^-10).  The kernel
+    and the plain version round the same fp32 steps, their sums taken in another
+    order: the fp32 results differ by ~1e-7 of an O(1) output, under one
+    rounding to bf16.  Nearer 0 than 2^-10, where ``n·w + b`` cancels, the
+    spacing at 2^-10 (2^-17) stands for the outputs' scale."""
+    g, w = got.float(), want.float()
+    at = torch.clamp(w.abs(), min=2.0 ** -10)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(at)) - 7)
+
+
+def _check_norm(norm, x, w, b):
+    """The kernel against the plain version on the same card inputs: bf16 within
+    one ulp (the share of bit-equal elements printed), fp32 within 1e-5 of max
+    |plain|; returns that share."""
+    got = _norm_call(norm, "", x, w, b)
+    want = _norm_call(norm, "_plain", x, w, b)
+    assert got.dtype == x.dtype and got.shape == x.shape and torch.isfinite(got).all()
+    equal = (got == want).float().mean().item()
+    if x.dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want).max().item() <= 1
+    else:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    print(f"row_norm {norm} {tuple(x.shape)} {x.dtype}: {equal:.4%} of the elements bit-equal "
+          f"to the plain version")
+    return equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 16, 32, 96, 144, 1024, 1152, 1280, 4096])
+@pytest.mark.parametrize("norm", ["layer_norm", "rms_norm"])
+def test_row_norm_matches_plain_on_card(cuda_device, norm, D, dtype):
+    """Every width of the vision towers and connectors (SigLIP 1152, CLIP-L 1024,
+    CLIP-H 1280, the idefics2 connector 4096, the idefics-9b resampler's head dim
+    96) and the tiny towers' (8-144), at ragged row counts: one row, fewer rows
+    than a CTA holds, and rows that leave the last CTA part empty."""
+    dt = getattr(torch, dtype)
+    for M in (1, 3, 37, 1000):
+        x, w, b = _norm_inputs(norm, M, D, dt, cuda_device, seed=D + M)
+        _check_norm(norm, x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm,shape", [("layer_norm", (20, 4992, 1152)),
+                                        ("rms_norm", (20, 4900, 4096))],
+                         ids=["siglip", "connector"])
+def test_row_norm_at_the_train_cells_shapes_on_card(cuda_device, norm, shape):
+    """The idefics2-8b train step's tower rows (20 images × 4992 padded patches
+    × 1152: 99,840 rows) and its connector's context (20 × 4900 × 4096), bf16,
+    through the wrapper as ``models/vision.py`` calls it."""
+    x, w, b = _norm_inputs(norm, shape[0] * shape[1], shape[2], torch.bfloat16, cuda_device,
+                           seed=7)
+    assert _check_norm(norm, x.reshape(shape), w, b) > 0.5
+
+
+@pytest.mark.cuda
+def test_row_norm_variants_on_card(cuda_device):
+    """LayerNorm without a bias, fp32 weights beside bf16 rows and bf16 weights
+    beside fp32 rows, a 2-D and a 4-D input (the resampler's per-head q/k norms
+    [B, N, H, 96]), a constant row (variance 0: eps alone), and no rows (no
+    launch)."""
+    from mimic_tpu_torch.ops import norms as tn
+
+    x, w, _ = _norm_inputs("layer_norm", 300, 1152, torch.bfloat16, cuda_device, seed=1)
+    _check_norm("layer_norm", x, w, None)
+    for dt, wdt in ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)):
+        for norm in ("layer_norm", "rms_norm"):
+            _check_norm(norm, *_norm_inputs(norm, 300, 1280, dt, cuda_device, seed=2, w_dtype=wdt))
+    x, w, b = _norm_inputs("layer_norm", 2 * 64 * 16, 96, torch.bfloat16, cuda_device, seed=3)
+    _check_norm("layer_norm", x.reshape(2, 64, 16, 96), w, b)
+    x[5] = 3.0
+    _check_norm("layer_norm", x, w, b)
+    before = dict(tn.LAUNCHES)
+    assert tn.rms_norm(x[:0], w, 1e-6).shape == (0, 96) and tn.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_row_norm_raises_on_what_it_does_not_take_on_card(cuda_device):
+    from mimic_tpu_torch.ops import norms as tn
+
+    x, w, b = _norm_inputs("layer_norm", 64, 1152, torch.bfloat16, cuda_device, seed=4)
+    with pytest.raises(ValueError, match="no backward"):
+        tn.layer_norm(x.clone().requires_grad_(True), w, b, 1e-6)
+    with pytest.raises(ValueError, match="no backward"):
+        tn.rms_norm(x, w.clone().requires_grad_(True), 1e-6)
+    with torch.no_grad():  # outside grad mode the kernel takes it
+        tn.layer_norm(x, w.clone().requires_grad_(True), b, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        tn.layer_norm(x.t(), w[:64].contiguous(), b[:64].contiguous(), 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        tn.rms_norm(x.reshape(2, 32, 1152)[:, :20], w, 1e-6)
+    for D, dt in ((12, torch.bfloat16), (8200, torch.bfloat16), (4100, torch.float32),
+                  (6, torch.float32)):
+        with pytest.raises(ValueError, match="no kernel for width"):
+            tn.rms_norm(torch.ones(4, D, dtype=dt, device=cuda_device),
+                        torch.ones(D, dtype=dt, device=cuda_device), 1e-6)
+    with pytest.raises(TypeError):
+        tn.rms_norm(x.half(), w, 1e-6)
+    with pytest.raises(ValueError):
+        tn.layer_norm(x, w[:1024].contiguous(), b, 1e-6)
+    with pytest.raises(ValueError):
+        tn.layer_norm(x, w.cpu(), b, 1e-6)
+    assert tn.kernel_plan(1152, torch.bfloat16) == (32, 5)
+    assert tn.kernel_plan(4096, torch.bfloat16) == (32, 16)
+    assert tn.kernel_plan(96, torch.bfloat16) == (16, 1)
+
+
+@pytest.mark.cuda
+def test_row_norm_launches_are_counted_on_card(cuda_device):
+    from mimic_tpu_torch.ops import norms as tn
+    from mimic_tpu_torch.utils import tracing
+
+    x, w, b = _norm_inputs("layer_norm", 100, 1152, torch.bfloat16, cuda_device, seed=5)
+    tn.reset_launch_counts()
+    tracing.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+        tn.layer_norm(x, w, b, 1e-6)
+        tn.layer_norm(x, w, b, 1e-6)
+        tn.rms_norm(x, w, 1e-6)
+        torch.cuda.synchronize()
+    assert tn.LAUNCHES == {"layer_norm": 2, "rms_norm": 1}
+    assert tracing.recorded()["counts"]["norm_kernel_launches"] == 3
+    tn.rms_norm(x, w, 1e-6)  # outside a profile: counted by LAUNCHES alone
+    assert tn.LAUNCHES["rms_norm"] == 2
+    tracing.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["idefics2", "idefics1", "llava-interleave"])
+def test_towers_through_the_norm_kernel_on_card(cuda_device, family, monkeypatch):
+    """A tiny tower and its connector in bf16 on the card (the flash path, two
+    images of 70 px), through the kernel and through the plain norms: the
+    launches a call (two a layer, the pre- and post-LN where the config has
+    them; the connector's norms), and the features within bf16 tolerance."""
+    import dataclasses
+
+    from mimic_tpu_torch.models import lvlm as tlvlm
+    from mimic_tpu_torch.models import vision as tv
+    from mimic_tpu_torch.models.config import get_model_config
+    from mimic_tpu_torch.ops import norms as tn
+
+    cfg = get_model_config(f"tiny-{family}")
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, image_size=70, num_heads=2,
+                                                 hidden_size=144))
+    params = tlvlm.init_lvlm_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                    cuda_device, torch.bfloat16)
+    pixels = _t(np.random.default_rng(6).normal(size=(1, 2, 70, 70, 3)).astype(np.float32))
+    pixels = pixels.to(cuda_device)
+    tn.reset_launch_counts()
+    with torch.no_grad():
+        got = tlvlm.encode_images(params, cfg, pixels, attn_impl="flash")
+    L, P = cfg.vision.num_layers, cfg.perceiver.num_layers if cfg.perceiver else 0
+    ln = 2 * L + int(cfg.vision.use_class_token) + int(cfg.vision.post_layernorm)
+    want_launches = {"idefics2": {"layer_norm": ln, "rms_norm": 3 * P + 1},
+                     "idefics1": {"layer_norm": ln + 5 * P + 1, "rms_norm": 0},
+                     "llava-interleave": {"layer_norm": ln, "rms_norm": 0}}[family]
+    assert tn.LAUNCHES == want_launches
+    monkeypatch.setattr(tv, "layer_norm", tn.layer_norm_plain)
+    monkeypatch.setattr(tv, "rms_norm", tn.rms_norm_plain)
+    with torch.no_grad():
+        want = tlvlm.encode_images(params, cfg, pixels, attn_impl="flash")
+    assert tn.LAUNCHES == want_launches
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * want.float().abs().max().item()
