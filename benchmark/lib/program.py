@@ -10,45 +10,22 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from .weights import sizes
-
-
-def _expect(cfg: Dict[str, Any]) -> Dict[str, Any]:
-    s = sizes(cfg)
-    t, v = cfg["text_config"], cfg["vision_config"]
-    want = {
-        "text.vocab_size": s["V"], "text.hidden_size": s["D"], "text.num_layers": s["L"],
-        "text.num_heads": s["H"], "text.num_kv_heads": s["Hkv"],
-        "text.intermediate_size": s["F"], "text.head_size": s["Dh"],
-        "text.norm_eps": t["rms_norm_eps"], "text.rope_theta": t["rope_theta"],
-        "text.attn_bias": cfg["family"] == "llava_interleave",
-        "text.sliding_window": None,
-        "vision.hidden_size": s["Dv"], "vision.num_layers": s["Lv"],
-        "vision.num_heads": s["Hv"], "vision.intermediate_size": s["Fv"],
-        "vision.image_size": s["image"], "vision.patch_size": s["patch"],
-        "vision.norm_eps": v["layer_norm_eps"], "vision.use_class_token": False,
-        "vision.post_layernorm": cfg["family"] == "idefics2",
-        "image_seq_len": s["image_tokens"],
-    }
-    if cfg["family"] == "idefics2":
-        want.update({"perceiver.num_latents": s["latents"], "perceiver.num_layers": s["Lp"],
-                     "perceiver.num_heads": s["Hp"], "perceiver.num_kv_heads": s["Hkvp"],
-                     "perceiver.head_dim": s["Dhp"]})
-    return want
+from . import registry
+from .family import Defaulted
 
 
 def check_architecture(pcfg, cfg: Dict[str, Any]) -> None:
-    """Raise unless the port's ``ModelConfig`` is the configuration file's."""
+    """Raise unless the port's ``ModelConfig`` is the configuration file's:
+    each key of the family's ``expect`` (``reference/<family>.py``)."""
+    fam = registry.reference(cfg["family"])
     diffs = []
-    for key, want in _expect(cfg).items():
+    for key, want in fam.expect(cfg, fam.sizes(cfg)).items():
         node = pcfg
         for part in key.split("."):
             node = getattr(node, part)
-        # the port's perceiver leaves these unset where they take their defaults
-        if key == "perceiver.num_kv_heads" and node is None:
-            node = pcfg.perceiver.num_heads
-        if key == "perceiver.head_dim" and node is None:
-            node = pcfg.text.hidden_size // pcfg.perceiver.num_heads
+        if isinstance(want, Defaulted):
+            node = want.default(pcfg) if node is None else node
+            want = want.value
         if node != want:
             diffs.append(f"{key}: program {node!r}, configuration {want!r}")
     if diffs:

@@ -1,6 +1,7 @@
 """What a cell's reference computes: MimIC's train steps, and the score of a
-served beam.  Either family (``benchmark/reference/<family>.py`` supplies the
-image path and the token expansion); everything else is ``plain``.
+served beam.  Any family: ``benchmark/reference/<family>.py`` (``fam``
+below) supplies the sizes, the image path, the token expansion and the text
+tower; the losses, the optimizer and the tokenizer are ``plain``.
 
 Inputs are the raw ones a cell made (uint8 images, strings); the reference
 tokenises, pads, collates and preprocesses them itself.  Weights are made
@@ -15,7 +16,6 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from benchmark.lib.weights import sizes
 from benchmark.reference import plain
 
 Tree = Dict[str, Any]
@@ -24,23 +24,29 @@ Tree = Dict[str, Any]
 def _images(fam, cfg, s, images: Sequence[np.ndarray], device):
     out = []
     for img in images:
-        px, mask = plain.process_image(img, cfg["processor"], s["patch"])
+        px, mask = fam.process_image(img, cfg, s)
         out.append((torch.from_numpy(px).to(device),
                     None if mask is None else torch.from_numpy(mask).to(device)))
     return out
 
 
-def collate(fam, s, rows: List[Dict[str, Any]], pad_multiple: int):
+def _hw(images) -> List[tuple]:
+    return [tuple(im.shape[:2]) for im in images]
+
+
+def collate(fam, cfg, s, rows: List[Dict[str, Any]], pad_multiple: int):
     """The dual-pass batch of MimIC's collator, worked out from the raw rows:
     shift pass ``query <pad> answer </s>`` (the query image), record pass
-    ``prefix <pad> query <pad> answer </s>`` (every image), right-padded to a
+    ``prefix <pad> query <pad> answer </s>`` (every image; each ``<image>``
+    expanded to the tokens of its own image), right-padded to a
     multiple of ``pad_multiple``; masks are ``id != <pad>`` (the separators
     drop out); the paired rows are the record pass's tokens after its first
     separator and the shift pass's tokens but BOS."""
-    shift = [plain.encode(fam.expand(r["query"] + "<pad>" + r["answer"] + "</s>", s))
-             for r in rows]
+    shift = [plain.encode(fam.expand(r["query"] + "<pad>" + r["answer"] + "</s>",
+                                     _hw(r["images"][-1:]), cfg, s)) for r in rows]
     full = [plain.encode(fam.expand(r["prefix"] + "<pad>" + r["query"] + "<pad>"
-                                    + r["answer"] + "</s>", s)) for r in rows]
+                                    + r["answer"] + "</s>", _hw(r["images"]), cfg, s))
+            for r in rows]
     q_ids, _ = plain.pad_rows(shift, plain.round_up(max(map(len, shift)), pad_multiple), "right")
     f_ids, _ = plain.pad_rows(full, plain.round_up(max(map(len, full)), pad_multiple), "right")
     q_sel = (q_ids != plain.PAD) & (q_ids != plain.BOS)
@@ -79,28 +85,26 @@ def train(fam, cfg: Dict[str, Any], params: Tree, raw_batches: List[List[Dict[st
     (shift in, the same outputs and the logits), loss = ce·CE + align·MSE, its
     gradient to the shift, AdamW.  Returns each step's loss, the first step's
     gradient as the optimizer takes it (clipped) and the shift's change."""
-    s = sizes(cfg)
-    tc = cfg["text_config"]
-    dp = params["lm"]["decoder"]
+    s = fam.sizes(cfg)
     shift = {k: v.detach().float().clone() for k, v in shift0.items()}
     state = {"count": 0, "mu": {k: torch.zeros_like(v) for k, v in shift.items()},
              "nu": {k: torch.zeros_like(v) for k, v in shift.items()}}
     losses, first = [], None
     for rows in raw_batches:
-        c = collate(fam, s, rows, pad_multiple)
+        c = collate(fam, cfg, s, rows, pad_multiple)
         t = {k: torch.from_numpy(v).to(device) for k, v in c.items()}
         with torch.no_grad():
             full_imgs = [_images(fam, cfg, s, r["images"], device) for r in rows]
             emb = _embed(fam, cfg, s, params, t["f_ids"], full_imgs, prec)
-            _, rec = plain.decoder(dp, s, tc, emb, t["f_ids"] != plain.PAD, None, None,
-                                   t["f_idx"], prec, fam.BIAS)
+            _, rec = fam.decoder(params, s, cfg, emb, t["f_ids"] != plain.PAD, None, None,
+                                 t["f_idx"], prec)
             del emb
             q_imgs = [[imgs[-1]] for imgs in full_imgs]
             emb = _embed(fam, cfg, s, params, t["q_ids"], q_imgs, prec)
         leaves = {k: v.clone().requires_grad_(True) for k, v in shift.items()}
         with torch.enable_grad():
-            h, caps = plain.decoder(dp, s, tc, emb, t["q_ids"] != plain.PAD, leaves, None,
-                                    t["q_idx"], prec, fam.BIAS, remat=True)
+            h, caps = fam.decoder(params, s, cfg, emb, t["q_ids"] != plain.PAD, leaves, None,
+                                  t["q_idx"], prec, remat=True)
             logits = prec.mm(h, params["lm"]["lm_head"])
             loss = (loss_w["ce"] * plain.ce_loss(logits, t["q_ids"], t["q_ids"] != plain.PAD)
                     + loss_w["align"] * plain.mse_loss(caps, rec, t["valid"]))
@@ -122,8 +126,8 @@ def beam_logprobs(fam, cfg: Dict[str, Any], params: Tree, shift: Optional[Tree],
     the served tokens before that position.  Prompt rows take log Z2 over the
     padded prompt; a generated row over the keys up to its own (what
     generation with a cache sees)."""
-    s = sizes(cfg)
-    ids = plain.encode(fam.expand(prompt, s))
+    s = fam.sizes(cfg)
+    ids = plain.encode(fam.expand(prompt, _hw([image]), cfg, s))
     n_pad = width - len(ids)
     seq = [plain.PAD] * n_pad + ids + list(tokens[:-1])
     ok = [0] * n_pad + [1] * (len(seq) - n_pad)
@@ -133,8 +137,7 @@ def beam_logprobs(fam, cfg: Dict[str, Any], params: Tree, shift: Optional[Tree],
     imgs = [_images(fam, cfg, s, [image], device)]
     with torch.no_grad():
         emb = _embed(fam, cfg, s, params, ids_t, imgs, prec)
-        h, _ = plain.decoder(params["lm"]["decoder"], s, cfg["text_config"], emb,
-                             torch.tensor([ok], device=device) > 0, shift, u_len, None,
-                             prec, fam.BIAS)
+        h, _ = fam.decoder(params, s, cfg, emb, torch.tensor([ok], device=device) > 0, shift,
+                           u_len, None, prec)
         rows = h[0, width - 1: width - 1 + len(tokens)]
         return torch.log_softmax(prec.mm(rows, params["lm"]["lm_head"]), -1).cpu()

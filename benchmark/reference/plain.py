@@ -1,8 +1,10 @@
-"""The plain reference: the two LVLM families in float32, in plain PyTorch.
+"""The plain reference: what the LVLM families share, in float32, in plain
+PyTorch (each family's own parts, such as its connector, are in
+``reference/<family>.py``).
 
-Written from the published architectures (SigLIP, Mistral / Qwen2, the
-idefics2 perceiver connector, the llava projector) and the MimIC method, with
-no kernel, cache or batching of the program, and nothing imported from it.
+Written from the published architectures (SigLIP, Mistral / Qwen2) and the
+MimIC method, with no kernel, cache or batching of the program, and nothing
+imported from it.
 It takes the raw images and texts a cell made and works out again whatever
 the program's processor and collator derive from them (PIL-exact resizing,
 normalisation, patch masks, byte-level token ids, padding, the gathered query
@@ -224,9 +226,12 @@ def process_image(img: np.ndarray, proc: Dict[str, Any], patch: int):
 
 
 def valid_patches(shape_hw: Tuple[int, int], proc: Dict[str, Any], patch: int) -> int:
-    """How many patches of an image of raw size ``shape_hw`` carry pixels."""
+    """How many patches of an image of raw size ``shape_hw`` carry pixels:
+    those it touches, within the canvas's ``size // patch`` grid (the tower
+    drops a canvas's last partial patch)."""
     nh, nw = fitted_size(shape_hw, proc)
-    return (-(-nh // patch)) * (-(-nw // patch))
+    grid = proc["size"] // patch
+    return min(-(-nh // patch), grid) * min(-(-nw // patch), grid)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,6 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark.lib import registry  # noqa: E402
-from benchmark.lib.weights import sizes  # noqa: E402
 from benchmark.reference import mimic  # noqa: E402
 
 DATA = Path(__file__).resolve().parent / "data"
@@ -39,7 +38,8 @@ def train_cell(family: str):
              image_sizes=TINY_SIZES[:3], distinct_batches=4)
     mt = registry.traffic("mimic_train")
     rows = mt.raw_batches(cfg, p, 1)[0]
-    c = mimic.collate(registry.reference(family), sizes(cfg), rows, p["pad_multiple"])
+    fam = registry.reference(family)
+    c = mimic.collate(fam, cfg, fam.sizes(cfg), rows, p["pad_multiple"])
     p.update(record_len=c["f_ids"].shape[1], shift_len=c["q_ids"].shape[1])
     return wl, cfg
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from benchmark.lib import gen, program, registry
-from benchmark.lib.weights import make_shift, make_weights, sizes
+from benchmark.lib.weights import make_shift, make_weights
 from benchmark.reference import mimic, plain
 
 FIRST_STEPS = 3
@@ -88,6 +88,8 @@ class Traffic:
         self.cfg, self.p = cfg, wl["params"]
         self.seed, self.device, self.dtype, self.spans = seed, device, dtype, spans
         self.raw = raw_batches(cfg, self.p, seed)
+        self.fam = registry.reference(cfg["family"])
+        self.s = self.fam.sizes(cfg)
 
     # -- set-up ------------------------------------------------------------
 
@@ -114,7 +116,8 @@ class Traffic:
             if got != (p["record_len"], p["shift_len"]):
                 raise ValueError(f"passes of {got} tokens, the workload states "
                                  f"{(p['record_len'], p['shift_len'])}")
-        self.work = [self.count(hb) for hb in self.host]
+        self.work = [self.count(rows, hb.full_mask, hb.query_mask)
+                     for rows, hb in zip(self.raw, self.host)]
         self.shift0 = make_shift(self.cfg, p["shift_init"], self.seed, dev)
         opt = p["optimizer"]
         trainable = {"shift": {k: v.clone() for k, v in self.shift0.items()}}
@@ -136,19 +139,20 @@ class Traffic:
         self.delta = {k: self.state.trainable["shift"][k].detach() - self.shift0[k]
                       for k in self.shift0}
 
-    def count(self, hb) -> Dict[str, float]:
-        s = sizes(self.cfg)
+    def count(self, rows, rec_key_ok, shift_key_ok) -> Dict[str, float]:
+        """The work of one step on the raw ``rows``, whose passes have the key
+        masks ``*_key_ok`` [B, T]: the record pass runs every image of a
+        row, the shift pass its query image (the last)."""
+        cfg, fam, s = self.cfg, self.fam, self.s
 
-        def valid(pm, px):
-            if pm is not None:
-                return pm.reshape(-1, pm.shape[-2] * pm.shape[-1]).sum(1)
-            return np.full(px.shape[0] * px.shape[1], s["n_patches"])
+        def vit_rows(images):
+            return [fam.vit_rows(im.shape[:2], cfg, s) for im in images]
 
-        geo = dict(rec_key_ok=hb.full_mask, shift_key_ok=hb.query_mask,
-                   rec_valid=valid(hb.full_patch_mask, hb.full_pixels),
-                   shift_valid=valid(hb.query_patch_mask, hb.query_pixels),
-                   ce_rows=float(hb.query_mask[:, 1:].sum()))
-        return registry.flops(self.cfg["family"]).train_step(s, geo)
+        geo = dict(rec_key_ok=rec_key_ok, shift_key_ok=shift_key_ok,
+                   rec_valid=np.array([n for r in rows for n in vit_rows(r["images"])]),
+                   shift_valid=np.array([n for r in rows for n in vit_rows(r["images"][-1:])]),
+                   ce_rows=float(shift_key_ok[:, 1:].sum()))
+        return registry.flops(cfg["family"]).train_step(s, geo)
 
     def one_step(self) -> float:
         """The window's call and feed: the next batch to the card, one step,
@@ -194,13 +198,12 @@ class Traffic:
     def reference(self, prec: str = "fp32", rows=None) -> Dict[str, Any]:
         """The reference's first three steps on the same raw batches (``rows``:
         those rows of each batch only)."""
-        fam = registry.reference(self.cfg["family"])
         weights = make_weights(self.cfg, self.seed, self.device, self.dtype)
         batches = [[b[r] for r in (rows or range(len(b)))] for b in self.raw[:FIRST_STEPS]]
         with plain.no_tf32():
-            out = mimic.train(fam, self.cfg, weights, batches, self.shift0, self.p["optimizer"],
-                              self.loss_w, self.p["pad_multiple"], plain.Precision(prec),
-                              self.device)
+            out = mimic.train(self.fam, self.cfg, weights, batches, self.shift0,
+                              self.p["optimizer"], self.loss_w, self.p["pad_multiple"],
+                              plain.Precision(prec), self.device)
         del weights
         return out
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from benchmark.lib import gen, program, registry
-from benchmark.lib.weights import make_shift, make_weights, sizes
+from benchmark.lib.weights import make_shift, make_weights
 from benchmark.reference import mimic, plain
 
 
@@ -69,12 +69,15 @@ class Traffic:
         self.cfg, self.p = cfg, wl["params"]
         self.seed, self.device, self.dtype, self.spans = seed, device, dtype, spans
         self.calls = raw_calls(cfg, self.p, seed)
-        s = sizes(cfg)
-        fam = registry.reference(cfg["family"])
-        self.widths = []
-        for call in self.calls:
-            n = max(len(plain.encode(fam.expand(t, s))) for t in call["texts"])
-            self.widths.append(plain.round_up(n, self.p["pad_multiple"]))
+        self.fam = registry.reference(cfg["family"])
+        self.s = self.fam.sizes(cfg)
+        self.widths = [plain.round_up(max(self.prompt_lengths(call)), self.p["pad_multiple"])
+                       for call in self.calls]
+
+    def prompt_lengths(self, call) -> List[int]:
+        """Each question's prompt in tokens, its image expanded."""
+        return [len(plain.encode(self.fam.expand(t, [im[0].shape[:2]], self.cfg, self.s)))
+                for t, im in zip(call["texts"], call["images"])]
 
     def setup(self) -> None:
         import mimic_tpu_torch.models.runner as runner_mod
@@ -99,17 +102,15 @@ class Traffic:
         self.results.clear()
 
     def count(self, i: int) -> Dict[str, float]:
-        s = sizes(self.cfg)
+        cfg, s = self.cfg, self.s
         call, width = self.calls[i], self.widths[i]
-        fam = registry.reference(self.cfg["family"])
         ok = np.zeros((len(call["texts"]), width), bool)
-        for b, t in enumerate(call["texts"]):
-            ok[b, width - len(plain.encode(fam.expand(t, s))):] = True
-        valid = [plain.valid_patches(im[0].shape[:2], self.cfg["processor"], s["patch"])
-                 for im in call["images"]]
+        for b, n in enumerate(self.prompt_lengths(call)):
+            ok[b, width - n:] = True
+        valid = [self.fam.vit_rows(im[0].shape[:2], cfg, s) for im in call["images"]]
         geo = dict(prompt_key_ok=ok, valid=valid, beams=self.p["num_beams"],
                    new_tokens=self.p["max_new_tokens"])
-        return registry.flops(self.cfg["family"]).eval_call(s, geo)
+        return registry.flops(cfg["family"]).eval_call(s, geo)
 
     def one_call(self, i: int) -> None:
         call = self.calls[i]
@@ -179,10 +180,9 @@ class Traffic:
         vocabulary), beside the served tokens."""
         if not hasattr(self, "picks"):
             self.picks = self.sample()
-        fam = registry.reference(self.cfg["family"])
         weights = make_weights(self.cfg, self.seed, self.device, self.dtype)
         shift = make_shift(self.cfg, self.p["shift_init"], self.seed, self.device)
-        V = sizes(self.cfg)["V"]
+        V = self.s["V"]
         rows, served = [], []
         with plain.no_tf32():
             for i, j in self.picks:
@@ -192,7 +192,7 @@ class Traffic:
                     rows.append(None)
                     continue
                 rows.append(mimic.beam_logprobs(
-                    fam, self.cfg, weights, shift, self.calls[i]["texts"][j],
+                    self.fam, self.cfg, weights, shift, self.calls[i]["texts"][j],
                     self.calls[i]["images"][j][0], self.widths[i], toks,
                     plain.Precision(prec), self.device))
         del weights
