@@ -297,7 +297,7 @@ Phases (any failure propagates: non-zero exit, no result line):
              256; (c) the connector on one row of phase 5's 8-shot image
              features (9 x 4900 patches), by (a)'s gates.  The attention per rank and layer
              at all 28 heads beside model 4's 7 (CUDA events, one process).
-19. model axis, rest — last: MODEL_AXIS_RANKS processes share the card over gloo,
+19. model axis, rest — MODEL_AXIS_RANKS processes share the card over gloo,
              idefics2-8b-base's text tower at full width cut to 4 layers, bf16.
              First a probe of gloo's batch_isend_irecv (the ring's exchange)
              on CUDA tensors: where it refuses them, no ring crosses processes
@@ -312,6 +312,26 @@ Phases (any failure propagates: non-zero exit, no result line):
              the logits of the prefill and 8 forced decode steps (min row
              cosine >= MIN_LOGIT_COSINE); every rank's launches of each run
              against the counts the phase expects.
+
+20. Kimi-VL — last, its kernels first (in the full run, after phase 2's): the
+             latent-attention instantiations (q / k heads 192 wide, v heads 128)
+             through the wrappers at the kimi-vl-a3b.mimic-train-8shot cell's
+             shapes against their plain versions by phase 2's tolerances:
+             flash_fwd at the record pass (B2 H16 T=S=5376, causal, right-padded,
+             no lse_u; scaled_dot_product_attention on the same inputs as the
+             library time), onepass_fwd and the backward pair at the shift pass
+             (B2 T=S=768, lse_u); the routed experts' grouped products
+             (torch._grouped_mm) timed at both passes' rows.  Then
+             build_model("kimi-vl-a3b-instruct") whole, random bf16 weights made
+             on the card, and its MimIC train step on a batch from the port's
+             collator (8 demos and the query, COCO-sized images at native
+             resolution, Kimi's chat format): one warm-up step, then 3 counted
+             steps in which the attention launches are counted by head widths and
+             every MoE block runs under set_sync_debug_mode("error"): each of the
+             27 decoder layers takes the (192, 128) forward in both passes and the
+             backward pair in layers 1-26, and no decoder call leaves "flash".
+             The kernels line's *_192_128 entries hold the kernels' errors and
+             times and the step's launches.
 
 Every phase prints its seconds ("[time]").
 
@@ -338,9 +358,12 @@ Without a CUDA card the script exits non-zero and prints no result.
     python3 chip_smoke.py --parallel-only  # build, the 8B runner and phase 17: exit 3, no result line
     python3 chip_smoke.py --headsplit-only  # build and phase 18: exit 3, no result line
     python3 chip_smoke.py --model-axis-only  # build and phase 19: exit 3, no result line
+    python3 chip_smoke.py --mla-only         # build, phase 20 and the HGMMA opcodes of the
+                                             # latent-attention kernels' SASS: exit 3, no result line
     python3 chip_smoke.py --attention-only   # build + phase 2's forward kernels, then the tensor-core
-                                             # and TMA opcodes in the SASS of all 8 instantiations
-                                             # (head dims 64, 72, 80, 128, with and without lse_u):
+                                             # and TMA opcodes in the SASS of all 10 instantiations
+                                             # (head dims 64, 72, 80, 128 and 192 / 128, with and
+                                             # without lse_u):
                                              # exit 3, no result line
     python3 chip_smoke.py --int8-only        # build + phase 6 and qdot's cut-off, the K-split and
                                              # prompt_attn_int8 cluster-split sweeps, then the HMMA
@@ -477,6 +500,13 @@ RESULT_META = {**KERNEL_META, "row_norm": {
     "replaces": "mimic_tpu/models/layers.py:28",
     "also_replaces": ["mimic_tpu/models/layers.py:20"],
 }}
+# and the attention kernels' latent-attention instantiations (q / k heads 192 wide,
+# v heads 128: Kimi-VL's), counted on phase 20's Kimi-VL step alone: the same
+# entry points and sources as the kernels they are named after, at other widths
+MLA_RESULT = tuple(f"{name}_192_128" for name in
+                   ("flash_fwd", "onepass_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+RESULT_META.update({name: {**KERNEL_META[name[:-len("_192_128")]], "head_widths": [192, 128]}
+                    for name in MLA_RESULT})
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): device
 # memory bytes/s and tensor-core operations/s by input type.
@@ -489,17 +519,18 @@ def nbytes(*tensors) -> int:
 
 
 def kv_nbytes(k, v, allowed, need_unmasked: bool, mean_of_v: bool) -> int:
-    """The bytes of an attention's k and v [B, S, Hkv, D] that its function needs,
-    each read once: every key for lse_u; else a batch's keys that some row may
-    attend to (``allowed`` [B, T, S]), and all of its v where a row attends to
-    none and ``mean_of_v`` (onepass_fwd: that row is the mean of v over every key)."""
+    """The bytes of an attention's k [B, S, Hkv, D] and v [B, S, Hkv, Dv] that its
+    function needs, each read once: every key for lse_u; else a batch's keys that
+    some row may attend to (``allowed`` [B, T, S]), and all of its v where a row
+    attends to none and ``mean_of_v`` (onepass_fwd: that row is the mean of v over
+    every key)."""
     if need_unmasked:
         return nbytes(k, v)
     S = k.shape[1]
     keys = allowed.any(1).sum(-1)
     v_keys = torch.where(~allowed.any(-1).all(-1), S, keys) if mean_of_v else keys
-    per_key = k[0, 0].numel() * k.element_size()
-    return int((keys + v_keys).sum().item()) * per_key
+    return (int(keys.sum().item()) * k[0, 0].numel() * k.element_size()
+            + int(v_keys.sum().item()) * v[0, 0].numel() * v.element_size())
 
 
 def bound(n_bytes: int, n_ops: int, op_type: str) -> dict:
@@ -566,21 +597,24 @@ def cuda_ms(fn, reps: int, graph: bool = False) -> float:
 # ---------------------------------------------------------------------------
 
 
-def kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask):
+def kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask, Dv=None):
+    """q [B,T,H,D], k [B,S,Hkv,D], v [B,S,Hkv,Dv] (Dv = D unless given) and the mask."""
     rng = np.random.default_rng(seed)
     dev = torch.device("cuda")
     q, k, v = (
         torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev, torch.bfloat16)
-        for shape in ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+        for shape in ((B, T, H, D), (B, S, Hkv, D), (B, S, Hkv, Dv or D))
     )
     return q, k, v, torch.from_numpy(key_mask).to(dev)
 
 
 def check_kernel(label, name, seed, B, T, S, H, Hkv, D, key_mask, causal, need_unmasked, reps,
-                 plain_reps=None):
+                 plain_reps=None, Dv=None):
+    """``Dv``: v's head width where it is not D (latent attention's 192 / 128)."""
     from mimic_tpu_torch.ops import flash_attention as tfa
 
-    q, k, v, km = kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask)
+    Dv = Dv or D
+    q, k, v, km = kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask, Dv)
     got = tfa._launch(name, q, k, v, km, causal, None, need_unmasked)
     torch.cuda.synchronize()
     want = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
@@ -623,19 +657,28 @@ def check_kernel(label, name, seed, B, T, S, H, Hkv, D, key_mask, causal, need_u
         lambda: tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked),
         plain_reps or reps,
     )
-    # work these inputs need: scores on every (query, key) pair when lse_u is
-    # wanted, else on the attendable pairs; p @ v on the attendable pairs
+    # work these inputs need: scores (width D) on every (query, key) pair when
+    # lse_u is wanted, else on the attendable pairs; p @ v (width Dv) on the
+    # attendable pairs
     pairs = int(allowed.expand(B, T, S).sum().item())
     b = bound(nbytes(q, km, got[0], got[1], got[2] if need_unmasked else None)
               + kv_nbytes(k, v, allowed.expand(B, T, S), need_unmasked, name == "onepass_fwd"),
-              2 * H * D * ((B * T * S if need_unmasked else pairs) + pairs), "bf16")
-    # one PyTorch call gives the same function only without lse_u and lse
+              2 * H * (D * (B * T * S if need_unmasked else pairs) + Dv * pairs), "bf16")
+    # one PyTorch call gives the same out only without lse_u (it returns no lse)
     library_ms = None
-    if not causal and not need_unmasked:
-        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=(km > 0)[:, None, None, :], enable_gqa=H != Hkv), reps)
-    log(f"[kernels] {label}: {name} B{B} T{T} S{S} H{H}/{Hkv} D{D} causal={causal} "
+    if not need_unmasked:
+        mask = (km > 0)[:, None, None, :]
+        if causal:
+            mask = mask & torch.ones(T, S, dtype=torch.bool, device=q.device).tril()
+        try:
+            library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=H != Hkv), reps)
+        except RuntimeError as e:  # no backend of this torch takes these inputs
+            log(f"[kernels] {label}: scaled_dot_product_attention refused the inputs: {e}")
+        del mask
+    widths = f"D{D}" if Dv == D else f"D{D}/{Dv}"
+    log(f"[kernels] {label}: {name} B{B} T{T} S{S} H{H}/{Hkv} {widths} causal={causal} "
         f"need_unmasked={need_unmasked}: max abs err out {errs['out']:.3e} (tol {tol_out:.3e}), "
         f"out rms err / rms {rel_rms:.3e} (tol {OUT_BF16_REL_RMS:.3e}), worst row's err / its "
         f"largest {row_ratio:.3e} (tol {OUT_BF16_ROW_STEPS * OUT_BF16_STEP:.3e}), lse {errs['lse']:.3e} lse_u {errs['lse_u']:.3e} "
@@ -984,7 +1027,7 @@ def backward_launcher(args, name, split=None):
 
     q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, _, need_unmasked = args
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     lib = _build.load_library()
     delta = (g_out.float() * out.float()).sum(-1).contiguous()
     g_lse_u = g_lse_u if need_unmasked else torch.zeros_like(g_lse)
@@ -998,9 +1041,14 @@ def backward_launcher(args, name, split=None):
 
         extra = (split or tfb.dkv_split(B, T, S, H, Hkv, _sm_count(q.device.index)),)
     ptrs = [x.data_ptr() for x in (*inputs, *outs)]
-    shape = (B, T, S, H, Hkv, D, _KERNEL_DTYPES[q.dtype], 1.0 / D**0.5, int(causal),
-             int(need_unmasked))
     fn = getattr(lib, f"mimic_{name}")
+    # an entry point that takes D_v has eleven scalars between its pointers and
+    # the split or stream; a library that predates it (one head width) ten
+    takes_dv = len(fn.argtypes) - len(ptrs) - len(extra) - 1 == 11
+    if not takes_dv and Dv != D:
+        raise ValueError(f"{name}: this library takes one head width, not {(D, Dv)}")
+    shape = (B, T, S, H, Hkv, D, *((Dv,) if takes_dv else ()), _KERNEL_DTYPES[q.dtype],
+             1.0 / D**0.5, int(causal), int(need_unmasked))
 
     # on the current stream (a graph's capture runs on a stream of its own); the
     # default argument keeps the tensors made here alive while the closure lives
@@ -1057,7 +1105,7 @@ def backward_bounds(args) -> dict:
     attendable pairs.  dq: scores, dp, ds k; dk/dv: scores, dp, dv, dsT q."""
     q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, _, need_unmasked = args
     B, T, H, D = q.shape
-    S = k.shape[1]
+    S, Dv = k.shape[1], v.shape[-1]
     allowed = (km[:, None, :] > 0).expand(B, T, S)
     if causal:
         allowed = allowed & torch.ones(T, S, dtype=torch.bool, device=q.device).tril()[None]
@@ -1066,24 +1114,27 @@ def backward_bounds(args) -> dict:
     delta = torch.empty(B, T, H, device=q.device)  # fp32 [B,T,H], made by the wrapper
     read = nbytes(q, k, v, g_out, km, lse, lse_u if need_unmasked else None, delta, g_lse,
                   g_lse_u if need_unmasked else None)
-    return {"flash_bwd_dq": bound(read + nbytes(q), 2 * H * D * (2 * wide + pairs), "bf16"),
-            "flash_bwd_dkv": bound(read + nbytes(k, v), 2 * H * D * (2 * wide + 2 * pairs),
+    # scores and ds at the q / k width D, dp (and dv) at v's width Dv
+    return {"flash_bwd_dq": bound(read + nbytes(q), 2 * H * (2 * D * wide + Dv * pairs),
+                                  "bf16"),
+            "flash_bwd_dkv": bound(read + nbytes(k, v), 2 * H * (2 * D * wide + 2 * Dv * pairs),
                                    "bf16")}
 
 
 def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked, reps,
-                   sdpa=False):
+                   sdpa=False, D=128, Dv=128):
     """Both backward kernels against the plain backward on the same bf16
     inputs and the same saved forward (from the plain forward); a second
     launch must give the same bits.  Times: each kernel alone, device time
-    through a CUDA graph of launches straight through the library."""
+    through a CUDA graph of launches straight through the library.  ``D`` /
+    ``Dv``: the q / k and v head widths."""
     from mimic_tpu_torch.ops import flash_attention as tfa
     from mimic_tpu_torch.ops import flash_backward as tfb
 
-    q, k, v, km = kernel_inputs(seed, B, T, S, H, Hkv, 128, key_mask)
+    q, k, v, km = kernel_inputs(seed, B, T, S, H, Hkv, D, key_mask, Dv)
     out, lse, lse_u = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    g_out = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    g_out = torch.randn(out.shape, generator=gen, device="cuda").to(torch.bfloat16)
     g_lse, g_lse_u = (torch.randn(B, T, H, generator=gen, device="cuda") for _ in range(2))
     args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u, causal, None, need_unmasked)
     got = tfb._launch_backward(*args)
@@ -1114,7 +1165,8 @@ def check_backward(label, seed, B, T, S, H, Hkv, key_mask, causal, need_unmasked
         yardstick = (f"; yardstick: scaled_dot_product_attention backward (causal, no key "
                      f"mask, no lse cotangents; device time) {bwd_ms:.4f} ms (its forward "
                      f"{fwd_ms:.4f} ms)")
-    log(f"[kernels] {label}: backward B{B} T{T} S{S} H{H}/{Hkv} D128 causal={causal} "
+    widths = f"D{D}" if Dv == D else f"D{D}/{Dv}"
+    log(f"[kernels] {label}: backward B{B} T{T} S{S} H{H}/{Hkv} {widths} causal={causal} "
         f"need_unmasked={need_unmasked}: max err / max |ref| dq {errs['dq']:.3e} "
         f"dk {errs['dk']:.3e} dv {errs['dv']:.3e} (tol {TOL_BWD_BF16}: one bf16 rounding "
         f"of an fp32 sum), second launch bit-identical; flash_bwd_dq {ms['flash_bwd_dq']:.4f} ms "
@@ -1157,6 +1209,7 @@ def phase_backward_kernels():
     return summary
 
 
+# with the latent-attention pair (mla_bwd_dq_mma_kernel, mla_bwd_dkv_mma_kernel): 4
 BWD_MMA_KERNELS = ("bwd_dq_mma_kernel", "bwd_dkv_mma_kernel")
 
 
@@ -6281,6 +6334,222 @@ def phase_model_axis():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: Kimi-VL-A3B: latent attention's kernels and its MimIC train step
+# ---------------------------------------------------------------------------
+
+# the passes of the kimi-vl-a3b.mimic-train-8shot cell: B2, record pass 5376
+# tokens (8 demo images and the query image), shift pass 768 (the query image)
+KIMI_RECORD_LEN, KIMI_SHIFT_LEN = 5376, 768
+# Kimi-VL's chat format around each demo and the query (an <image> becomes one
+# token a 2 x 2 patch merge of that image)
+KIMI_DEMO = ("<|im_user|>user<|im_middle|><|media_start|>image<|media_content|><image>"
+             "<|media_end|>{q}<|im_end|><|im_assistant|>assistant<|im_middle|>{a}<|im_end|>")
+KIMI_QUERY = ("<|im_user|>user<|im_middle|><|media_start|>image<|media_content|><image>"
+              "<|media_end|>{q}<|im_end|><|im_assistant|>assistant<|im_middle|>")
+# COCO's sizes (h, w), as the cell draws them
+KIMI_IMAGE_SIZES = ((480, 640), (640, 480), (427, 640), (480, 640), (640, 427), (480, 640),
+                    (512, 640), (480, 640), (640, 480))
+# routed experts' grouped products: rows a pass, experts a row, experts, D, F
+KIMI_MOE = dict(k=6, E=64, D=2048, F=1408)
+
+
+def right_padded_mask(B, S, pads):
+    km = np.ones((B, S), np.int32)
+    for b, p in enumerate(pads):
+        km[b, S - p:] = 0
+    return km
+
+
+def phase_mla_kernels():
+    """Latent attention's instantiations (q / k heads 192 wide, v heads 128,
+    bf16) through their wrappers at the Kimi-VL cell's shapes, against the
+    plain versions by phase 2's tolerances: flash_fwd at the record pass (B2
+    H16 T=S=5376, causal, right-padded keys, no lse_u; beside it
+    scaled_dot_product_attention on the same q, k, v and mask, which returns out
+    without lse), onepass_fwd at the shift pass (B2 T=S=768, causal, lse_u),
+    and the backward pair there (lse_u carries gradient).  Then the routed
+    experts' grouped products (torch._grouped_mm) at both passes' rows, timed
+    beside their bound.  Returns the kernels line's entries, by MLA_RESULT name."""
+    from mimic_tpu_torch.ops import flash_attention as tfa
+
+    if (192, 128) not in tfa.KERNEL_HEAD_DIMS:
+        raise AssertionError(f"the kernels take no (192, 128): {tfa.KERNEL_HEAD_DIMS}")
+    R, Q = KIMI_RECORD_LEN, KIMI_SHIFT_LEN
+    summary = {}
+    for r in (
+        check_kernel("mla-record", "flash_fwd", 40, 2, R, R, 16, 16, 192,
+                     right_padded_mask(2, R, [37, 290]), True, False, 10, 1, Dv=128),
+        check_kernel("mla-shift", "onepass_fwd", 41, 2, Q, Q, 16, 16, 192,
+                     right_padded_mask(2, Q, [0, 141]), True, True, 20, 5, Dv=128),
+        *check_backward("mla-bwd-shift", 42, 2, Q, Q, 16, 16, right_padded_mask(2, Q, [0, 141]),
+                        True, True, 20, D=192, Dv=128),
+    ):
+        summary[f"{r['name']}_192_128"] = {"max_abs_err": r["max_abs_err"],
+                                          **{k: r[k] for k in TIMING_KEYS}}
+    m = KIMI_MOE
+    offs_of = {}
+    for rows in (2 * Q, 2 * R):
+        n = rows * m["k"]
+        gen = torch.Generator(device="cuda").manual_seed(rows)
+        # every expert gets rows, unevenly, as a router would send them
+        cuts = torch.rand(m["E"], generator=gen, device="cuda") + 0.5
+        offs_of[rows] = (cuts.cumsum(0) / cuts.sum() * n).round().to(torch.int32)
+        offs_of[rows][-1] = n
+        for what, K, N in (("gate / up", m["D"], m["F"]), ("down", m["F"], m["D"])):
+            x = torch.randn(n, K, generator=gen, device="cuda").to(torch.bfloat16)
+            w = torch.randn(m["E"], K, N, generator=gen, device="cuda").to(torch.bfloat16)
+            offs = offs_of[rows]
+            ms = cuda_ms(lambda: torch._grouped_mm(x, w, offs=offs), 20)
+            b = bound(nbytes(x, w) + n * N * 2, 2 * n * K * N, "bf16")
+            log(f"[kernels] grouped product {what}: {rows} rows x {m['k']} experts over "
+                f"{m['E']}, [{n}, {K}] x [{m['E']}, {K}, {N}]: torch._grouped_mm {ms:.4f} ms "
+                f"({b['bound_ms'] / ms:.1%} of its bound), {bound_text(b)}")
+            del x, w
+    torch.cuda.empty_cache()
+    return summary
+
+
+def kimi_train_batch(runner, enc, seed=5):
+    """One B2 MimIC batch for Kimi-VL through the port's own collator: per row
+    an instruction, 8 demos and the query in Kimi's chat format, nine images at
+    COCO's sizes at native resolution."""
+    from mimic_tpu_torch.train.collate import TrainCollator
+
+    rng = np.random.default_rng(seed)
+    rows = {"prefix_texts": [], "query_texts": [], "answers": [], "images": []}
+    for r in range(2):
+        demos = "".join(KIMI_DEMO.format(q=synthetic_text(seed + 10 * r + i, 32 + 6 * i),
+                                         a=synthetic_text(seed + 10 * r + i + 5, 3))
+                        for i in range(8))
+        rows["prefix_texts"].append("<|im_system|>system<|im_middle|>Provide an answer to the "
+                                    "question. Use the image to answer.<|im_end|>" + demos)
+        rows["query_texts"].append(KIMI_QUERY.format(q=synthetic_text(seed + 100 + r, 44 + 16 * r)))
+        rows["answers"].append(synthetic_text(seed + 200 + r, 3 - r))
+        sizes = KIMI_IMAGE_SIZES[r:] + KIMI_IMAGE_SIZES[:r]
+        rows["images"].append([rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+                               for h, w in sizes])
+    return TrainCollator(runner.processor, enc.strategy(), pad_multiple=256)(rows)
+
+
+def phase_kimi_step():
+    """build_model("kimi-vl-a3b-instruct") whole and at its published widths,
+    random bf16 weights made on the card, the mimic preset's shift, and the
+    MimIC train step (make_train_step, attn_impl="flash") on kimi_train_batch.
+    One warm-up step, then 3 counted steps in which every attention launch is
+    counted by its head widths, and every MoE block runs under
+    torch.cuda.set_sync_debug_mode("error"), so that a host sync inside one
+    raises.  The decoder's 27 layers take the (192, 128) kernels in both passes
+    and the backward pair in layers 1-26 (layer 0's q, k and v carry no
+    gradient); no decoder call leaves "flash"; loss and gradient norm finite.
+    Returns the counts of the kernels line's MLA entries."""
+    import collections
+
+    from mimic_tpu_torch.config import get_preset
+    from mimic_tpu_torch.models import decoder as tdec
+    from mimic_tpu_torch.models.factory import build_model
+    from mimic_tpu_torch.ops import flash_attention as tfa
+    from mimic_tpu_torch.ops import flash_backward as tfb
+    from mimic_tpu_torch.shift.params import init_shift_params
+    from mimic_tpu_torch.train import step as ts
+    from mimic_tpu_torch.train.optim import build_optimizer
+    from mimic_tpu_torch.bridge import tree_leaves
+
+    t = time.perf_counter()
+    runner = build_model("kimi-vl-a3b-instruct", dtype=torch.bfloat16)
+    cfg, frozen = runner.cfg, runner.params
+    torch.cuda.synchronize()
+    L = cfg.text.num_layers
+    n_frozen = sum(x.numel() for x in tree_leaves(frozen))
+    log(f"[kimi] kimi-vl-a3b-instruct: {n_frozen / 1e9:.3f} B bf16 parameters made on the card "
+        f"in {time.perf_counter() - t:.1f} s; {L} text layers, "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB")
+    enc, peft = get_preset("mimic")
+    shift = init_shift_params(enc, cfg.text, torch.Generator(device="cuda").manual_seed(2),
+                              torch.device("cuda"))
+    trainable = {"shift": shift}
+    tx = build_optimizer(trainable, lr=peft.lr, weight_decay=1e-3, warmup_steps=10,
+                         total_steps=1000, grad_clip=1.0)
+    step = ts.make_train_step(cfg, enc, tx, ce_loss_weight=peft.ce_loss_weight,
+                              align_loss_weight=peft.align_loss_weight, attn_impl="flash",
+                              logz2="unmasked")
+    state = ts.TrainState(trainable, tx.init(trainable), 0)
+    hb = kimi_train_batch(runner, enc)
+    batch = ts.to_device_batch(hb, torch.device("cuda"))
+    T_rec, T_shift = batch["full_ids"].shape[1], batch["query_ids"].shape[1]
+    log(f"[kimi] shift {', '.join(f'{k} {tuple(v.shape)}' for k, v in shift.items())}; batch B2, "
+        f"record pass {T_rec} tokens ({int(batch['full_mask'].sum())} real) with "
+        f"{batch['full_pixels'].shape[1]} images of up to {batch['full_pixels'].shape[2]} patches, "
+        f"shift pass {T_shift} tokens (the cell: {KIMI_RECORD_LEN} and {KIMI_SHIFT_LEN})")
+
+    seen = collections.Counter()
+    launch_fwd, launch_bwd, block = tfa._launch, tfb._launch_backward, tdec.moe_block
+
+    def by_widths(module, fn):
+        def counted(*args, **kw):
+            q, k, v = (args[1:4] if module is tfa else args[:3])
+            before = dict(module.LAUNCHES)
+            out = fn(*args, **kw)
+            for name, n in module.LAUNCHES.items():
+                if n > before[name]:
+                    seen[(name, q.shape[-1], v.shape[-1])] += n - before[name]
+            return out
+        return counted
+
+    def no_sync_block(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return block(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def run_step():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, frozen, batch)
+        m = {k: float(v) for k, v in m.items()}
+        return m, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    m, secs = run_step()
+    log(f"[kimi] warm-up step: {secs:.3f} s, loss {m['loss']:.6f}")
+    tfa._launch, tfb._launch_backward = by_widths(tfa, launch_fwd), by_widths(tfb, launch_bwd)
+    tdec.moe_block = no_sync_block
+    tdec.ATTN_PATH_LOG.clear()
+    try:
+        times = []
+        for i in range(TRAIN_STEPS):
+            m, secs = run_step()
+            times.append(secs)
+            log(f"[kimi] step {i + 1}: {secs:.3f} s; " + ", ".join(f"{k} {v:.6g}" for k, v in m.items()))
+            if not all(np.isfinite(v) for v in m.values()) or not m["grad_norm"] > 0:
+                raise AssertionError(f"Kimi-VL train metrics not finite or zero gradient: {m}")
+    finally:
+        tfa._launch, tfb._launch_backward, tdec.moe_block = launch_fwd, launch_bwd, block
+    paths = list(tdec.ATTN_PATH_LOG)
+    counts = {f"{name}@{d}/{dv}": n for (name, d, dv), n in sorted(seen.items())}
+    log(f"[kimi] {TRAIN_STEPS} counted steps: {', '.join(f'{x:.3f}' for x in times)} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; attention launches by head "
+        f"widths {counts}; decoder attention paths {paths}; every MoE block ran without a host "
+        f"sync (set_sync_debug_mode error)")
+    if paths != ["flash"] * (2 * TRAIN_STEPS):
+        raise AssertionError(f"a decoder call of the Kimi-VL step left the flash path: {paths}")
+    mla = {f"{name}_192_128": seen[(name, 192, 128)] // TRAIN_STEPS
+           for name in (*tfa.LAUNCHES, *tfb.LAUNCHES)}
+    want = {"forward": 2 * L, "flash_bwd_dq_192_128": L - 1, "flash_bwd_dkv_192_128": L - 1}
+    got = {"forward": mla["flash_fwd_192_128"] + mla["onepass_fwd_192_128"],
+           "flash_bwd_dq_192_128": mla["flash_bwd_dq_192_128"],
+           "flash_bwd_dkv_192_128": mla["flash_bwd_dkv_192_128"]}
+    other = {key: n for key, n in counts.items() if not key.endswith(("@192/128", "@72/72"))}
+    if got != want or other:
+        raise AssertionError(f"Kimi-VL step: (192, 128) launches a step {got}, want {want}; "
+                             f"at other widths {other}")
+    del runner, frozen, state, batch
+    torch.cuda.empty_cache()
+    return {"Kimi-VL step": {name: n * TRAIN_STEPS for name, n in mla.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available (torch.cuda.is_available() is False)",
@@ -6319,8 +6588,9 @@ def main() -> int:
 
     if sys.argv[1:] == ["--attention-only"]:
         phase_kernels()
-        # head dims 64, 72, 80 and 128, each with and without lse_u
-        sass_counts(info["path"], ("attn_fwd_mma_kernel",), ("HGMMA", "UTMALDG"), 8)
+        # head dims 64, 72, 80, 128 and latent attention's 192 / 128, each with and
+        # without lse_u
+        sass_counts(info["path"], ("attn_fwd_mma_kernel",), ("HGMMA", "UTMALDG"), 10)
         log("[card] partial run (--attention-only): phase 2's forward kernels passed; "
             "no result line")
         return 3
@@ -6350,9 +6620,19 @@ def main() -> int:
         phase_backward_kernels()
         if other is None:
             backward_split_sweep()
-            sass_counts(info["path"], BWD_MMA_KERNELS, ("HGMMA",), 2)
+            sass_counts(info["path"], BWD_MMA_KERNELS, ("HGMMA",), 4)
         log(f"[card] partial run (--backward-only{'' if other is None else ' ' + other}): "
             "phase 2's backward kernels passed; no result line")
+        return 3
+
+    if sys.argv[1:] == ["--mla-only"]:
+        phase_mla_kernels()
+        # the latent-attention instantiations: the forward with and without lse_u, the
+        # backward pair
+        sass_counts(info["path"], ("mla_attn_fwd_mma_kernel", "mla_bwd_dq_mma_kernel",
+                                   "mla_bwd_dkv_mma_kernel"), ("HGMMA",), 4)
+        phase_kimi_step()
+        log("[card] partial run (--mla-only): phase 20 passed; no result line")
         return 3
 
     if sys.argv[1:] == ["--norms-only"]:
@@ -6443,6 +6723,7 @@ def main() -> int:
     summary = timed("phase 2 kernels", phase_kernels)
     summary.update(timed("phase 2 backward kernels", phase_backward_kernels))
     summary.update(timed("phase 2 row-norm kernel", phase_norm_kernels))
+    summary.update(timed("phase 20 latent-attention kernels", phase_mla_kernels))
     summary.update(timed("phase 6 int8 kernels", phase_int8_kernels))
     timed("phase 6 qdot cut-off", int8_crossover)
     summary.update(timed("phase 9 W8A8 kernels", phase_w8a8_kernels))
@@ -6468,6 +6749,7 @@ def main() -> int:
     llava_launches, llava_kernels = timed("phase 15 llava", phase_llava)
     headsplit_launches = phase_headsplit()
     model_axis_launches = phase_model_axis()
+    kimi_launches = timed("phase 20 Kimi-VL step", phase_kimi_step)
     # the kernels at idefics-9b's and llava's shapes: their errors count, the times
     # stay those of the main-path shapes above
     for r in idefics_kernels + llava_kernels:
@@ -6479,13 +6761,13 @@ def main() -> int:
     # prefix steps and calls, the LoRA eval, the serve engine's runs and the
     # tracing utilities, int8 serving, the W8A8 eval, the idefics-9b ICL calls
     # and train steps, the llava calls, step and eval, the head split's ranks,
-    # the model axis's ranks),
+    # the model axis's ranks, the Kimi-VL step),
     # each driven with the counts at 0 and read just after, summed
     paths = {"serving": serve_launches, "training": train_launches, **cache_launches,
              **peft_launches, **serve_engine_launches, **parallel_launches,
              "int8 serving": int8_launches,
              "W8A8 eval": eval_launches, **idefics_launches, **llava_launches,
-             **headsplit_launches, **model_axis_launches}
+             **headsplit_launches, **model_axis_launches, **kimi_launches}
     launches = {name: sum(d.get(name, 0) for d in paths.values()) for name in RESULT_META}
     log("[card] kernel launches: " + ", ".join(f"{k} {v}" for k, v in paths.items()))
     if min(launches.values()) == 0:
@@ -6494,7 +6776,7 @@ def main() -> int:
         {"name": name, **RESULT_META[name], "launches": launches[name], **summary[name]}
         for name in ("onepass_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                      "int8_matmul", "fused_mlp_int8", "prompt_attn_int8", "w8a8_matmul",
-                     "quantize_rows", "row_norm")
+                     "quantize_rows", "row_norm", *MLA_RESULT)
     ]
     for k in kernels:
         missing = [key for key in ("max_abs_err", *TIMING_KEYS) if key not in k]

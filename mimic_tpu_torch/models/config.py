@@ -40,6 +40,38 @@ class TextConfig:
     cross_attn_interval: Optional[int] = None
     # width of the cross-attention key/value inputs (perceiver output dim)
     cross_kv_dim: Optional[int] = None
+    # multi-head latent attention (DeepSeek-V3's, Kimi-VL's; on when kv_lora_rank
+    # is set): q heads of qk_nope + qk_rope, one shared rope key, k_nope and v
+    # from an RMS-normed latent of kv_lora_rank
+    kv_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
+    # routed experts (on when n_routed_experts is set) in the layers from
+    # first_k_dense_replace on: sigmoid scores, the top num_experts_per_tok by
+    # score plus a correction bias, their scores normalised and scaled by
+    # routed_scaling_factor, and n_shared_experts experts' width on every token
+    n_routed_experts: Optional[int] = None
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    n_shared_experts: int = 0
+    first_k_dense_replace: int = 0
+    routed_scaling_factor: float = 1.0
+
+    @property
+    def qk_head_size(self) -> int:
+        mla = self.kv_lora_rank is not None
+        return self.qk_nope_head_dim + self.qk_rope_head_dim if mla else self.head_size
+
+    @property
+    def v_head_size(self) -> int:
+        return self.v_head_dim if self.kv_lora_rank is not None else self.head_size
+
+    @property
+    def num_moe_layers(self) -> int:
+        if self.n_routed_experts is None:
+            return 0
+        return self.num_layers - self.first_k_dense_replace
 
     @property
     def head_size(self) -> int:
@@ -70,6 +102,13 @@ class VisionConfig:
     # llava takes vision_feature_layer=-2: features leave the tower before the
     # final norm, so the post-layernorm is skipped entirely
     post_layernorm: bool = True
+    # MoonViT (Kimi-VL): each image at its own resolution (image_size / patch_size
+    # is the side of the position table, interpolated to each image's patch grid),
+    # at most in_token_limit patches an image, 2D RoPE (rope_theta) on q and k, and
+    # merge_kernel x merge_kernel patches merged into one token
+    in_token_limit: int = 0
+    merge_kernel: int = 1
+    rope_theta: float = 10000.0
 
     @property
     def num_patches(self) -> int:
@@ -242,6 +281,8 @@ def tiny_text(family: str = "idefics2", **kw) -> ModelConfig:
     elif family == "llava-interleave":
         base.update(attn_bias=True)
     base.update(kw)
+    if family == "kimi-vl":
+        return tiny_kimi_vl(**kw)
     if family == "text":
         # text-only tower (reference mistral/qwen2 testbed wrapper surface)
         return ModelConfig(
@@ -356,6 +397,73 @@ def qwen2_7b() -> ModelConfig:
     )
 
 
+def kimi_vl_a3b_instruct() -> ModelConfig:
+    """Kimi-VL-A3B-Instruct: a DeepSeek-V3-style tower (MLA without a q LoRA,
+    64 routed experts and 2 shared ones from layer 1 on) and MoonViT at native
+    resolution with a 2 x 2 patch merge and an MLP projector."""
+    return ModelConfig(
+        name="kimi-vl-a3b-instruct",
+        family="kimi-vl",
+        text=TextConfig(
+            vocab_size=163840,
+            hidden_size=2048,
+            num_layers=27,
+            num_heads=16,
+            num_kv_heads=16,
+            intermediate_size=11264,
+            norm_eps=1e-5,
+            rope_theta=800000.0,
+            max_position_embeddings=131072,
+            kv_lora_rank=512,
+            qk_nope_head_dim=128,
+            qk_rope_head_dim=64,
+            v_head_dim=128,
+            n_routed_experts=64,
+            num_experts_per_tok=6,
+            moe_intermediate_size=1408,
+            n_shared_experts=2,
+            first_k_dense_replace=1,
+            routed_scaling_factor=2.446,
+        ),
+        vision=VisionConfig(
+            hidden_size=1152,
+            num_layers=27,
+            num_heads=16,
+            intermediate_size=4304,
+            image_size=64 * 14,  # the 64 x 64 position table
+            patch_size=14,
+            norm_eps=1e-5,
+            hidden_act="gelu_tanh",
+            in_token_limit=4096,
+            merge_kernel=2,
+        ),
+    )
+
+
+def tiny_kimi_vl(**kw) -> ModelConfig:
+    """``kimi_vl_a3b_instruct``'s structure at test widths: q/k heads 24 wide,
+    v heads 16, 8 experts (3 a token), an 8 x 8 position table."""
+    text = dict(
+        vocab_size=256, hidden_size=64, num_layers=3, num_heads=4, num_kv_heads=4,
+        intermediate_size=128, rope_theta=800000.0, kv_lora_rank=16, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8, num_experts_per_tok=3,
+        moe_intermediate_size=32, n_shared_experts=1, first_k_dense_replace=1,
+        routed_scaling_factor=2.446,
+    )
+    text.update(kw)
+    return ModelConfig(
+        name="tiny-kimi-vl",
+        family="kimi-vl",
+        text=TextConfig(**text),
+        vision=VisionConfig(
+            hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+            image_size=8 * 14, patch_size=14, norm_eps=1e-5, in_token_limit=64,
+            merge_kernel=2,
+        ),
+        image_token_id=250, pad_token_id=0, bos_token_id=1, eos_token_id=2,
+    )
+
+
 MODEL_CONFIGS = {
     "idefics-9b": idefics_9b,
     "idefics2-8b-base": idefics2_8b_base,
@@ -363,6 +471,7 @@ MODEL_CONFIGS = {
     "llava-1.5-7b": llava_15_7b,
     "mistral-7b": mistral_7b,
     "qwen2-7b": qwen2_7b,
+    "kimi-vl-a3b-instruct": kimi_vl_a3b_instruct,
 }
 
 

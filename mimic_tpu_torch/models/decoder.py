@@ -28,6 +28,9 @@ int8 handles (as ``jax.tree.map(lambda a: a[g], ...)`` does).
 Qwen2's q/k/v biases (added after the projection, before any LoRA delta),
 self-attention qk-norms (RMS norms per head, after RoPE as in the JAX package)
 and Mistral's sliding window (the plain prefill's mask and the cached decode).
+Kimi-VL's tower (the port's alone): multi-head latent attention (``_project_mla``:
+q / k heads 192 wide, v heads 128, through the same kernels) and routed experts
+from ``first_k_dense_replace`` on (``models/moe.py``), on one rank.
 The tracing utilities' layer-input captures (``capture_layer_inputs``) and
 additive perturbations of the block outputs (``perturb_attn`` /
 ``perturb_ffn``), and the serve engine's per-row cache writes
@@ -64,11 +67,13 @@ import torch.utils.checkpoint
 
 from ..ops.decode_attention import is_quantized_kv, prompt_kv_len
 from ..ops.flash_attention import flash_attention_diff
+from ..ops.flash_backward import BWD_HEAD_DIMS
 from ..ops.quant import fused_mlp, is_quantized, qdot
 from ..ops.ring_attention import ring_attention_sharded
 from ..parallel import tp
 from ..parallel.mesh import axis_rank, axis_size, current_mesh
 from .config import TextConfig
+from .moe import moe_block
 from ..shift.functional import apply_attn_shift, apply_output_shift
 from .layers import (
     apply_rope,
@@ -82,6 +87,28 @@ from .layers import (
 )
 
 Params = Dict[str, Any]
+
+# kv_a_layernorm's eps: DeepseekV3RMSNorm's default (the published config sets none)
+KV_NORM_EPS = 1e-6
+
+
+def is_mla(cfg: TextConfig) -> bool:
+    """Whether the tower has latent attention.  The latent-attention and
+    expert fields are the port's alone: a text config without them (the JAX
+    package's dataclass) describes a dense tower of one head width."""
+    return getattr(cfg, "kv_lora_rank", None) is not None
+
+
+def head_widths(cfg: TextConfig) -> tuple:
+    """(query / key, value) head widths: ``TextConfig.qk_head_size`` and
+    ``v_head_size`` (192 / 128 for Kimi-VL's latent attention); ``head_size``
+    twice for the JAX package's config, which has neither."""
+    return (getattr(cfg, "qk_head_size", cfg.head_size), getattr(cfg, "v_head_size", cfg.head_size))
+
+
+def moe_layers(cfg: TextConfig) -> int:
+    """How many of the last layers have routed experts."""
+    return getattr(cfg, "num_moe_layers", 0)
 
 
 class DecoderOutput(NamedTuple):
@@ -126,17 +153,31 @@ def init_decoder_params(
     def dense(*shape):
         return dense_init(generator, shape, dtype, device)
 
-    layers = {
-        "input_ln": ones(L, D),
-        "q_proj": dense(L, D, H * Dh),
-        "k_proj": dense(L, D, Hkv * Dh),
-        "v_proj": dense(L, D, Hkv * Dh),
-        "o_proj": dense(L, H * Dh, D),
-        "post_ln": ones(L, D),
-        "gate_proj": dense(L, D, F),
-        "up_proj": dense(L, D, F),
-        "down_proj": dense(L, F, D),
-    }
+    if is_mla(cfg):
+        (Dq, Dv), R, Dn = head_widths(cfg), cfg.kv_lora_rank, cfg.qk_nope_head_dim
+        layers = {
+            "input_ln": ones(L, D),
+            "q_proj": dense(L, D, H * Dq),
+            "kv_a_proj": dense(L, D, R + cfg.qk_rope_head_dim),
+            "kv_a_ln": ones(L, R),
+            "kv_b_proj": dense(L, R, H * (Dn + Dv)),
+            "o_proj": dense(L, H * Dv, D),
+            "post_ln": ones(L, D),
+        }
+    else:
+        layers = {
+            "input_ln": ones(L, D),
+            "q_proj": dense(L, D, H * Dh),
+            "k_proj": dense(L, D, Hkv * Dh),
+            "v_proj": dense(L, D, Hkv * Dh),
+            "o_proj": dense(L, H * Dh, D),
+            "post_ln": ones(L, D),
+        }
+    moe = moe_layers(cfg)
+    mlp = {"gate_proj": lambda n: dense(n, D, F), "up_proj": lambda n: dense(n, D, F),
+           "down_proj": lambda n: dense(n, F, D)}
+    if not moe:
+        layers.update({name: make(L) for name, make in mlp.items()})
     if cfg.attn_bias:
         # qwen2: biases on q/k/v, never quantized (JAX ops/quant.py:175)
         layers["q_bias"] = torch.zeros(L, H * Dh, dtype=dtype, device=device)
@@ -146,6 +187,21 @@ def init_decoder_params(
         layers["q_ln"] = ones(L, Dh)
         layers["k_ln"] = ones(L, Dh)
     params: Params = {"layers": layers, "final_ln": ones(D)}
+    if moe:
+        # the leading dense layers, then the expert layers
+        params["dense"] = {name: make(L - moe) for name, make in mlp.items()}
+        E, Fe = cfg.n_routed_experts, cfg.moe_intermediate_size
+        Fs = Fe * cfg.n_shared_experts
+        params["moe"] = {
+            "router": dense(moe, D, E),
+            "router_bias": torch.zeros(moe, E, dtype=dtype, device=device),
+            "gate": dense(moe, E, D, Fe),
+            "up": dense(moe, E, D, Fe),
+            "down": dense(moe, E, Fe, D),
+            "shared_gate": dense(moe, D, Fs),
+            "shared_up": dense(moe, D, Fs),
+            "shared_down": dense(moe, Fs, D),
+        }
     G = cfg.num_cross_layers
     if G:
         # gated cross-attention (IDEFICS-1): q from the text, k/v from image states
@@ -188,10 +244,11 @@ def init_kv_cache(
     holds int8 handles: ``handles``, see ``tp.head_region``)."""
     kv_heads = tp.head_region(cfg.num_heads, cfg.num_kv_heads, cfg.head_size,
                               handles=handles)[1]
-    shape = (cfg.num_layers, batch, max_len, kv_heads, cfg.head_size)
+    # latent attention caches each head's whole key (q/k width) and value
+    shape = (cfg.num_layers, batch, max_len, kv_heads)
     return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "k": torch.zeros(shape + head_widths(cfg)[:1], dtype=dtype, device=device),
+        "v": torch.zeros(shape + head_widths(cfg)[1:], dtype=dtype, device=device),
         "length": 0,
     }
 
@@ -252,7 +309,7 @@ def _attn_out(attn: torch.Tensor, o_proj: Any, cfg: TextConfig) -> tuple:
     """(the attention output [B,T,H·Dh] cut to this rank's rows of ``o_proj``,
     whether those rows are split): in a gathered region the rows are scattered
     out of every head's output; an int8 handle's rows are whole."""
-    full = cfg.num_heads * cfg.head_size
+    full = cfg.num_heads * head_widths(cfg)[1]
     rows_split = not isinstance(o_proj, dict) and tp.is_split(o_proj, 0, full, "o_proj")
     flat = attn.reshape(*attn.shape[:2], -1)
     return tp.scatter_to_region(flat, tp.split_width(full) if rows_split else full), rows_split
@@ -296,6 +353,31 @@ def _project_qkv(
         out.append(tp.gather_from_region(y if delta is None else y + delta, heads * Dh))
     q, k, v = out
     return q.reshape(B, T, H, Dh), k.reshape(B, T, Hkv, Dh), v.reshape(B, T, Hkv, Dh)
+
+
+def _deinterleave(x: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's rotary layout: the pairs (2i, 2i + 1) of the last axis
+    become the halves (i, d/2 + i) that ``apply_rope`` rotates."""
+    *lead, d = x.shape
+    return x.reshape(*lead, d // 2, 2).transpose(-1, -2).reshape(*lead, d)
+
+
+def _project_mla(lp: Params, x: torch.Tensor, cfg: TextConfig, cos, sin):
+    """Latent attention's q [B,T,H,nope+rope], k [B,T,H,nope+rope] and v
+    [B,T,H,Dv], RoPE applied: q from ``q_proj`` (no q LoRA); ``kv_a_proj``
+    gives the latent (RMS-normed by ``kv_a_ln``, then ``kv_b_proj`` to each
+    head's k_nope and v) and one rope key that every head shares."""
+    B, T, _ = x.shape
+    H, Dn, Dr, R = cfg.num_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+    q = qdot(x, lp["q_proj"]).reshape(B, T, H, Dn + Dr)
+    ckv = qdot(x, lp["kv_a_proj"])
+    kv = qdot(rms_norm(ckv[..., :R], lp["kv_a_ln"], KV_NORM_EPS), lp["kv_b_proj"])
+    kv = kv.reshape(B, T, H, Dn + cfg.v_head_dim)
+    q_pe, k_pe = apply_rope(_deinterleave(q[..., Dn:]), _deinterleave(ckv[..., None, R:]),
+                            cos, sin)
+    q = torch.cat([q[..., :Dn], q_pe], dim=-1)
+    k = torch.cat([kv[..., :Dn], k_pe.expand(B, T, H, Dr)], dim=-1)
+    return q, k, kv[..., Dn:]
 
 
 def _merge_prefix(q, attn_f, lse_f, lse_u_f, prefix_k, prefix_v, G):
@@ -353,8 +435,11 @@ def _self_attention(
     ``_merge_prefix`` adds them.  ``ring``: (mesh, sequence axis, batch axis)
     of the ring attention path.  ``region``: the call's ``tp.head_region``."""
     B, T, _ = x.shape
-    q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate, region)
-    q, k = apply_rope(q, k, cos, sin)
+    if is_mla(cfg):
+        q, k, v = _project_mla(lp, x, cfg, cos, sin)
+    else:
+        q, k, v = _project_qkv(lp, ad, x, cfg, lora_scaling, keeps, drop_rate, region)
+        q, k = apply_rope(q, k, cos, sin)
     if cfg.qk_layernorm:
         # after RoPE, as the JAX package orders them (HF's Qwen3 norms before it)
         q = rms_norm(q, lp["q_ln"], cfg.norm_eps)
@@ -568,7 +653,14 @@ def decoder_forward(
     B, T, D = input_embeds.shape
     if cache_write_pos is not None and (kv_cache is None or T != 1):
         raise ValueError("cache_write_pos needs a kv_cache and a one-token step (T = 1)")
-    cos, sin = rope_cos_sin(position_ids, cfg.head_size, cfg.rope_theta, input_embeds.dtype)
+    if (is_mla(cfg) or moe_layers(cfg)) and (
+            tp.model_size() > 1 or ring_mesh is not None or adapters or prefix_flash_len
+            or holds_handles(params)):
+        raise ValueError(
+            "latent attention and routed experts run on one rank, in bf16 or fp32, without "
+            "LoRA or prefix tuning: no model axis, ring, LoRA, prefix or int8 weights")
+    rope_dim = cfg.qk_rope_head_dim if is_mla(cfg) else cfg.head_size
+    cos, sin = rope_cos_sin(position_ids, rope_dim, cfg.rope_theta, input_embeds.dtype)
 
     shift = shift or {}
     adapters = adapters or {}
@@ -625,6 +717,8 @@ def decoder_forward(
     remat = remat and torch.is_grad_enabled()
 
     layers = params["layers"]
+    n_dense = cfg.num_layers - moe_layers(cfg)
+    mlps = params.get("dense"), params.get("moe")
     write_at = cache_len - prompt_len
 
     def capture(x: torch.Tensor) -> torch.Tensor:
@@ -675,7 +769,13 @@ def decoder_forward(
         h = residual + attn_out
         residual = h
         hn = rms_norm(h, lp["post_ln"], cfg.norm_eps)
-        if "gateup_proj" in lp:
+        if mlps[1] is not None and l >= n_dense:
+            ffn_out = moe_block(hn, {name: w[l - n_dense] for name, w in mlps[1].items()}, cfg)
+        elif mlps[0] is not None:
+            mp = {name: w[l] for name, w in mlps[0].items()}
+            ffn_out = _mlp(hn, mp["gate_proj"], mp["up_proj"], mp["down_proj"],
+                           cfg.intermediate_size)
+        elif "gateup_proj" in lp:
             # decode-sized M on the card: the whole MLP in one kernel; else the
             # two-qdot path (JAX decoder.py:541-552)
             ffn_out = fused_mlp(hn, lp["gateup_proj"], lp["down_proj"])
@@ -802,7 +902,11 @@ def select_attn_path(
     """Which attention implementation a decoder_forward call uses.
 
     - ``"flash"``: the attention kernels — cacheless, 2D key mask present,
-      128-aligned T and head size, no sliding window narrower than T;
+      128-aligned T, query / key and value head widths a pair that both the
+      forward and the backward kernels take (``BWD_HEAD_DIMS``: 128 / 128,
+      and latent attention's 192 / 128), no sliding window narrower than T.
+      A latent-attention tower on the card asked for ``"flash"`` that cannot
+      take the kernels raises: its heads have no other path on the card;
     - ``"ring"``: the sequence-parallel ring over ``ring_axis`` of
       ``ring_mesh`` — long cacheless sequences whose length splits over the
       axis (the record pass of a >32-shot MimIC step and, at JAX's default
@@ -818,11 +922,15 @@ def select_attn_path(
         return "cached"
 
     def flash_ok(t):
-        return (has_key_mask and t % 128 == 0 and cfg.head_size % 128 == 0
+        return (has_key_mask and t % 128 == 0
+                and head_widths(cfg) in BWD_HEAD_DIMS
                 and (cfg.sliding_window is None or t <= cfg.sliding_window))
 
     if attn_impl == "flash" and flash_ok(T):
         return "flash"
+    if attn_impl == "flash" and on_card and is_mla(cfg):
+        raise ValueError(f"latent attention on the card takes the kernels: T {T} must be a "
+                         f"multiple of 128 with a key mask")
     if attn_impl != "ring":
         return "xla"
     if has_key_mask and ring_mesh is not None and cfg.sliding_window is None:

@@ -248,7 +248,7 @@ def beam_generate(
     dev = last_logits.device
 
     L, _, _, Hkv, Dh = cache["k"].shape
-    gen_shape = (L, B * K, max_new_tokens, Hkv, Dh)
+    gen_shape = (L, B * K, max_new_tokens, Hkv)  # then k's and v's head widths
     prompt_k, prompt_v = cache["k"][:, :, :Tp], cache["v"][:, :, :Tp]
     if quant_kv is None:
         quant_kv = decode_params is not None and Tp >= QUANT_KV_MIN_PROMPT
@@ -264,8 +264,8 @@ def beam_generate(
     cache = {
         "prompt_k": prompt_k,
         "prompt_v": prompt_v,
-        "k": torch.zeros(gen_shape, dtype=cache["k"].dtype, device=dev),
-        "v": torch.zeros(gen_shape, dtype=cache["v"].dtype, device=dev),
+        "k": torch.zeros(gen_shape + (Dh,), dtype=cache["k"].dtype, device=dev),
+        "v": torch.zeros(gen_shape + cache["v"].shape[-1:], dtype=cache["v"].dtype, device=dev),
         "length": cache_len,
     }
     if image_feats is not None:

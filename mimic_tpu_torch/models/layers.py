@@ -126,9 +126,9 @@ def unmasked_lse(
 def cached_attention(
     q: torch.Tensor,        # [B,T,H,D] current queries
     k_new: torch.Tensor,    # [B,T,Hkv,D] current keys (kv heads, not expanded)
-    v_new: torch.Tensor,    # [B,T,Hkv,D]
+    v_new: torch.Tensor,    # [B,T,Hkv,Dv] (Dv = D but for latent attention)
     cache_k: torch.Tensor,  # [B,S,Hkv,D] read-only cache
-    cache_v: torch.Tensor,  # [B,S,Hkv,D]
+    cache_v: torch.Tensor,  # [B,S,Hkv,Dv]
     cache_len: int,         # number of written timeline slots
     key_mask: torch.Tensor,  # [B,S] slot validity over cache_k's region
     key_mask_new: torch.Tensor,  # [B,T] validity of the current block's tokens
@@ -177,7 +177,7 @@ def cached_attention(
             q, k_new, v_new, cache_k, cache_v, cache_len, key_mask, key_mask_new, scale,
             prompt_k, prompt_v, prompt_mask,
         )
-    S, Hkv = cache_k.shape[1], cache_k.shape[2]
+    S, Hkv, Dv = cache_k.shape[1], cache_k.shape[2], cache_v.shape[-1]
     G = H // Hkv
     scale = scale if scale is not None else 1.0 / (D**0.5)
     dev = q.device
@@ -233,7 +233,7 @@ def cached_attention(
     all_scores = torch.cat(parts, dim=-1)
     lse = torch.logsumexp(all_scores, dim=-1)  # [B,Hkv,G,T]
     p = torch.exp(all_scores - lse[..., None]).to(cache_v.dtype).float()
-    out = torch.zeros(B, T, Hkv, G, D, dtype=torch.float32, device=dev)
+    out = torch.zeros(B, T, Hkv, G, Dv, dtype=torch.float32, device=dev)
     off = 0
     if s_prompt is not None:
         # fold the prompt probabilities back to B0×(Kb·G) so prompt_v is read once
@@ -245,16 +245,16 @@ def cached_attention(
         )
         o_p = torch.einsum(
             "bkgts,bskd->btkgd", p_pf, prompt_v.to(cache_v.dtype).float()
-        )  # [B0,T,Hkv,Kb*G,D]
-        o_p = o_p.reshape(B0, T, Hkv, Kb, G, D).permute(0, 3, 1, 2, 4, 5)
-        out = out + o_p.reshape(B, T, Hkv, G, D)
+        )  # [B0,T,Hkv,Kb*G,Dv]
+        o_p = o_p.reshape(B0, T, Hkv, Kb, G, Dv).permute(0, 3, 1, 2, 4, 5)
+        out = out + o_p.reshape(B, T, Hkv, G, Dv)
         off = Sp
     p_cache, p_new = p[..., off:off + S], p[..., off + S:]
     out = out + torch.einsum("bkgts,bskd->btkgd", p_cache, cache_v.float())
     out = out + torch.einsum(
         "bkgts,bskd->btkgd", p_new, v_new.to(cache_v.dtype).float()
     )
-    out = out.reshape(B, T, H, D).to(q.dtype)
+    out = out.reshape(B, T, H, Dv).to(q.dtype)
 
     lse_u = torch.logsumexp(torch.cat(u_parts, dim=-1), dim=-1) if need_unmasked else lse
 

@@ -10,6 +10,10 @@ Counterpart of ``mimic_tpu/models/lvlm.py``:
 - **idefics1**: CLIP features → perceiver resampler → 64 latents per image,
   read by the decoder's gated cross-attention (no inline tokens); each text
   row attends the images its ``image_attention_mask`` row names;
+- **kimi-vl** (kimi-vl-a3b-instruct): MoonViT at each image's own resolution,
+  2 x 2 patches merged and projected (``models/moonvit.py``), one token a
+  merged patch spliced in order, into a latent-attention tower with routed
+  experts;
 - **text** (mistral-7b, qwen2-7b): the text tower alone (``cfg.vision`` is None).
 """
 
@@ -24,6 +28,7 @@ from ..ops.decode_attention import prompt_kv_len
 from ..utils.tracing import count, span
 from .config import ModelConfig
 from .decoder import make_causal_mask, positions_from_mask
+from . import moonvit
 from .lm import LMOutput, embed_tokens, init_lm_params, lm_forward
 from .vision import (
     init_llava_projector,
@@ -37,7 +42,7 @@ from .vision import (
 Params = Dict[str, Any]
 
 
-PORTED_FAMILIES = ("idefics2", "idefics1", "llava-interleave", "text")
+PORTED_FAMILIES = ("idefics2", "idefics1", "llava-interleave", "kimi-vl", "text")
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -67,6 +72,11 @@ def init_lvlm_params(
             params["projector"] = init_llava_projector(
                 cfg.vision.hidden_size, cfg.text.hidden_size, generator, device, dtype
             )
+        elif cfg.family == "kimi-vl":
+            params["projector"] = moonvit.init_projector(
+                cfg.vision.hidden_size, cfg.vision.merge_kernel, cfg.text.hidden_size,
+                generator, device, dtype,
+            )
     return params
 
 
@@ -79,12 +89,16 @@ def encode_images(
 ) -> torch.Tensor:
     """pixel_values [B,N,H,W,C] → image tokens [B, N*S, D_text] (idefics2:
     S latents; llava: S patches), or cross-attention states [B, N*latents,
-    D_vision] (idefics1).  Counts the B*N rows the tower runs on as
+    D_vision] (idefics1); kimi-vl: pixel_values [B,N,P,p·p·3] and patch_mask
+    [B,N,P] (``models/moonvit.py``) → [B, N*P/4, D_text], each row's real
+    tokens first.  Counts the B*N rows the tower runs on as
     ``images_encoded``, inside the ``lvlm.encode_images`` span."""
     _check_family(cfg)
     B, N = pixel_values.shape[:2]
     count("images_encoded", B * N)
     with span("lvlm.encode_images"):
+        if cfg.family == "kimi-vl":
+            return moonvit.encode(params, cfg, pixel_values, patch_mask, attn_impl)
         flat = pixel_values.reshape((B * N,) + tuple(pixel_values.shape[2:]))
         flat_patch = (
             patch_mask.reshape((B * N,) + tuple(patch_mask.shape[2:]))
@@ -135,8 +149,9 @@ class LVLMBatch(NamedTuple):
 
     input_ids: torch.Tensor                       # [B,T]
     attention_mask: torch.Tensor                  # [B,T]
-    pixel_values: Optional[torch.Tensor] = None   # [B,N,H,W,C]
-    patch_mask: Optional[torch.Tensor] = None     # [B,N,nh,nw] (idefics2 aspect)
+    pixel_values: Optional[torch.Tensor] = None   # [B,N,H,W,C]; kimi-vl [B,N,P,p·p·C]
+    patch_mask: Optional[torch.Tensor] = None     # [B,N,nh,nw] (idefics2 aspect); kimi-vl
+                                                  # [B,N,P] patch positions (models/moonvit.py)
     pixel_mask: Optional[torch.Tensor] = None     # [B,N] real image slots
     image_attention_mask: Optional[torch.Tensor] = None  # [B,T,N] (idefics1)
 

@@ -174,7 +174,7 @@ class LVLMProcessor:
 
     # -- text ---------------------------------------------------------------
 
-    def expand_image_tokens(self, text: str) -> str:
+    def expand_image_tokens(self, text: str, images=None) -> str:
         img = SpecialTokens.IMAGE
         fake = SpecialTokens.FAKE_IMAGE
         if self.cfg.family == "llava-interleave":

@@ -29,6 +29,7 @@ from .feature_cache import VisionFeatureCache, image_key
 from .generate import beam_generate, greedy_generate, sample_generate
 from ..utils.tracing import count, span
 from .lvlm import PORTED_FAMILIES, LVLMBatch
+from .moonvit import MoonViTProcessor
 from .processor import ImageProcessor, LVLMProcessor
 
 # the prompt template of each family (JAX runner.py's table)
@@ -36,8 +37,10 @@ _FAMILY_TEMPLATE = {
     "idefics1": "idefics1",
     "idefics2": "idefics2",
     "llava-interleave": "llava-interleave",
-    # text-only towers (the reference's mistral / qwen2 wrappers) use the ChatML template
+    # text-only towers (the reference's mistral / qwen2 wrappers) and Kimi-VL use
+    # the ChatML template
     "text": "llava-interleave",
+    "kimi-vl": "llava-interleave",
 }
 
 
@@ -49,11 +52,10 @@ class _SpannedImageProcessor(ImageProcessor):
             return super()._resize(arr, h, w)
 
 
-class _SpannedProcessor(LVLMProcessor):
-    """``LVLMProcessor`` (a held copy of the JAX package's, left as it is) with
-    its image work (resize, rescale, normalise, padding, stacking) in a
-    ``processor.images`` span and each resize in a ``processor.resize`` span;
-    its outputs are the copy's."""
+class _Spans:
+    """A processor's image work (resize, rescale, normalise, padding,
+    stacking) in a ``processor.images`` span and each resize in a
+    ``processor.resize`` span; its outputs are the processor's own."""
 
     def __init__(self, cfg: ModelConfig, tokenizer, image_size: Optional[int] = None):
         super().__init__(cfg, tokenizer, image_size=image_size)
@@ -62,6 +64,15 @@ class _SpannedProcessor(LVLMProcessor):
     def _process_images(self, batch_images, max_images):
         with span("processor.images", device=False):
             return super()._process_images(batch_images, max_images)
+
+
+class _SpannedProcessor(_Spans, LVLMProcessor):
+    """``LVLMProcessor`` (a held copy of the JAX package's, left as it is)
+    with spans."""
+
+
+class _SpannedMoonViTProcessor(_Spans, MoonViTProcessor):
+    """Kimi-VL's native-resolution processor with spans."""
 
 
 def _round_up(n: int, m: int) -> int:
@@ -127,7 +138,8 @@ class LVLMRunner:
             self.set_quant(quant)
         self.tokenizer = tokenizer
         self.template = _FAMILY_TEMPLATE[cfg.family]
-        self.processor = _SpannedProcessor(cfg, tokenizer, image_size=image_size)
+        spanned = _SpannedMoonViTProcessor if cfg.family == "kimi-vl" else _SpannedProcessor
+        self.processor = spanned(cfg, tokenizer, image_size=image_size)
         self.shift = None
         self.adapters = None
         self.lora_scaling = 1.0
@@ -316,8 +328,11 @@ class LVLMRunner:
                     else self.apply_prompt_template(text)
                 )
                 # the padded width depends on the text alone: probe without images
+                # (Kimi-VL: on each image's size too, probed without its pixels)
                 with span("processor.probe", device=False):
-                    T = self.processor(None, rendered)["input_ids"].shape[1]
+                    probe = ((images, dict(pixels=False)) if self.cfg.family == "kimi-vl"
+                             else (None, {}))
+                    T = self.processor(probe[0], rendered, **probe[1])["input_ids"].shape[1]
                 pad_to = _round_up(T, self.pad_multiple)
                 fitting = [b for b in self.length_buckets if b >= T]
                 if fitting:

@@ -119,17 +119,17 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         # q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv, D, dtype, scale,
         # causal, need_unmasked, stream
-        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
+        fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p]
         fn.restype = i
     # D, then out: query rows per CTA, rows per warpgroup, keys per tile
-    lib.mimic_attn_fwd_tiling.argtypes = [i] + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.mimic_attn_fwd_tiling.argtypes = [i, i] + [ctypes.POINTER(ctypes.c_int)] * 3
     lib.mimic_attn_fwd_tiling.restype = i
     # q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse, g_lse_u, dq,
     # B, T, S, H, Hkv, D, dtype, scale, causal, need_unmasked, stream
-    lib.mimic_flash_bwd_dq.argtypes = [p] * 11 + [i] * 7 + [f, i, i, p]
+    lib.mimic_flash_bwd_dq.argtypes = [p] * 11 + [i] * 8 + [f, i, i, p]
     lib.mimic_flash_bwd_dq.restype = i
     # the same with dk, dv in place of dq, and the cluster split before the stream
-    lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 7 + [f, i, i, i, p]
+    lib.mimic_flash_bwd_dkv.argtypes = [p] * 12 + [i] * 8 + [f, i, i, i, p]
     lib.mimic_flash_bwd_dkv.restype = i
     # out: dq rows per CTA, dq keys per tile, dkv keys per CTA, dkv rows per tile, max split
     lib.mimic_flash_bwd_tiling.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5

@@ -58,6 +58,14 @@
 //  * Before this form: mma.sync.m16n8k16 with ldmatrix operands, four warps of 16
 //    rows (0.49 / 0.95 ms at B1 T = S = 2048, 212-240 registers); pairs of warps
 //    sharing 16 rows with half of D each (16 warps per SM) did not help.
+//  * Latent attention (Kimi-VL's MLA): q and k heads DQK = 192 wide, v and dO
+//    heads DV = 128.  The same bodies with the two widths apart: the products
+//    over q / k run three 64-column blocks, those over v / dO two, and the
+//    192-wide outputs (dq, dk) are an n128 and an n64 wgmma side by side.  No
+//    tile is padded to 192.  dq: 121 KB of shared memory, one CTA per SM (96
+//    accumulator registers for dq); dkv: 85 KB, two per SM, whose dk (96) and
+//    dv (64) accumulators are its tight part.  Their kernels have names of
+//    their own (mla_bwd_dq_mma_kernel, mla_bwd_dkv_mma_kernel).
 
 #pragma once
 
@@ -74,25 +82,36 @@ namespace bwd {
 namespace cg = cooperative_groups;
 
 constexpr int THREADS = 128;   // one warpgroup
-constexpr int D = 128;         // head dim: two 64-column blocks
 constexpr int DQ_ROWS = 64;    // query rows per dq CTA
 constexpr int DQ_KEYS = 64;    // keys per dq tile
 constexpr int DKV_KEYS = 64;   // keys per dkv CTA
 constexpr int DKV_ROWS = 32;   // query rows per dkv tile
 constexpr int MAX_SPLIT = 8;   // portable cluster size
-constexpr int RED_STRIDE = D + 8;  // floats per row of the parked fp32 sums (conflict-free float2)
 constexpr float LOG2E = 1.4426950408889634f;
 
-// bytes of a tile of `rows` rows of D bf16 (two blocks [rows][128 B])
-__host__ __device__ constexpr int tile_bytes(int rows) { return rows * 2 * 128; }
+// bytes of a tile of `rows` rows of W bf16 (W / 64 blocks [rows][128 B])
+__host__ __device__ constexpr int tile_bytes(int rows, int W) { return rows * W * 2; }
 
-// dq: Q, dO [64 rows]; two stages of K, V [64 keys]
-constexpr int DQ_SMEM = 1024 + 2 * tile_bytes(DQ_ROWS) + 2 * 2 * tile_bytes(DQ_KEYS);
-// dkv: K, V [64 keys]; two stages of Q, dO [32 rows] and 5 x 32 fp32 row scalars
-constexpr int DKV_STAGE = 2 * tile_bytes(DKV_ROWS) + 1024;
-constexpr int DKV_TILES = 2 * tile_bytes(DKV_KEYS) + 2 * DKV_STAGE;
-constexpr int DKV_RED = 2 * DKV_KEYS * RED_STRIDE * 4;
-constexpr int DKV_SMEM = 1024 + (DKV_TILES > DKV_RED ? DKV_TILES : DKV_RED);
+// the tiling of q / k heads DQK_ wide and v / dO heads DV_
+template <int DQK_, int DV_>
+struct Widths {
+  static constexpr int DQK = DQK_, DV = DV_;
+  static_assert((DQK == 128 && DV == 128) || (DQK == 192 && DV == 128),
+                "128 / 128, and latent attention's 192 / 128");
+  // floats per row of the parked fp32 sums (conflict-free float2)
+  static constexpr int RED_K = DQK + 8, RED_V = DV + 8;
+  // dq: Q, dO [64 rows]; two stages of K, V [64 keys]
+  static constexpr int DQ_SMEM = 1024 + tile_bytes(DQ_ROWS, DQK) + tile_bytes(DQ_ROWS, DV) +
+                                 2 * (tile_bytes(DQ_KEYS, DQK) + tile_bytes(DQ_KEYS, DV));
+  // dkv: K, V [64 keys]; two stages of Q, dO [32 rows] and 5 x 32 fp32 row scalars
+  static constexpr int DKV_STAGE = tile_bytes(DKV_ROWS, DQK) + tile_bytes(DKV_ROWS, DV) + 1024;
+  static constexpr int DKV_TILES =
+      tile_bytes(DKV_KEYS, DQK) + tile_bytes(DKV_KEYS, DV) + 2 * DKV_STAGE;
+  static constexpr int DKV_RED = DKV_KEYS * (RED_K + RED_V) * 4;
+  static constexpr int DKV_SMEM = 1024 + (DKV_TILES > DKV_RED ? DKV_TILES : DKV_RED);
+};
+using W128 = Widths<128, 128>;
+using WMla = Widths<192, 128>;
 
 struct Args {
   const __nv_bfloat16* q;
@@ -164,27 +183,29 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// rows r0 .. r0 + ROWS - 1 of head h of a bf16 [B, L, heads, D] array -> a tile of
-// two 64-column blocks [ROWS][128 B], 128-byte swizzled; rows at or beyond L
+// rows r0 .. r0 + ROWS - 1 of head h of a bf16 [B, L, heads, W] array -> a tile of
+// W / 64 64-column blocks [ROWS][128 B], 128-byte swizzled; rows at or beyond L
 // arrive as zeros
-template <int ROWS>
+template <int ROWS, int W>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int b, int h,
                                           int r0, int L, int heads) {
-  for (int i = threadIdx.x; i < ROWS * 16; i += THREADS) {
-    const int r = i >> 4, c = i & 15, t = r0 + r;
+  // unsigned: where W / 8 is a power of two, the division is a shift and a mask
+  constexpr unsigned CHUNKS = W / 8;  // 16-byte chunks of a row
+  for (unsigned i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS, c = i % CHUNKS, t = r0 + r;
     const bool ok = t < L;
     const __nv_bfloat16* p =
-        src + ((static_cast<size_t>(b) * L + (ok ? t : 0)) * heads + h) * D + c * 8;
+        src + ((static_cast<size_t>(b) * L + (ok ? t : 0)) * heads + h) * W + c * 8;
     cp_async16(dst + (c >> 3) * ROWS * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4), p, ok);
   }
 }
 
-// acc[ROWS_B / 2] = A[64 rows] . B[ROWS_B rows]^T over D: both tiles K-major from
+// acc[ROWS_B / 2] = A[64 rows] . B[ROWS_B rows]^T over W: both tiles K-major from
 // shared memory (the forward's Q.K^T); issued, not waited for
-template <int ROWS_A, int ROWS_B>
+template <int ROWS_A, int ROWS_B, int W>
 __device__ __forceinline__ void rows_dot(float (&acc)[ROWS_B / 2], uint32_t sA, uint32_t sB) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
+  for (int ks = 0; ks < W / 16; ++ks) {
     const uint64_t da = wg::make_desc(sA + (ks / 4) * ROWS_A * 128 + (ks % 4) * 32, 16, 1024,
                                       wg::SW_128);
     const uint64_t db = wg::make_desc(sB + (ks / 4) * ROWS_B * 128 + (ks % 4) * 32, 16, 1024,
@@ -197,16 +218,24 @@ __device__ __forceinline__ void rows_dot(float (&acc)[ROWS_B / 2], uint32_t sA, 
   }
 }
 
-// acc[64] += A . B[ROWS_B rows][D]: A in registers (ROWS_B / 16 k16 steps of the
+// acc[W / 2] += A . B[ROWS_B rows][W]: A in registers (ROWS_B / 16 k16 steps of the
 // accumulator-shaped fragment), B read MN-major (the forward's P.V); issued, not
-// waited for
-template <int ROWS_B>
-__device__ __forceinline__ void cols_dot(float (&acc)[64], const uint32_t (&a)[ROWS_B / 16][4],
+// waited for.  W = 192: columns 0..127 as n128 (blocks 0, 1) and 128..191 as n64
+// (block 2), the accumulator's atoms 0..15 and 16..23
+template <int ROWS_B, int W>
+__device__ __forceinline__ void cols_dot(float (&acc)[W / 2], const uint32_t (&a)[ROWS_B / 16][4],
                                          uint32_t sB) {
+  static_assert(W == 128 || W == 192, "one n128, or an n128 and an n64");
 #pragma unroll
-  for (int ks = 0; ks < ROWS_B / 16; ++ks)
-    wg::wgmma_rs_n128(acc, a[ks],
+  for (int ks = 0; ks < ROWS_B / 16; ++ks) {
+    wg::wgmma_rs_n128(reinterpret_cast<float(&)[64]>(acc), a[ks],
                       wg::make_desc(sB + ks * 16 * 128, ROWS_B * 128, 1024, wg::SW_128), 1);
+    if constexpr (W == 192)
+      wg::wgmma_rs_n64(reinterpret_cast<float(&)[32]>(acc[64]), a[ks],
+                       wg::make_desc(sB + 2 * ROWS_B * 128 + ks * 16 * 128, ROWS_B * 128, 1024,
+                                     wg::SW_128),
+                       1);
+  }
 }
 
 // accumulator tile [64 x 16 KS] (per warp: [2 KS][4]) -> the bf16 A fragments of KS
@@ -236,11 +265,15 @@ __device__ __forceinline__ float (&flat(float (&x)[N][4]))[4 * N] {
   return reinterpret_cast<float(&)[4 * N]>(x);
 }
 
-__global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
+template <class Wd>
+__device__ __forceinline__ void bwd_dq_body(const Args& a) {
+  constexpr int DQK = Wd::DQK, DV = Wd::DV;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sG = sQ + tile_bytes(DQ_ROWS);
-  auto sK = [&](int st) { return sG + tile_bytes(DQ_ROWS) + st * 2 * tile_bytes(DQ_KEYS); };
+  const uint32_t sG = sQ + tile_bytes(DQ_ROWS, DQK);
+  // stage st: K, then V
+  constexpr int KV_BYTES = tile_bytes(DQ_KEYS, DQK) + tile_bytes(DQ_KEYS, DV);
+  auto sK = [&](int st) { return sG + tile_bytes(DQ_ROWS, DV) + st * KV_BYTES; };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * DQ_ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -274,10 +307,10 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
   int ntiles = (a.S + DQ_KEYS - 1) / DQ_KEYS;
   if (!unm && a.causal) ntiles = min(ntiles, (q0 + DQ_ROWS - 1) / DQ_KEYS + 1);
 
-  load_tile<DQ_ROWS>(sQ, a.q, b, h, q0, a.T, a.H);
-  load_tile<DQ_ROWS>(sG, a.g_out, b, h, q0, a.T, a.H);
-  load_tile<DQ_KEYS>(sK(0), a.k, b, hk, 0, a.S, a.Hkv);
-  load_tile<DQ_KEYS>(sK(0) + tile_bytes(DQ_KEYS), a.v, b, hk, 0, a.S, a.Hkv);
+  load_tile<DQ_ROWS, DQK>(sQ, a.q, b, h, q0, a.T, a.H);
+  load_tile<DQ_ROWS, DV>(sG, a.g_out, b, h, q0, a.T, a.H);
+  load_tile<DQ_KEYS, DQK>(sK(0), a.k, b, hk, 0, a.S, a.Hkv);
+  load_tile<DQ_KEYS, DV>(sK(0) + tile_bytes(DQ_KEYS, DQK), a.v, b, hk, 0, a.S, a.Hkv);
   cp_commit();
 
   const int32_t* km = a.key_mask + static_cast<size_t>(b) * a.S;
@@ -285,14 +318,15 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
 #pragma unroll
   for (int w = 0; w < 2; ++w) mk[w] = 32 * w + lane < a.S && km[32 * w + lane] != 0;
 
-  float dq[D / 8][4];
+  float dq[DQK / 8][4];
   zero(dq);
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = it * DQ_KEYS, st = it & 1;
     if (it + 1 < ntiles) {
-      load_tile<DQ_KEYS>(sK(st ^ 1), a.k, b, hk, k0 + DQ_KEYS, a.S, a.Hkv);
-      load_tile<DQ_KEYS>(sK(st ^ 1) + tile_bytes(DQ_KEYS), a.v, b, hk, k0 + DQ_KEYS, a.S, a.Hkv);
+      load_tile<DQ_KEYS, DQK>(sK(st ^ 1), a.k, b, hk, k0 + DQ_KEYS, a.S, a.Hkv);
+      load_tile<DQ_KEYS, DV>(sK(st ^ 1) + tile_bytes(DQ_KEYS, DQK), a.v, b, hk, k0 + DQ_KEYS,
+                             a.S, a.Hkv);
     }
     cp_commit();
     uint32_t bits[2];  // bit i of word w: key k0 + 32 w + i is attendable by the key mask
@@ -307,11 +341,11 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
     // without need_unmasked a tile with no attendable (row, key) pair adds nothing
     const bool dead = (bits[0] | bits[1]) == 0u || (a.causal && k0 > q0 + DQ_ROWS - 1);
     if (unm || !dead) {
-      const uint32_t sKt = sK(st), sVt = sKt + tile_bytes(DQ_KEYS);
+      const uint32_t sKt = sK(st), sVt = sKt + tile_bytes(DQ_KEYS, DQK);
       float s[DQ_KEYS / 8][4], dp[DQ_KEYS / 8][4];
       wg::fence();
-      rows_dot<DQ_ROWS, DQ_KEYS>(flat(s), sQ, sKt);
-      rows_dot<DQ_ROWS, DQ_KEYS>(flat(dp), sG, sVt);
+      rows_dot<DQ_ROWS, DQ_KEYS, DQK>(flat(s), sQ, sKt);
+      rows_dot<DQ_ROWS, DQ_KEYS, DV>(flat(dp), sG, sVt);
       wg::commit();
       wg::wait<0>();
       reg_fence(flat(s));
@@ -349,7 +383,7 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
       to_a_frags<DQ_KEYS / 16>(da, s);
       reg_fence(flat(dq));
       wg::fence();
-      cols_dot<DQ_KEYS>(flat(dq), da, sKt);
+      cols_dot<DQ_KEYS, DQK>(flat(dq), da, sKt);
       wg::commit();
       wg::wait<0>();
       reg_fence(flat(dq));
@@ -362,18 +396,27 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) {
   for (int r = 0; r < 2; ++r) {
     if (!row_ok[r]) continue;
     uint32_t* o = reinterpret_cast<uint32_t*>(
-        a.dq + ((static_cast<size_t>(b) * a.T + t[r]) * a.H + h) * D);
+        a.dq + ((static_cast<size_t>(b) * a.T + t[r]) * a.H + h) * DQK);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
       o[4 * j + t4] = pack_bf16(dq[j][2 * r] * a.scale, dq[j][2 * r + 1] * a.scale);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int split) {
+__global__ void __launch_bounds__(THREADS, 2) bwd_dq_mma_kernel(Args a) { bwd_dq_body<W128>(a); }
+
+// latent attention's heads: one CTA per SM fits its shared memory
+__global__ void __launch_bounds__(THREADS, 1) mla_bwd_dq_mma_kernel(Args a) {
+  bwd_dq_body<WMla>(a);
+}
+
+template <class Wd>
+__device__ __forceinline__ void bwd_dkv_body(const Args& a, int split) {
+  constexpr int DQK = Wd::DQK, DV = Wd::DV;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sK = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t sV = sK + tile_bytes(DKV_KEYS);
-  auto stage = [&](int st) { return sV + tile_bytes(DKV_KEYS) + st * DKV_STAGE; };
+  const uint32_t sV = sK + tile_bytes(DKV_KEYS, DQK);
+  auto stage = [&](int st) { return sV + tile_bytes(DKV_KEYS, DV) + st * Wd::DKV_STAGE; };
   float* red = reinterpret_cast<float*>(smem_raw + (sK - smem_u32(smem_raw)));
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
@@ -410,8 +453,8 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
   };
   auto load_item = [&](int i, uint32_t dst) {
     const int h = hk * G + i / nqt, q0 = (i % nqt) * DKV_ROWS;
-    load_tile<DKV_ROWS>(dst, a.q, b, h, q0, a.T, a.H);
-    load_tile<DKV_ROWS>(dst + tile_bytes(DKV_ROWS), a.g_out, b, h, q0, a.T, a.H);
+    load_tile<DKV_ROWS, DQK>(dst, a.q, b, h, q0, a.T, a.H);
+    load_tile<DKV_ROWS, DV>(dst + tile_bytes(DKV_ROWS, DQK), a.g_out, b, h, q0, a.T, a.H);
     // per query row of the tile: lse, lse_u, delta, g_lse, g_lse_u
     for (int j = tid; j < 5 * DKV_ROWS; j += THREADS) {
       const int arr = j / DKV_ROWS, r = j % DKV_ROWS, tq = q0 + r;
@@ -421,19 +464,19 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
                          : arr == 2 ? a.delta
                          : arr == 3 ? a.g_lse
                                     : a.g_lse_u;
-      cp_async4(dst + 2 * tile_bytes(DKV_ROWS) + 4 * j,
+      cp_async4(dst + tile_bytes(DKV_ROWS, DQK) + tile_bytes(DKV_ROWS, DV) + 4 * j,
                 src + (static_cast<size_t>(b) * a.T + (ok ? tq : 0)) * a.H + h, ok);
     }
   };
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[DQK / 8][4], dv[DV / 8][4];
   zero(dk);
   zero(dv);
 
   int cur = next(lo);
   if (cur < hi) {
-    load_tile<DKV_KEYS>(sK, a.k, b, hk, k0, a.S, a.Hkv);
-    load_tile<DKV_KEYS>(sV, a.v, b, hk, k0, a.S, a.Hkv);
+    load_tile<DKV_KEYS, DQK>(sK, a.k, b, hk, k0, a.S, a.Hkv);
+    load_tile<DKV_KEYS, DV>(sV, a.v, b, hk, k0, a.S, a.Hkv);
     load_item(cur, stage(0));
   }
   cp_commit();
@@ -445,15 +488,15 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
     tiles_landed<1>();
 
     const int q0 = (cur % nqt) * DKV_ROWS;
-    const uint32_t sQ = stage(st), sG = sQ + tile_bytes(DKV_ROWS);
+    const uint32_t sQ = stage(st), sG = sQ + tile_bytes(DKV_ROWS, DQK);
     // lse, lse_u, delta, g_lse, g_lse_u of the tile's rows
     const float* R = reinterpret_cast<const float*>(
-        smem_raw + (sG + tile_bytes(DKV_ROWS) - smem_u32(smem_raw)));
+        smem_raw + (sG + tile_bytes(DKV_ROWS, DV) - smem_u32(smem_raw)));
     // every visited item runs all four products (p = 0 where nothing is attendable)
     float s[DKV_ROWS / 8][4], dp[DKV_ROWS / 8][4];
     wg::fence();
-    rows_dot<DKV_KEYS, DKV_ROWS>(flat(s), sK, sQ);
-    rows_dot<DKV_KEYS, DKV_ROWS>(flat(dp), sV, sG);
+    rows_dot<DKV_KEYS, DKV_ROWS, DQK>(flat(s), sK, sQ);
+    rows_dot<DKV_KEYS, DKV_ROWS, DV>(flat(dp), sV, sG);
     wg::commit();
     wg::wait<0>();
     reg_fence(flat(s));
@@ -484,8 +527,8 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
     reg_fence(flat(dk));
     reg_fence(flat(dv));
     wg::fence();
-    cols_dot<DKV_ROWS>(flat(dv), pa, sG);
-    cols_dot<DKV_ROWS>(flat(dk), da, sQ);
+    cols_dot<DKV_ROWS, DV>(flat(dv), pa, sG);
+    cols_dot<DKV_ROWS, DQK>(flat(dk), da, sQ);
     wg::commit();
     wg::wait<0>();
     reg_fence(flat(dk));
@@ -496,18 +539,19 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
   cp_wait<0>();
   __syncthreads();
 
-  // the CTA's sums -> shared fp32 [2][64 keys][RED_STRIDE] (over the tiles)
+  // the CTA's sums -> shared fp32 dk [64 keys][RED_K], then dv [64 keys][RED_V]
+  float* red_v = red + DKV_KEYS * Wd::RED_K;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kl = warp * 16 + g + 8 * r;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * t4;
-      *reinterpret_cast<float2*>(red + kl * RED_STRIDE + col) =
+    for (int j = 0; j < DQK / 8; ++j)
+      *reinterpret_cast<float2*>(red + kl * Wd::RED_K + 8 * j + 2 * t4) =
           make_float2(dk[j][2 * r], dk[j][2 * r + 1]);
-      *reinterpret_cast<float2*>(red + (DKV_KEYS + kl) * RED_STRIDE + col) =
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<float2*>(red_v + kl * Wd::RED_V + 8 * j + 2 * t4) =
           make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
-    }
   }
   cg::cluster_group cluster = cg::this_cluster();
   if (split > 1) {
@@ -521,12 +565,15 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
   for (int p = 0; p < MAX_SPLIT; ++p)
     part[p] = split == 1 ? red : cluster.map_shared_rank(red, p < split ? p : 0);
   const int per = DKV_KEYS / split;
-  for (int i = tid; i < 2 * per * (D / 2); i += THREADS) {
-    const int which = i / (per * (D / 2));  // 0: dk, 1: dv
-    const int rem = i % (per * (D / 2));
-    const int kl = rank * per + rem / (D / 2), col = 2 * (rem % (D / 2));
+  const int n_k = per * (DQK / 2);  // float2 items of dk, then per * (DV / 2) of dv
+  for (int i = tid; i < n_k + per * (DV / 2); i += THREADS) {
+    const int which = i < n_k ? 0 : 1;  // 0: dk, 1: dv
+    const int half = which == 0 ? DQK / 2 : DV / 2;
+    const int rem = which == 0 ? i : i - n_k;
+    const int kl = rank * per + rem / half, col = 2 * (rem % half);
     const int s = k0 + kl;
-    const int off = (which * DKV_KEYS + kl) * RED_STRIDE + col;
+    const int off = which == 0 ? kl * Wd::RED_K + col
+                               : DKV_KEYS * Wd::RED_K + kl * Wd::RED_V + col;
     float2 v[MAX_SPLIT];
 #pragma unroll
     for (int p = 0; p < MAX_SPLIT; ++p)
@@ -541,10 +588,18 @@ __global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int spl
     if (s >= a.S) continue;
     const float mul = which == 0 ? a.scale : 1.f;
     __nv_bfloat16* o = (which == 0 ? a.dk : a.dv) +
-                       ((static_cast<size_t>(b) * a.S + s) * a.Hkv + hk) * D + col;
+                       ((static_cast<size_t>(b) * a.S + s) * a.Hkv + hk) * (2 * half) + col;
     *reinterpret_cast<uint32_t*>(o) = pack_bf16(x * mul, y * mul);
   }
   if (split > 1) cluster.sync();  // keep red alive until every rank has read it
+}
+
+__global__ void __launch_bounds__(THREADS, 2) bwd_dkv_mma_kernel(Args a, int split) {
+  bwd_dkv_body<W128>(a, split);
+}
+
+__global__ void __launch_bounds__(THREADS, 2) mla_bwd_dkv_mma_kernel(Args a, int split) {
+  bwd_dkv_body<WMla>(a, split);
 }
 
 // the shared-memory limit is raised once per kernel (also outside a CUDA graph's capture)
@@ -556,25 +611,30 @@ cudaError_t size_once(Kernel kernel, int bytes, bool& sized) {
   return e;
 }
 
-inline cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
-  static bool sized = false;
-  cudaError_t e = size_once(bwd_dq_mma_kernel, DQ_SMEM, sized);
+// mla: latent attention's widths (q / k 192, v 128), else 128 / 128
+inline cudaError_t launch_dq(const Args& a, bool mla, cudaStream_t stream) {
+  static bool sized[2] = {false, false};
+  const int smem = mla ? WMla::DQ_SMEM : W128::DQ_SMEM;
+  auto kernel = mla ? mla_bwd_dq_mma_kernel : bwd_dq_mma_kernel;
+  cudaError_t e = size_once(kernel, smem, sized[mla]);
   if (e != cudaSuccess) return e;
   dim3 grid((a.T + DQ_ROWS - 1) / DQ_ROWS, a.H, a.B);
-  bwd_dq_mma_kernel<<<grid, THREADS, DQ_SMEM, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // grid (key tiles x split, Hkv, B) in clusters of (split, 1, 1)
-inline cudaError_t launch_dkv(const Args& a, int split, cudaStream_t stream) {
+inline cudaError_t launch_dkv(const Args& a, int split, bool mla, cudaStream_t stream) {
   if (split < 1 || split > MAX_SPLIT || (split & (split - 1)) != 0) return cudaErrorInvalidValue;
-  static bool sized = false;
-  cudaError_t e = size_once(bwd_dkv_mma_kernel, DKV_SMEM, sized);
+  static bool sized[2] = {false, false};
+  const int smem = mla ? WMla::DKV_SMEM : W128::DKV_SMEM;
+  auto kernel = mla ? mla_bwd_dkv_mma_kernel : bwd_dkv_mma_kernel;
+  cudaError_t e = size_once(kernel, smem, sized[mla]);
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((a.S + DKV_KEYS - 1) / DKV_KEYS * split, a.Hkv, a.B);
   cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = DKV_SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -583,7 +643,7 @@ inline cudaError_t launch_dkv(const Args& a, int split, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, bwd_dkv_mma_kernel, a, split);
+  e = cudaLaunchKernelEx(&cfg, kernel, a, split);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 

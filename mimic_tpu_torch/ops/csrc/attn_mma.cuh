@@ -94,6 +94,13 @@
 //    before the CTA's first row) the sweep ends there and they are never loaded
 //    (the ViT's padded keys: idefics-9b's 257 of 384 end it after 5 of 6 tiles).
 //  * Causal CTAs are scheduled heaviest first (blockIdx.x reversed).
+//  * Latent attention (Kimi-VL's MLA): q and k heads 192 wide, v heads 128, the
+//    same body with the widths apart (CfgQV): Q.K^T runs three 64-column blocks
+//    (twelve k16 steps), P.V and the output two, and V is never padded to 192.
+//    Its tiling is D128's (two warpgroups, 128-key tiles, two slots: 209 KB,
+//    one CTA per SM, the same registers: the score tile and the 128-wide output
+//    are the same size).  Its kernel has a name of its own,
+//    mla_attn_fwd_mma_kernel, so that a trace tells its time apart.
 //
 // Registers per consumer thread: 4 * D/8 output accumulators (64 at D128, 40 at
 // D80, 36 at D72, 32 at D64) and BN / 2 for the score tile, which become the BN / 4
@@ -122,27 +129,32 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float HALF_NEG = 0.5f * NEG;  // a running max below this has seen no real score
 
-// The tiling of one instantiation: NWG_ consumer warpgroups per CTA, STAGES_ slots in
-// the K/V ring, MINB_ CTAs per SM that the registers are capped for.  NWG_ = 1 is the
-// short-row form (SHORT): the warpgroup is the whole CTA and its thread 0 issues the
-// loads; with NWG_ = 2 a producer warp does.
-template <int D, int NWG_, int STAGES_, int MINB_>
-struct CfgT {
-  static_assert(D == 64 || D == 72 || D == 80 || D == 128,
-                "one or two 64-column blocks, and a tail of 8 (D72) or 16 (D80) columns");
+// The tiling of one instantiation: query / key heads DQK_ wide and value heads DV_,
+// NWG_ consumer warpgroups per CTA, STAGES_ slots in the K/V ring, MINB_ CTAs per SM
+// that the registers are capped for.  NWG_ = 1 is the short-row form (SHORT): the
+// warpgroup is the whole CTA and its thread 0 issues the loads; with NWG_ = 2 a
+// producer warp does.
+template <int DQK_, int DV_, int NWG_, int STAGES_, int MINB_>
+struct CfgQV {
+  static constexpr int DQK = DQK_, DV = DV_;
+  static_assert((DQK == DV && (DQK == 64 || DQK == 72 || DQK == 80 || DQK == 128)) ||
+                    (DQK == 192 && DV == 128),
+                "one to three 64-column blocks, a tail of 8 (D72) or 16 (D80) columns, "
+                "and q / k wider than v only at 192 / 128");
   static_assert(NWG_ == 1 || NWG_ == 2, "one or two consumer warpgroups");
   static constexpr int NWG = NWG_;  // warpgroups per CTA, 64 query rows each
   static constexpr bool SHORT = NWG == 1;
   static constexpr int BM = 64 * NWG;
-  static constexpr int BN = D <= 80 ? 64 : 128;  // keys per tile
+  static constexpr int BN = DQK <= 80 ? 64 : 128;  // keys per tile
   static_assert(BN == 64 || BN == 128, "the score tile is one wgmma of n = BN");
   static constexpr int NW = BN / 32;  // 32-bit words of a tile's key mask
   static constexpr int THREADS = 128 * NWG + (SHORT ? 0 : 32);
-  static constexpr int NBLK = D / 64;       // 64-column blocks of a row (128-byte swizzle)
-  static constexpr bool TAIL = D % 64 != 0; // D = 72: columns 64..71; D = 80: 64..79
-  static constexpr int VT = (D % 64) / 8;   // 8-column tail tiles of V (1 at D72, 2 at D80)
-  static constexpr int NATOMS = D / 8;      // n8 atoms of the output
-  static constexpr int STAGES = STAGES_;    // slots of the K/V ring
+  static constexpr int NBLK = DQK / 64;       // 64-column blocks of a q / k row (128-byte swizzle)
+  static constexpr int VBLK = DV / 64;        // and of a v row
+  static constexpr bool TAIL = DQK % 64 != 0; // D = 72: columns 64..71; D = 80: 64..79
+  static constexpr int VT = (DV % 64) / 8;    // 8-column tail tiles of V (1 at D72, 2 at D80)
+  static constexpr int NATOMS = DV / 8;       // n8 atoms of the output
+  static constexpr int STAGES = STAGES_;      // slots of the K/V ring
   static constexpr int MINB = MINB_;
   // shared tiles, each 1024-byte aligned: 64-column blocks [rows][128 B]; the tail
   // of Q and K as [rows][32 B] (columns 64..79; at D72 72..79 are zero), of V as
@@ -151,7 +163,7 @@ struct CfgT {
   static constexpr int Q_BYTES = Q_MAIN + (TAIL ? BM * 32 : 0);
   static constexpr int K_MAIN = NBLK * BN * 128;
   static constexpr int K_BYTES = K_MAIN + (TAIL ? BN * 32 : 0);
-  static constexpr int V_MAIN = NBLK * BN * 128;
+  static constexpr int V_MAIN = VBLK * BN * 128;
   static constexpr int V_BYTES = V_MAIN + VT * BN * 16;
   static constexpr int SLOT_BYTES = K_BYTES + V_BYTES;
   static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && SLOT_BYTES % 1024 == 0, "alignment");
@@ -159,12 +171,18 @@ struct CfgT {
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * SLOT_BYTES + BAR_BYTES;  // 1024: alignment slack
 };
 
+// one head width for q, k and v (every tower but latent attention's)
+template <int D, int NWG_, int STAGES_, int MINB_>
+struct CfgT : CfgQV<D, D, NWG_, STAGES_, MINB_> {};
+
 // D72 and D128: two warpgroups and a producer warp, three and two slots, two and one
 // CTAs per SM.  D64 and D80 (the CLIP towers' short rows): one warpgroup per CTA,
 // two slots, five and four CTAs per SM (96 and 128 registers a thread)
 template <int D>
 using Cfg = CfgT<D, (D == 64 || D == 80) ? 1 : 2, D == 72 ? 3 : 2,
                  D == 64 ? 5 : D == 80 ? 4 : D == 72 ? 2 : 1>;
+// latent attention: D128's tiling with 192-wide q / k rows (209 KB of shared memory)
+using CfgMla = CfgQV<192, 128, 2, 2, 1>;
 
 // the TMA descriptors of one launch: the 64-column blocks of q, k, v and, at D = 72
 // and 80, their tails (v_tail is one 8-column tile, loaded once per tail tile)
@@ -284,10 +302,11 @@ __device__ __forceinline__ void score_step(float (&s)[BN / 2], uint64_t desc_q, 
   }
 }
 
-// UNM: also carry the unmasked (max, sum) pair for lse_u; C: the tiling
-template <int D, bool UNM, class C = Cfg<D>>
-__global__ void __launch_bounds__(C::THREADS, C::MINB)
-    attn_fwd_mma_kernel(AttnArgs a, int skip_tiles, const __grid_constant__ TensorMaps maps) {
+// the body of both kernels below.  UNM: also carry the unmasked (max, sum) pair for
+// lse_u; C: the tiling and head widths
+template <bool UNM, class C>
+__device__ __forceinline__ void attn_fwd_body(const AttnArgs& a, int skip_tiles,
+                                              const TensorMaps& maps) {
   constexpr int BM = C::BM, BN = C::BN, NW = C::NW;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte-swizzled tiles want 1024-byte alignment
@@ -331,10 +350,11 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
     const uint32_t bar = full_bar(slot), sK = sKV + slot * C::SLOT_BYTES, sV = sK + C::K_BYTES;
     mbar_expect_tx(bar, C::SLOT_BYTES);
 #pragma unroll
-    for (int blk = 0; blk < C::NBLK; ++blk) {
+    for (int blk = 0; blk < C::NBLK; ++blk)
       tma_load(sK + blk * BN * 128, &maps.k, bar, blk * 64, hk, it * BN, b);
+#pragma unroll
+    for (int blk = 0; blk < C::VBLK; ++blk)
       tma_load(sV + blk * BN * 128, &maps.v, bar, blk * 64, hk, it * BN, b);
-    }
     if (C::TAIL) {
       tma_load(sK + C::K_MAIN, &maps.k_tail, bar, C::NBLK * 64, hk, it * BN, b);
 #pragma unroll
@@ -632,7 +652,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
       for (int ks = 0; ks < BN / 16; ++ks) {
         // 16 keys down the 128-byte rows; the second 64-column block is BN * 128 further
         const uint64_t dv = wg::make_desc(sV + ks * 16 * 128, BN * 128, 1024, wg::SW_128);
-        if constexpr (D == 128) {
+        if constexpr (C::DV == 128) {
           wg::wgmma_rs_n128(of, pa[ks], dv, 1);
         } else {
           wg::wgmma_rs_n64(reinterpret_cast<float(&)[32]>(o), pa[ks], dv, 1);
@@ -660,7 +680,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
     if (t >= a.T) continue;
     const float inv = 1.f / l_safe;
     const size_t row = (static_cast<size_t>(b) * a.T + t) * a.H + h;
-    uint32_t* orow = reinterpret_cast<uint32_t*>(og + row * D);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(og + row * C::DV);
 #pragma unroll
     for (int j = 0; j < C::NATOMS; ++j)
       orow[4 * j + t4] = pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
@@ -671,6 +691,19 @@ __global__ void __launch_bounds__(C::THREADS, C::MINB)
       a.lse_u[row] = UNM ? (mu[r] + log2f(lu_safe)) * LN2 : lse;
     }
   }
+}
+
+template <int D, bool UNM, class C = Cfg<D>>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    attn_fwd_mma_kernel(AttnArgs a, int skip_tiles, const __grid_constant__ TensorMaps maps) {
+  attn_fwd_body<UNM, C>(a, skip_tiles, maps);
+}
+
+// latent attention's heads (q / k 192, v 128), under a name of its own
+template <bool UNM, class C = CfgMla>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+    mla_attn_fwd_mma_kernel(AttnArgs a, int skip_tiles, const __grid_constant__ TensorMaps maps) {
+  attn_fwd_body<UNM, C>(a, skip_tiles, maps);
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -709,18 +742,20 @@ inline bool make_map(CUtensorMap* map, const void* base, int B, int L, int heads
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool UNM, class C = Cfg<D>>
-cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
+// the TMA descriptors and the launch of one instantiation `kernel` of tiling C
+template <class C, class Kernel>
+cudaError_t launch_kernel(Kernel kernel, const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
+  constexpr int DQK = C::DQK, DV = C::DV;
   TensorMaps maps = {};
-  bool ok = make_map(&maps.q, a.q, a.B, a.T, a.H, D, 64, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
-            make_map(&maps.k, a.k, a.B, a.S, a.Hkv, D, 64, C::BN, CU_TENSOR_MAP_SWIZZLE_128B) &&
-            make_map(&maps.v, a.v, a.B, a.S, a.Hkv, D, 64, C::BN, CU_TENSOR_MAP_SWIZZLE_128B);
+  bool ok = make_map(&maps.q, a.q, a.B, a.T, a.H, DQK, 64, C::BM, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.k, a.k, a.B, a.S, a.Hkv, DQK, 64, C::BN, CU_TENSOR_MAP_SWIZZLE_128B) &&
+            make_map(&maps.v, a.v, a.B, a.S, a.Hkv, DV, 64, C::BN, CU_TENSOR_MAP_SWIZZLE_128B);
   if (C::TAIL)
-    ok = ok && make_map(&maps.q_tail, a.q, a.B, a.T, a.H, D, 16, C::BM, CU_TENSOR_MAP_SWIZZLE_32B) &&
-         make_map(&maps.k_tail, a.k, a.B, a.S, a.Hkv, D, 16, C::BN, CU_TENSOR_MAP_SWIZZLE_32B) &&
-         make_map(&maps.v_tail, a.v, a.B, a.S, a.Hkv, D, 8, C::BN, CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok &&
+         make_map(&maps.q_tail, a.q, a.B, a.T, a.H, DQK, 16, C::BM, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.k_tail, a.k, a.B, a.S, a.Hkv, DQK, 16, C::BN, CU_TENSOR_MAP_SWIZZLE_32B) &&
+         make_map(&maps.v_tail, a.v, a.B, a.S, a.Hkv, DV, 8, C::BN, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (!ok) return cudaErrorInvalidValue;
-  auto kernel = attn_fwd_mma_kernel<D, UNM, C>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::BYTES);
   // the short-row form counts on MINB CTAs sharing an SM's shared memory
   if (e == cudaSuccess && C::SHORT)
@@ -732,8 +767,20 @@ cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the bf16 forward for head dims 64, 72, 80 and 128; other head dims -> cudaErrorInvalidValue
-inline cudaError_t launch_bf16(int D, const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
+template <int D, bool UNM, class C = Cfg<D>>
+cudaError_t launch_one(const AttnArgs& a, int skip_tiles, cudaStream_t stream) {
+  return launch_kernel<C>(attn_fwd_mma_kernel<D, UNM, C>, a, skip_tiles, stream);
+}
+
+// the bf16 forward for head widths (D, Dv) 64, 72, 80, 128 (Dv = D) and 192 / 128;
+// other widths -> cudaErrorInvalidValue
+inline cudaError_t launch_bf16(int D, int Dv, const AttnArgs& a, int skip_tiles,
+                               cudaStream_t stream) {
+  if (D == 192 && Dv == 128)
+    return a.need_unmasked
+               ? launch_kernel<CfgMla>(mla_attn_fwd_mma_kernel<true>, a, skip_tiles, stream)
+               : launch_kernel<CfgMla>(mla_attn_fwd_mma_kernel<false>, a, skip_tiles, stream);
+  if (Dv != D) return cudaErrorInvalidValue;
   if (D == 64)
     return a.need_unmasked ? launch_one<64, true>(a, skip_tiles, stream)
                            : launch_one<64, false>(a, skip_tiles, stream);

@@ -301,14 +301,18 @@ inline bwd::Args mma_args(const BwdArgs& a) {
 }
 
 // Only the text tower trains (the ViT and connector are frozen and run without
-// a graph), so head dim 128 only.  dtype: 0 = float32 (scalar kernels),
-// 1 = bfloat16 (tensor cores; dkv's items split over clusters of `split` CTAs).
+// a graph), so its head widths only: (D, Dv) 128 / 128, and latent attention's
+// 192 / 128 in bf16.  dtype: 0 = float32 (scalar kernels), 1 = bfloat16 (tensor
+// cores; dkv's items split over clusters of `split` CTAs).
 template <bool DQ>
-cudaError_t dispatch_bwd(int dtype, int D, int split, const BwdArgs& a, cudaStream_t stream) {
-  if (D != 128 || a.H % a.Hkv != 0) return cudaErrorInvalidValue;
+cudaError_t dispatch_bwd(int dtype, int D, int Dv, int split, const BwdArgs& a,
+                         cudaStream_t stream) {
+  const bool mla = D == 192 && Dv == 128;
+  if (!((D == 128 && Dv == 128) || (mla && dtype == 1)) || a.H % a.Hkv != 0)
+    return cudaErrorInvalidValue;
   constexpr int smem = BwdSmem<128>::BYTES;
-  if (dtype == 1) return DQ ? bwd::launch_dq(mma_args(a), stream)
-                            : bwd::launch_dkv(mma_args(a), split, stream);
+  if (dtype == 1) return DQ ? bwd::launch_dq(mma_args(a), mla, stream)
+                            : bwd::launch_dkv(mma_args(a), split, mla, stream);
   if (dtype != 0) return cudaErrorInvalidValue;
   if (DQ) {
     dim3 grid((a.T + BQ - 1) / BQ, a.H, a.B);
@@ -353,26 +357,27 @@ inline BwdArgs make_bwd_args(const void* q, const void* k, const void* v, const 
 extern "C" int mimic_flash_bwd_dq(const void* q, const void* k, const void* v, const void* g_out,
                                   const void* key_mask, const void* lse, const void* lse_u,
                                   const void* delta, const void* g_lse, const void* g_lse_u,
-                                  void* dq, int B, int T, int S, int H, int Hkv, int D, int dtype,
-                                  float scale, int causal, int need_unmasked, void* stream) {
+                                  void* dq, int B, int T, int S, int H, int Hkv, int D, int Dv,
+                                  int dtype, float scale, int causal, int need_unmasked,
+                                  void* stream) {
   mimic::BwdArgs a = mimic::make_bwd_args(q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse,
                                           g_lse_u, dq, nullptr, nullptr, B, T, S, H, Hkv, scale,
                                           causal, need_unmasked);
   return static_cast<int>(
-      mimic::dispatch_bwd<true>(dtype, D, 1, a, static_cast<cudaStream_t>(stream)));
+      mimic::dispatch_bwd<true>(dtype, D, Dv, 1, a, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int mimic_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* g_out,
                                    const void* key_mask, const void* lse, const void* lse_u,
                                    const void* delta, const void* g_lse, const void* g_lse_u,
                                    void* dk, void* dv, int B, int T, int S, int H, int Hkv, int D,
-                                   int dtype, float scale, int causal, int need_unmasked,
+                                   int Dv, int dtype, float scale, int causal, int need_unmasked,
                                    int split, void* stream) {
   mimic::BwdArgs a = mimic::make_bwd_args(q, k, v, g_out, key_mask, lse, lse_u, delta, g_lse,
                                           g_lse_u, nullptr, dk, dv, B, T, S, H, Hkv, scale,
                                           causal, need_unmasked);
   return static_cast<int>(
-      mimic::dispatch_bwd<false>(dtype, D, split, a, static_cast<cudaStream_t>(stream)));
+      mimic::dispatch_bwd<false>(dtype, D, Dv, split, a, static_cast<cudaStream_t>(stream)));
 }
 
 // the bf16 kernels' tiling: query rows per dq CTA, keys per dq tile, keys per dkv

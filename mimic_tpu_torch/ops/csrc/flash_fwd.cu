@@ -91,14 +91,16 @@ struct FlashLauncher {
 
 extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, const void* key_mask,
                                void* out, void* lse, void* lse_u, int B, int T, int S, int H,
-                               int Hkv, int D, int dtype, float scale, int causal,
+                               int Hkv, int D, int Dv, int dtype, float scale, int causal,
                                int need_unmasked, void* stream) {
   mimic::AttnArgs a = mimic::make_args(q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv,
                                        scale, causal, need_unmasked);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 1) {
-    e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/need_unmasked ? 0 : 1, st);
+    e = mimic::mma::launch_bf16(D, Dv, a, /*skip_tiles=*/need_unmasked ? 0 : 1, st);
+  } else if (Dv != D) {
+    e = cudaErrorInvalidValue;  // fp32: one head width for q, k and v
   } else if (dtype == 0 && D == 64) {
     e = mimic::FlashLauncher<float, 64>::run(a, st);
   } else if (dtype == 0 && D == 72) {
@@ -111,12 +113,18 @@ extern "C" int mimic_flash_fwd(const void* q, const void* k, const void* v, cons
   return static_cast<int>(e);
 }
 
-// The tiling of the bf16 forward for head dim D: query rows per CTA, rows per
-// warpgroup and keys per tile.  ops/flash_attention.py::attention_tiled_plain
+// The tiling of the bf16 forward for head widths (D, Dv): query rows per CTA, rows
+// per warpgroup and keys per tile.  ops/flash_attention.py::attention_tiled_plain
 // walks the same tiles on the CPU; a test on the card holds the two together.
-extern "C" int mimic_attn_fwd_tiling(int D, int* block_m, int* group_rows, int* block_n) {
+extern "C" int mimic_attn_fwd_tiling(int D, int Dv, int* block_m, int* group_rows,
+                                     int* block_n) {
   *group_rows = 64;
-  if (D == 64) {
+  if (D == 192 && Dv == 128) {
+    *block_m = mimic::mma::CfgMla::BM;
+    *block_n = mimic::mma::CfgMla::BN;
+  } else if (Dv != D) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else if (D == 64) {
     *block_m = mimic::mma::Cfg<64>::BM;
     *block_n = mimic::mma::Cfg<64>::BN;
   } else if (D == 72) {

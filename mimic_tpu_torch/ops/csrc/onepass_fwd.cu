@@ -90,14 +90,16 @@ struct OnepassLauncher {
 
 extern "C" int mimic_onepass_fwd(const void* q, const void* k, const void* v,
                                  const void* key_mask, void* out, void* lse, void* lse_u, int B,
-                                 int T, int S, int H, int Hkv, int D, int dtype, float scale,
-                                 int causal, int need_unmasked, void* stream) {
+                                 int T, int S, int H, int Hkv, int D, int Dv, int dtype,
+                                 float scale, int causal, int need_unmasked, void* stream) {
   mimic::AttnArgs a = mimic::make_args(q, k, v, key_mask, out, lse, lse_u, B, T, S, H, Hkv,
                                        scale, causal, need_unmasked);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 1) {
-    e = mimic::mma::launch_bf16(D, a, /*skip_tiles=*/0, st);
+    e = mimic::mma::launch_bf16(D, Dv, a, /*skip_tiles=*/0, st);
+  } else if (Dv != D) {
+    e = cudaErrorInvalidValue;  // fp32: one head width for q, k and v
   } else if (dtype == 0 && D == 64) {
     e = mimic::OnepassLauncher<float, 64>::run(a, st);
   } else if (dtype == 0 && D == 72) {

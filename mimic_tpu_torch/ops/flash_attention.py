@@ -8,10 +8,12 @@ log Z₂ = logsumexp of the attention scores; the kernels carry the running
 - ``lse_unmasked``: logsumexp over every key, ignoring causal and padding
   masks (the reference ``do_shift``'s log Z₂).
 
-Layout at the boundary is the JAX package's: q ``[B,T,H,D]``, k/v
-``[B,S,Hkv,D]`` (GQA by head index), key_mask ``[B,S]`` (nonzero = attend, may
-hold interior zeros).  Every function returns ``(out [B,T,H,D],
-lse [B,T,H] fp32, lse_unmasked [B,T,H] fp32)``.
+Layout at the boundary is the JAX package's: q ``[B,T,H,D]``, k
+``[B,S,Hkv,D]``, v ``[B,S,Hkv,Dv]`` (GQA by head index; Dv = D but for
+latent attention's 192 / 128), key_mask ``[B,S]`` (nonzero = attend, may
+hold interior zeros).  Every function returns ``(out [B,T,H,Dv],
+lse [B,T,H] fp32, lse_unmasked [B,T,H] fp32)``; the default scale is
+1/sqrt(D).
 
 Two hand-written CUDA kernels (``csrc/``, built by ``_build.py``):
 
@@ -55,18 +57,20 @@ NEG = -1.0e30
 ONEPASS_MAX_S = 3072
 ONEPASS_MAX_S_NONCAUSAL = 8192
 
-# head dims (CLIP ViT-L 64, SigLIP 72, CLIP ViT-H 80, the text towers 128) and
-# dtypes the CUDA kernels are instantiated for
-KERNEL_HEAD_DIMS = (64, 72, 80, 128)
+# (query / key, value) head widths the CUDA kernels are instantiated for: CLIP
+# ViT-L 64, SigLIP 72, CLIP ViT-H 80, the text towers 128, in fp32 and bf16; and
+# latent attention's 192 / 128 (Kimi-VL), in bf16 only
+KERNEL_HEAD_DIMS = ((64, 64), (72, 72), (80, 80), (128, 128), (192, 128))
+BF16_ONLY_HEAD_DIMS = ((192, 128),)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# the bf16 kernel's tiling by head dim: query rows per CTA (one warpgroup of
-# TILE_GROUP_ROWS at the CLIP towers' head dims 64 and 80, two elsewhere) and keys
-# per tile (the library's mimic_attn_fwd_tiling reports the compiled values;
-# tests/test_torch_kernels.py holds the two together on the card)
-TILE_BLOCK_M = {64: 64, 72: 128, 80: 64, 128: 128}
+# the bf16 kernel's tiling by query / key head width: query rows per CTA (one
+# warpgroup of TILE_GROUP_ROWS at the CLIP towers' head dims 64 and 80, two
+# elsewhere) and keys per tile (the library's mimic_attn_fwd_tiling reports the
+# compiled values; tests/test_torch_kernels.py holds the two together on the card)
+TILE_BLOCK_M = {64: 64, 72: 128, 80: 64, 128: 128, 192: 128}
 TILE_GROUP_ROWS = 64
-TILE_BLOCK_N = {64: 64, 72: 64, 80: 64, 128: 128}
+TILE_BLOCK_N = {64: 64, 72: 64, 80: 64, 128: 128, 192: 128}
 
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
@@ -164,7 +168,7 @@ def attention_tiled_plain(
     warpgroup, between the updated and the kept running state.
     """
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     sc = scale if scale is not None else 1.0 / (D**0.5)
     c = sc * _LOG2E
     half_neg = 0.5 * NEG
@@ -178,7 +182,7 @@ def attention_tiled_plain(
     has_key = km.any(-1)                                                  # [B]
     first_key = torch.where(km, keys, S).amin(-1)
     last_tile = torch.where(km, keys, -1).amax(-1) // block_n             # -1: no key
-    out = torch.empty(B, H, T, D, dtype=torch.float32)
+    out = torch.empty(B, H, T, Dv, dtype=torch.float32)
     lse = torch.empty(B, H, T, dtype=torch.float32)
     lse_u = torch.empty(B, H, T, dtype=torch.float32)
     where = torch.where
@@ -197,7 +201,7 @@ def attention_tiled_plain(
             R = rows.numel()
             m = torch.full((B, H, R), NEG)
             mu = torch.full((B, H, R), NEG)
-            l, lu, o = torch.zeros(B, H, R), torch.zeros(B, H, R), torch.zeros(B, H, R, D)
+            l, lu, o = torch.zeros(B, H, R), torch.zeros(B, H, R), torch.zeros(B, H, R, Dv)
             for k0 in range(0, ntiles * block_n, block_n):
                 cols = torch.arange(k0, min(k0 + block_n, S))  # keys >= S never count
                 dead = ~km[:, cols].any(-1)[:, None].expand(B, H)            # [B, H]
@@ -256,7 +260,7 @@ def _launch(
     from . import _build
 
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
     if k.device != dev or v.device != dev or (key_mask is not None and key_mask.device != dev):
         raise ValueError(f"{name}: q, k, v and key_mask must be on one device")
@@ -265,9 +269,11 @@ def _launch(
             f"{name}: q/k/v must share one dtype of {list(_KERNEL_DTYPES)}, "
             f"got {q.dtype}/{k.dtype}/{v.dtype}"
         )
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not in {KERNEL_HEAD_DIMS}")
-    if k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv:
+    if (D, Dv) not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: head widths (q/k, v) {(D, Dv)} not in {KERNEL_HEAD_DIMS}")
+    if (D, Dv) in BF16_ONLY_HEAD_DIMS and q.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: head widths {(D, Dv)} take bf16 only, got {q.dtype}")
+    if k.shape != (B, S, Hkv, D) or v.shape != (B, S, Hkv, Dv) or H % Hkv:
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if T == 0 or S == 0 or B == 0:
         raise ValueError(f"{name}: empty input")
@@ -283,7 +289,7 @@ def _launch(
     sc = scale if scale is not None else 1.0 / (D**0.5)
     if not sc > 0:  # the kernels order scores before scaling them
         raise ValueError(f"{name}: scale must be positive, got {sc}")
-    out = torch.empty_like(q)
+    out = q.new_empty(B, T, H, Dv)
     lse = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     lse_u = torch.empty(B, T, H, dtype=torch.float32, device=dev)
     lib = _build.load_library()
@@ -291,7 +297,7 @@ def _launch(
         err = getattr(lib, f"mimic_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(),
             out.data_ptr(), lse.data_ptr(), lse_u.data_ptr(),
-            B, T, S, H, Hkv, D, _KERNEL_DTYPES[q.dtype], float(sc),
+            B, T, S, H, Hkv, D, Dv, _KERNEL_DTYPES[q.dtype], float(sc),
             int(causal), int(need_unmasked), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

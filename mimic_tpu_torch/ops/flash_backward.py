@@ -28,8 +28,9 @@ tile, in plain PyTorch for the CPU tests.  fp32 inputs keep scalar kernels.
 ``flash_attention_backward`` launches both for CUDA tensors (or raises) and
 takes the plain version, ``flash_attention_backward_plain``, only for CPU
 tensors.  ``LAUNCHES`` counts kernel launches by name; nothing else touches
-it.  The kernels take head dim 128 (the text tower, the only one that
-trains) in fp32 or bf16.
+it.  The kernels take the text towers' heads, the only ones that train:
+128 / 128 in fp32 or bf16, and latent attention's 192-wide q / k with 128-wide
+v in bf16 (``dq`` and ``dk`` at 192, ``dv`` at 128).
 """
 
 from __future__ import annotations
@@ -39,9 +40,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models.layers import repeat_kv
-from .flash_attention import _KERNEL_DTYPES, _LOG2E
+from .flash_attention import _KERNEL_DTYPES, _LOG2E, BF16_ONLY_HEAD_DIMS
 
-BWD_HEAD_DIMS = (128,)
+# (query / key, value) head widths of the kernels; the second in bf16 only
+BWD_HEAD_DIMS = ((128, 128), (192, 128))
 
 # the bf16 kernels' tiling: query rows per dq CTA and keys per dq tile; keys per
 # dkv CTA and query rows per dkv tile; the largest dkv cluster (the library's
@@ -86,7 +88,7 @@ def flash_attention_backward_plain(
     lse_u is then a copy of lse).  ``delta`` [B,T,H] fp32: Δ when the caller
     has it (the ring computes it once per query chunk), else Σ g_out ∘ out."""
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     groups = H // Hkv
     sc = scale if scale is not None else 1.0 / (D**0.5)
     qf = q.float()
@@ -113,7 +115,7 @@ def flash_attention_backward_plain(
     dq = torch.einsum("bhts,bshd->bthd", ds, kf) * sc
     dk_rep = torch.einsum("bhts,bthd->bshd", ds, qf) * sc
     dk = dk_rep.reshape(B, S, Hkv, groups, D).sum(3)
-    dv = dv_rep.reshape(B, S, Hkv, groups, D).sum(3)
+    dv = dv_rep.reshape(B, S, Hkv, groups, Dv).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -175,7 +177,7 @@ def flash_attention_backward_tiled_plain(
     exactly zero, so the visiting rules change no value.
     """
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv
     sc = scale if scale is not None else 1.0 / (D**0.5)
     c = sc * _LOG2E
@@ -235,14 +237,14 @@ def flash_attention_backward_tiled_plain(
     qg, gg = by_group(qf), by_group(gf)
     lse2g, lseu2g, crowg, gug = (by_group(t) for t in (lse2, lseu2, crow, gu))
     dk = torch.empty(B, Hkv, S, D)
-    dv = torch.empty(B, Hkv, S, D)
+    dv = torch.empty(B, Hkv, S, Dv)
     for k0 in range(0, S, TILE_DKV_KEYS):
         cols = torch.arange(k0, min(k0 + TILE_DKV_KEYS, S))
         cta_any = km[:, cols].any(-1)               # [B]
         total_k = total_v = None
         for rank in range(split):
             part_k = torch.zeros(B, Hkv, cols.numel(), D)
-            part_v = torch.zeros(B, Hkv, cols.numel(), D)
+            part_v = torch.zeros(B, Hkv, cols.numel(), Dv)
             for i in range(rank * n_items // split, (rank + 1) * n_items // split):
                 g, q0 = i // nqt, (i % nqt) * TILE_DKV_ROWS
                 above = causal and k0 > q0 + TILE_DKV_ROWS - 1
@@ -284,7 +286,7 @@ def _launch_backward(
     from . import _build
 
     B, T, H, D = q.shape
-    S, Hkv = k.shape[1], k.shape[2]
+    S, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     dev = q.device
     tensors = [k, v, out, g_out, lse, lse_u] + [x for x in (key_mask, g_lse, g_lse_u) if x is not None]
     if any(x.device != dev for x in tensors):
@@ -294,10 +296,12 @@ def _launch_backward(
             f"flash_bwd: q/k/v/g_out must share one dtype of {list(_KERNEL_DTYPES)}, "
             f"got {q.dtype}/{k.dtype}/{v.dtype}/{g_out.dtype}"
         )
-    if D not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_bwd: head dim {D} not in {BWD_HEAD_DIMS}")
-    if (k.shape != (B, S, Hkv, D) or v.shape != k.shape or H % Hkv
-            or out.shape != q.shape or g_out.shape != q.shape
+    if (D, Dv) not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_bwd: head widths (q/k, v) {(D, Dv)} not in {BWD_HEAD_DIMS}")
+    if (D, Dv) in BF16_ONLY_HEAD_DIMS and q.dtype != torch.bfloat16:
+        raise TypeError(f"flash_bwd: head widths {(D, Dv)} take bf16 only, got {q.dtype}")
+    if (k.shape != (B, S, Hkv, D) or v.shape != (B, S, Hkv, Dv) or H % Hkv
+            or out.shape != (B, T, H, Dv) or g_out.shape != out.shape
             or lse.shape != (B, T, H) or lse_u.shape != (B, T, H)):
         raise ValueError(f"flash_bwd: bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} lse {tuple(lse.shape)}")
@@ -329,7 +333,7 @@ def _launch_backward(
     lib = _build.load_library()
     inputs = (q, k, v, g_out, km, lse, lse_u, delta, g_lse, g_lse_u)
     ptrs = [x.data_ptr() for x in inputs]
-    shape = (B, T, S, H, Hkv, D, _KERNEL_DTYPES[q.dtype], float(sc), int(causal),
+    shape = (B, T, S, H, Hkv, D, Dv, _KERNEL_DTYPES[q.dtype], float(sc), int(causal),
              int(need_unmasked))
     if split is None:
         from .quant import _sm_count
@@ -367,7 +371,7 @@ def flash_attention_backward(
     need_unmasked: bool = True,
     delta: Optional[torch.Tensor] = None,
 ) -> Grads3:
-    """Returns (dq [B,T,H,D], dk [B,S,Hkv,D], dv [B,S,Hkv,D]): the two kernels
+    """Returns (dq [B,T,H,D], dk [B,S,Hkv,D], dv [B,S,Hkv,Dv]): the two kernels
     on CUDA, the plain version on the CPU.  There is no size cut-off: every
     CUDA call launches the kernels.  ``delta``: a precomputed Δ = Σ g_out ∘
     out [B,T,H] fp32 (``out`` then only sets the shape)."""

@@ -25,8 +25,9 @@ def attn_shift_delta(
 ) -> Optional[torch.Tensor]:
     """The additive MimIC term μ·v for one layer; None when not configured.
 
-    q: [B,T,H,Dh] post-RoPE queries; log_z2: [B,T,H].  Returns [B,T,H,Dh]
-    (multi-head) or [B,T,H*Dh] (single head), fp32.
+    q: [B,T,H,Dqk] post-RoPE queries; log_z2: [B,T,H].  Returns the
+    attention output's shape, [B,T,H,Dv] (multi-head) or [B,T,H*Dv] (single
+    head), fp32: v's width, which is q's but for latent attention.
 
     ``model_split``: q, log_z2 and the leaves hold this rank's heads of a
     model axis (the flat form: its columns of ``attn_v`` / ``attn_logz1_w``).
@@ -38,10 +39,7 @@ def attn_shift_delta(
         return None
     v = layer_shift["attn_v"].float()
     if "attn_logz1_w" not in layer_shift:
-        if multi_head:
-            return v[None, None].expand(q.shape).float()
-        b, t = q.shape[:2]
-        return v[None, None].expand(b, t, v.shape[-1])
+        return v[None, None].expand(*q.shape[:2], *v.shape)
     w = layer_shift["attn_logz1_w"].float()
     bias = layer_shift["attn_logz1_b"].float()
     qf = q.float()

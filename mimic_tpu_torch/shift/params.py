@@ -25,13 +25,20 @@ def init_shift_params(
     dtype=torch.float32,
 ) -> ShiftParams:
     """MimIC shift v ~ N(0,1)·0.001; log Z₁ weight ~ N(0,1)·0.02, bias 0;
-    LIVE shift ~ N(0,1)·0.01 with scale ``shift_scale_init_value``."""
+    LIVE shift ~ N(0,1)·0.01 with scale ``shift_scale_init_value``.
+
+    The MimIC v sits on the attention output, a head's value width (``Dv``),
+    the log Z₁ weight on the post-RoPE query, its query width (``Dqk``): one
+    width for every tower but latent attention's (192 and 128).  Single-head
+    (without ``MULTI_HEAD``) each is flat over the heads."""
     attn = encoder_cfg.attn()
     ffn = encoder_cfg.ffn()
     L = text_cfg.num_layers
     D = text_cfg.hidden_size
     H = text_cfg.num_heads
-    Dh = text_cfg.head_size
+    # the JAX package's text config has one head width and neither property
+    Dqk = getattr(text_cfg, "qk_head_size", text_cfg.head_size)
+    Dv = getattr(text_cfg, "v_head_size", text_cfg.head_size)
 
     def normal(shape, std):
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
@@ -41,9 +48,9 @@ def init_shift_params(
     if encoder_cfg.kind == "attn_approximator":
         multi = ShiftStrategy.MULTI_HEAD in attn
         if ShiftStrategy.VECTOR_SHIFT in attn:
-            params["attn_v"] = normal((L, H, Dh) if multi else (L, D), 0.001)
+            params["attn_v"] = normal((L, H, Dv) if multi else (L, H * Dv), 0.001)
         if ShiftStrategy.LEARNABLE_SHIFT_SCALE in attn:
-            params["attn_logz1_w"] = normal((L, H, Dh) if multi else (L, D), 0.02)
+            params["attn_logz1_w"] = normal((L, H, Dqk) if multi else (L, H * Dqk), 0.02)
             params["attn_logz1_b"] = torch.zeros(
                 (L, H) if multi else (L, 1), dtype=dtype, device=device
             )

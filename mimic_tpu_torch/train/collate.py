@@ -94,10 +94,11 @@ class TrainCollator:
             keys.extend([pad] * (n_max - len(row)))
         return keys
 
-    def _pad_to(self, texts: List[str], limit: Optional[int]) -> Optional[int]:
+    def _pad_to(self, texts: List[str], limit: Optional[int], images=None) -> Optional[int]:
+        # the images: where an image's token count follows its size (Kimi-VL)
         lens = [
-            len(self.tk.encode(self.proc.expand_image_tokens(t), add_bos=True))
-            for t in texts
+            len(self.tk.encode(self.proc.expand_image_tokens(t, imgs), add_bos=True))
+            for t, imgs in zip(texts, images or [None] * len(texts))
         ]
         width = _round_up(max(lens), self.pad_multiple)
         if limit is not None:
@@ -119,7 +120,7 @@ class TrainCollator:
         q_enc = self.proc(
             query_images if any(query_images) else None,
             query_answer,
-            pad_to=self._pad_to(query_answer, self.max_query_len),
+            pad_to=self._pad_to(query_answer, self.max_query_len, query_images),
         )
         # reference :212 — masks out the injected [PAD] separator too
         q_mask = (q_enc["input_ids"] != pad_id).astype(np.int32)
@@ -148,7 +149,7 @@ class TrainCollator:
         f_enc = self.proc(
             images if any(images) else None,
             full,
-            pad_to=self._pad_to(full, self.max_full_len),
+            pad_to=self._pad_to(full, self.max_full_len, images),
         )
         f_mask = (f_enc["input_ids"] != pad_id).astype(np.int32)
         out.full_ids = f_enc["input_ids"]

@@ -98,13 +98,16 @@ def attention_probs(
     from its captured input, as the JAX version does: q/k projections and
     biases, RoPE at positions 0..T-1, the qk-norms after RoPE, the GQA repeat,
     and the causal mask with the padding and any sliding window."""
-    from ..models.decoder import make_causal_mask
+    from ..models.decoder import is_mla, make_causal_mask
     from ..models.layers import apply_rope, repeat_kv, rms_norm, rope_cos_sin
     from ..models.lvlm import lvlm_forward
 
+    text = cfg.text
+    if is_mla(text):
+        raise NotImplementedError("attention_probs: latent attention's q and k are not "
+                                  "recomputed here (q_proj / k_proj towers only)")
     out = lvlm_forward(params, cfg, batch, capture_layer_inputs=True, **kwargs)
     h = out.decoder.layer_inputs[layer]  # [B,T,D]
-    text = cfg.text
     lp = {name: w[layer] for name, w in params["lm"]["decoder"]["layers"].items()}
     x = rms_norm(h, lp["input_ln"], text.norm_eps)
     B, T, _ = x.shape

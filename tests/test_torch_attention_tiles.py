@@ -130,6 +130,28 @@ def test_tiled_algorithm_matches_plain_and_jax(kernel, causal, need_unmasked, ma
     _check(got, jax_ref, km, causal, need_unmasked, not skip_tiles, JAX_OUT_ATOL)
 
 
+@pytest.mark.parametrize("shape", ["aligned", "ragged"])
+@pytest.mark.parametrize("mask", MASKS)
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_at_latent_attention_widths(kernel, causal, need_unmasked, mask, shape):
+    """q / k heads 192 wide and v heads 128 (Kimi-VL's MLA), the kernel's
+    128-row CTAs and 128-key tiles, against the plain version (the JAX package
+    has no such heads): out 128 wide, scores scaled by 1/sqrt(192)."""
+    q, _, _, km = _inputs(shape, mask, 192)
+    _, k, v, _ = _inputs(shape, mask, 128)
+    k = np.concatenate([k, k[..., :64] * 0.5], -1)  # 192-wide keys
+    assert tfa.TILE_BLOCK_M[192] == 128 and tfa.TILE_BLOCK_N[192] == 128
+    skip_tiles = kernel == "flash_fwd" and not need_unmasked
+    got = tfa.attention_tiled_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                                    need_unmasked=need_unmasked, skip_tiles=skip_tiles)
+    assert got[0].shape[-1] == 128
+    want = tfa.attention_plain(_t(q), _t(k), _t(v), _t(km), causal=causal,
+                               need_unmasked=need_unmasked)
+    _check(got, [x.numpy() for x in want], km, causal, need_unmasked, not skip_tiles, ATOL)
+
+
 @pytest.mark.parametrize("D", [72, 128])
 @pytest.mark.parametrize("need_unmasked", [True, False])
 @pytest.mark.parametrize("causal", [True, False])

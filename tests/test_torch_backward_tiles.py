@@ -124,6 +124,29 @@ def test_tiled_backward_matches_plain_fp32(shape, mask, causal, need_unmasked, h
         _close(_f32(a), _f32(b), ATOL, name)
 
 
+@pytest.mark.parametrize("split", [1, 4])
+@pytest.mark.parametrize("need_unmasked", [True, False], ids=["lse_u", "no-lse_u"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
+@pytest.mark.parametrize("shape,mask", [("t256", "left-pad-130"), ("ragged-200", "interior-tile"),
+                                        ("t128", "empty-row")])
+def test_tiled_backward_at_latent_attention_widths(shape, mask, causal, need_unmasked, split):
+    """q / k heads 192 wide and v / dO heads 128 (Kimi-VL's MLA): dq and dk at
+    192, dv at 128, gradients through lse and lse_u, against the plain version
+    in fp32 (the JAX package has no such heads)."""
+    q, k, v, km, _, _, _, g_out, g_lse, g_lse_u = _case(shape, mask, "gqa-4-1", causal,
+                                                        need_unmasked, True)
+    q = torch.cat([q, q[..., :64] * 0.5], -1)
+    k = torch.cat([k, k[..., :64] * 0.5], -1)
+    out, lse, lse_u = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
+    args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u)
+    got = tfb.flash_attention_backward_tiled_plain(*args, causal=causal,
+                                                   need_unmasked=need_unmasked, split=split)
+    want = tfb.flash_attention_backward_plain(*args, causal=causal, need_unmasked=need_unmasked)
+    assert [x.shape[-1] for x in got] == [192, 192, 128]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        _close(_f32(a), _f32(b), ATOL, name)
+
+
 @pytest.mark.parametrize("need_unmasked", [True, False], ids=["lse_u", "no-lse_u"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 @pytest.mark.parametrize("shape,mask", [("t256", "left-pad-130"), ("ragged-200", "interior-tile"),

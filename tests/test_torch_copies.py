@@ -41,6 +41,9 @@ COPIES = [
 # file → {the port's lines where they differ from the source's: why}.  Only the
 # port's side is spelled out; every differing block must be one of these.
 NO_PATHS = "the port's files name no path of the machine they were written on, nor who wrote them"
+KIMI = ("Kimi-VL (latent attention, routed experts, MoonViT at native resolution) is "
+        "the port's alone: the JAX package has no such model; the processor and the "
+        "collator pass each row's images to expand_image_tokens for its sizes")
 DIFFERENCES = {
     "native/__init__.py": {
         '            "mimic_tpu_torch",':
@@ -59,6 +62,140 @@ DIFFERENCES = {
     "data/sources.py": {
         "of dicts whose field names match the reference's loaders so retrievers/adapters work":
             NO_PATHS,
+    },
+    "models/config.py": {
+        (
+            "    # multi-head latent attention (DeepSeek-V3's, Kimi-VL's; on when kv_lora_rank\n"
+            '    # is set): q heads of qk_nope + qk_rope, one shared rope key, k_nope and v\n'
+            '    # from an RMS-normed latent of kv_lora_rank\n'
+            '    kv_lora_rank: Optional[int] = None\n'
+            '    qk_nope_head_dim: int = 0\n'
+            '    qk_rope_head_dim: int = 0\n'
+            '    v_head_dim: int = 0\n'
+            '    # routed experts (on when n_routed_experts is set) in the layers from\n'
+            '    # first_k_dense_replace on: sigmoid scores, the top num_experts_per_tok by\n'
+            '    # score plus a correction bias, their scores normalised and scaled by\n'
+            "    # routed_scaling_factor, and n_shared_experts experts' width on every token\n"
+            '    n_routed_experts: Optional[int] = None\n'
+            '    num_experts_per_tok: int = 0\n'
+            '    moe_intermediate_size: int = 0\n'
+            '    n_shared_experts: int = 0\n'
+            '    first_k_dense_replace: int = 0\n'
+            '    routed_scaling_factor: float = 1.0\n'
+            '\n'
+            '    @property\n'
+            '    def qk_head_size(self) -> int:\n'
+            '        mla = self.kv_lora_rank is not None\n'
+            '        return self.qk_nope_head_dim + self.qk_rope_head_dim if mla else self.head_size\n'
+            '\n'
+            '    @property\n'
+            '    def v_head_size(self) -> int:\n'
+            '        return self.v_head_dim if self.kv_lora_rank is not None else self.head_size\n'
+            '\n'
+            '    @property\n'
+            '    def num_moe_layers(self) -> int:\n'
+            '        if self.n_routed_experts is None:\n'
+            '            return 0\n'
+            '        return self.num_layers - self.first_k_dense_replace'
+        ): KIMI,
+        (
+            '    # MoonViT (Kimi-VL): each image at its own resolution (image_size / patch_size\n'
+            "    # is the side of the position table, interpolated to each image's patch grid),\n"
+            '    # at most in_token_limit patches an image, 2D RoPE (rope_theta) on q and k, and\n'
+            '    # merge_kernel x merge_kernel patches merged into one token\n'
+            '    in_token_limit: int = 0\n'
+            '    merge_kernel: int = 1\n'
+            '    rope_theta: float = 10000.0'
+        ): KIMI,
+        (
+            '    if family == "kimi-vl":\n'
+            '        return tiny_kimi_vl(**kw)'
+        ): KIMI,
+        (
+            'def kimi_vl_a3b_instruct() -> ModelConfig:\n'
+            '    """Kimi-VL-A3B-Instruct: a DeepSeek-V3-style tower (MLA without a q LoRA,\n'
+            '    64 routed experts and 2 shared ones from layer 1 on) and MoonViT at native\n'
+            '    resolution with a 2 x 2 patch merge and an MLP projector."""\n'
+            '    return ModelConfig(\n'
+            '        name="kimi-vl-a3b-instruct",\n'
+            '        family="kimi-vl",\n'
+            '        text=TextConfig(\n'
+            '            vocab_size=163840,\n'
+            '            hidden_size=2048,\n'
+            '            num_layers=27,\n'
+            '            num_heads=16,\n'
+            '            num_kv_heads=16,\n'
+            '            intermediate_size=11264,\n'
+            '            norm_eps=1e-5,\n'
+            '            rope_theta=800000.0,\n'
+            '            max_position_embeddings=131072,\n'
+            '            kv_lora_rank=512,\n'
+            '            qk_nope_head_dim=128,\n'
+            '            qk_rope_head_dim=64,\n'
+            '            v_head_dim=128,\n'
+            '            n_routed_experts=64,\n'
+            '            num_experts_per_tok=6,\n'
+            '            moe_intermediate_size=1408,\n'
+            '            n_shared_experts=2,\n'
+            '            first_k_dense_replace=1,\n'
+            '            routed_scaling_factor=2.446,\n'
+            '        ),\n'
+            '        vision=VisionConfig(\n'
+            '            hidden_size=1152,\n'
+            '            num_layers=27,\n'
+            '            num_heads=16,\n'
+            '            intermediate_size=4304,\n'
+            '            image_size=64 * 14,  # the 64 x 64 position table\n'
+            '            patch_size=14,\n'
+            '            norm_eps=1e-5,\n'
+            '            hidden_act="gelu_tanh",\n'
+            '            in_token_limit=4096,\n'
+            '            merge_kernel=2,\n'
+            '        ),\n'
+            '    )\n'
+            '\n'
+            '\n'
+            'def tiny_kimi_vl(**kw) -> ModelConfig:\n'
+            '    """``kimi_vl_a3b_instruct``\'s structure at test widths: q/k heads 24 wide,\n'
+            '    v heads 16, 8 experts (3 a token), an 8 x 8 position table."""\n'
+            '    text = dict(\n'
+            '        vocab_size=256, hidden_size=64, num_layers=3, num_heads=4, num_kv_heads=4,\n'
+            '        intermediate_size=128, rope_theta=800000.0, kv_lora_rank=16, qk_nope_head_dim=16,\n'
+            '        qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8, num_experts_per_tok=3,\n'
+            '        moe_intermediate_size=32, n_shared_experts=1, first_k_dense_replace=1,\n'
+            '        routed_scaling_factor=2.446,\n'
+            '    )\n'
+            '    text.update(kw)\n'
+            '    return ModelConfig(\n'
+            '        name="tiny-kimi-vl",\n'
+            '        family="kimi-vl",\n'
+            '        text=TextConfig(**text),\n'
+            '        vision=VisionConfig(\n'
+            '            hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,\n'
+            '            image_size=8 * 14, patch_size=14, norm_eps=1e-5, in_token_limit=64,\n'
+            '            merge_kernel=2,\n'
+            '        ),\n'
+            '        image_token_id=250, pad_token_id=0, bos_token_id=1, eos_token_id=2,\n'
+            '    )\n'
+            '\n'
+            ''
+        ): KIMI,
+        '    "kimi-vl-a3b-instruct": kimi_vl_a3b_instruct,': KIMI,
+    },
+    "models/processor.py": {
+        '    def expand_image_tokens(self, text: str, images=None) -> str:': KIMI,
+    },
+    "train/collate.py": {
+        (
+            '    def _pad_to(self, texts: List[str], limit: Optional[int], images=None) -> Optional[int]:\n'
+            "        # the images: where an image's token count follows its size (Kimi-VL)"
+        ): KIMI,
+        (
+            '            len(self.tk.encode(self.proc.expand_image_tokens(t, imgs), add_bos=True))\n'
+            '            for t, imgs in zip(texts, images or [None] * len(texts))'
+        ): KIMI,
+        '            pad_to=self._pad_to(query_answer, self.max_query_len, query_images),': KIMI,
+        '            pad_to=self._pad_to(full, self.max_full_len, images),': KIMI,
     },
 }
 

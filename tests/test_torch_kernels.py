@@ -23,13 +23,15 @@ from mimic_tpu_torch.ops import flash_attention as tfa
 from mimic_tpu_torch.ops import flash_backward as tfb
 
 
-def make_inputs(B=2, T=128, S=128, H=4, Hkv=2, D=32, seed=0, left_pad=0, zero_spans=None):
+def make_inputs(B=2, T=128, S=128, H=4, Hkv=2, D=32, seed=0, left_pad=0, zero_spans=None,
+                Dv=None):
     """``zero_spans``: instead of the default mask, all ones but keys [a, b) of
-    every row (whole key tiles without an attendable key), then ``left_pad``."""
+    every row (whole key tiles without an attendable key), then ``left_pad``.
+    ``Dv``: v's head width (default D)."""
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(B, T, H, D)).astype(np.float32)
     k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, Dv or D)).astype(np.float32)
     km = np.ones((B, S), np.int32)
     if zero_spans is None:
         km[0, S - S // 5:] = 0       # suffix padding
@@ -249,8 +251,8 @@ def test_kernel_matches_plain_on_card(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 72, 80, 128])
-def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
+@pytest.mark.parametrize("D,Dv", tfa.KERNEL_HEAD_DIMS)
+def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D, Dv):
     """attention_tiled_plain (the CPU tests' model of the bf16 forward) and the
     compiled kernel name the same tiling."""
     import ctypes
@@ -259,7 +261,7 @@ def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D):
 
     block_m, group_rows, block_n = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     rc = _build.load_library().mimic_attn_fwd_tiling(
-        D, ctypes.byref(block_m), ctypes.byref(group_rows), ctypes.byref(block_n))
+        D, Dv, ctypes.byref(block_m), ctypes.byref(group_rows), ctypes.byref(block_n))
     assert rc == 0
     assert (block_m.value, group_rows.value, block_n.value) == (
         tfa.TILE_BLOCK_M[D], tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
@@ -401,6 +403,128 @@ def test_gradients_through_kernels_match_plain_on_card(cuda_device, need_unmaske
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * b.abs().max().item(), (name, err)
+
+
+# latent attention (Kimi-VL's MLA): q / k heads 192 wide, v heads 128, bf16 only
+# (kernel, B, T, S, H, Hkv, causal, need_unmasked, left_pad[, zero key spans])
+MLA_CASES = [
+    # the MimIC step's passes: the record pass (flash_fwd past ONEPASS_MAX_S, no
+    # lse_u, right padding) and the shift pass (onepass_fwd, lse_u)
+    ("flash_fwd", 2, 5120, 5120, 16, 16, True, False, 0, ((4990, 5120),)),
+    ("onepass_fwd", 2, 768, 768, 16, 16, True, True, 0, ((700, 768),)),
+    # left padding, interior masked tiles, lse_u under flash_fwd, T != S, ragged rows
+    ("flash_fwd", 2, 512, 512, 4, 4, True, True, 200),
+    ("onepass_fwd", 2, 500, 500, 4, 2, True, False, 0, ((128, 330),)),
+    ("flash_fwd", 1, 200, 333, 4, 4, False, True, 0),
+    ("onepass_fwd", 2, 130, 256, 4, 4, False, False, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_CASES)
+def test_latent_attention_kernel_matches_plain_on_card(cuda_device, case):
+    """The (192, 128) forward against the plain version: out within bf16
+    rounding, lse and lse_u to fp32 summation order; and the kernel's name."""
+    name, B, T, S, H, Hkv, causal, need_unmasked, left_pad = case[:9]
+    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=192, Dv=128, left_pad=left_pad,
+                              seed=T, zero_spans=case[9] if len(case) > 9 else None)
+    args = [_t(x).to(cuda_device, torch.bfloat16) for x in (q, k, v)] + [_t(km).to(cuda_device)]
+    got = tfa._launch(name, *args, causal, None, need_unmasked)
+    torch.cuda.synchronize()
+    assert got[0].shape == (B, T, H, 128)
+    want = tfa.attention_plain(*args, causal=causal, need_unmasked=need_unmasked)
+    valid = torch.from_numpy(_valid_rows(km, T, causal).copy()).to(cuda_device)
+    every_key = name == "onepass_fwd" or need_unmasked
+    sel = (lambda x: x.float()) if every_key else (lambda x: x.float()[valid])
+    ref, diff = sel(want[0]), sel(got[0]) - sel(want[0])
+    assert diff.abs().max().item() <= 2.0 ** -7 * ref.abs().max().item() + 1e-4
+    assert (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item() <= 2.0 ** -7
+    assert (got[1] - want[1]).abs()[valid].max().item() <= 2e-3
+    lse_u_rows = None if need_unmasked else valid
+    d_u = (got[2] - want[2]).abs()
+    assert (d_u if lse_u_rows is None else d_u[lse_u_rows]).max().item() <= 2e-3
+
+
+@pytest.mark.cuda
+def test_latent_attention_kernels_have_their_own_names_on_card(cuda_device):
+    """The (192, 128) kernels run under names that hold the shared metrics'
+    substrings and one of their own; the D128 forward's name is not theirs."""
+    q, k, v, km = make_inputs(B=1, T=256, S=256, H=2, Hkv=2, D=192, Dv=128)
+    q128, k128, v128, _ = make_inputs(B=1, T=256, S=256, H=2, Hkv=2, D=128)
+    dev, bf = cuda_device, torch.bfloat16
+    mla = [_t(x).to(dev, bf).requires_grad_(True) for x in (q, k, v)]
+    d128 = [_t(x).to(dev, bf) for x in (q128, k128, v128)]
+    kmask = _t(km).to(dev)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out, lse, lse_u = tfa.flash_attention(*mla, kmask)
+        (out.float().sum() + lse_u.sum()).backward()
+        tfa.flash_attention(*d128, kmask)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+    fwd = [n for n in names if "attn_fwd_mma_kernel" in n]
+    assert any("mla_attn_fwd_mma_kernel" in n for n in fwd), names
+    assert any("mla_attn_fwd_mma_kernel" not in n for n in fwd), names
+    assert any("mla_bwd_dq_mma_kernel" in n for n in names), names
+    assert any("mla_bwd_dkv_mma_kernel" in n for n in names), names
+
+
+# (B, T, S, H, Hkv, causal, need_unmasked, left_pad[, zero key spans]); heads 192 / 128
+MLA_BWD_CASES = [
+    (2, 768, 768, 16, 16, True, True, 0, ((700, 768),)),   # the MimIC step's shift pass
+    (2, 256, 256, 8, 2, True, True, 37),
+    (2, 300, 300, 4, 4, True, False, 20),
+    (1, 130, 200, 4, 4, False, True, 0),
+    (2, 333, 333, 4, 4, True, True, 0, ((64, 192),)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_BWD_CASES)
+def test_latent_attention_backward_matches_plain_on_card(cuda_device, case):
+    """dq and dk at 192, dv at 128, gradients through lse and lse_u: against
+    the plain version within bf16 rounding, and against the kernels' own
+    algorithm on the CPU (flash_attention_backward_tiled_plain)."""
+    B, T, S, H, Hkv, causal, need_unmasked, left_pad = case[:8]
+    q, k, v, km = make_inputs(B=B, T=T, S=S, H=H, Hkv=Hkv, D=192, Dv=128, left_pad=left_pad,
+                              seed=T, zero_spans=case[8] if len(case) > 8 else None)
+    dev, bf = cuda_device, torch.bfloat16
+    q, k, v = (_t(x).to(dev, bf) for x in (q, k, v))
+    km = _t(km).to(dev)
+    rng = np.random.default_rng(T + 1)
+    g_out = _t(rng.normal(size=(B, T, H, 128)).astype(np.float32)).to(dev, bf)
+    g_lse, g_lse_u = (_t(rng.normal(size=(B, T, H)).astype(np.float32)).to(dev) for _ in range(2))
+    out, lse, lse_u = tfa.attention_plain(q, k, v, km, causal=causal, need_unmasked=need_unmasked)
+    args = (q, k, v, km, out, lse, lse_u, g_out, g_lse, g_lse_u)
+    kw = dict(causal=causal, need_unmasked=need_unmasked)
+    got = tfb.flash_attention_backward(*args, **kw)
+    again = tfb.flash_attention_backward(*args, **kw)
+    torch.cuda.synchronize()
+    assert [x.shape[-1] for x in got] == [192, 192, 128]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = tfb.flash_attention_backward_plain(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 1e-2 * b.float().abs().max().item(), (name, err)
+    from mimic_tpu_torch.ops.quant import _sm_count
+
+    split = tfb.dkv_split(B, T, S, H, Hkv, _sm_count(dev.index or 0))
+    model = tfb.flash_attention_backward_tiled_plain(*(x.cpu() for x in args), **kw, split=split)
+    for name, a, b in zip(("dq", "dk", "dv"), got, model):
+        a, b = a.float().cpu(), b.float()
+        assert (a - b).abs().max().item() <= 2.0 ** -7 * b.abs().max().item(), name
+        assert ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item() <= 2.0 ** -9
+
+
+def test_latent_attention_widths_take_bf16_only():
+    """fp32 at (192, 128) raises before any launch or build, forward and backward."""
+    q = torch.zeros(1, 128, 2, 192, device="meta")
+    k, v = torch.zeros(1, 128, 2, 192, device="meta"), torch.zeros(1, 128, 2, 128, device="meta")
+    with pytest.raises(TypeError, match="bf16 only"):
+        tfa._launch("onepass_fwd", q, k, v, None, True, None, True)
+    with pytest.raises(ValueError, match="not in"):
+        tfa._launch("onepass_fwd", q, k, k, None, True, None, True)
 
 
 # ---------------------------------------------------------------------------
