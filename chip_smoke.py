@@ -6582,8 +6582,9 @@ def main() -> int:
     ptxas_lines(info, ("attn_fwd_mma", "bwd_dq_mma", "bwd_dkv_mma", "int8_matmul", "fused_mlp",
                        "w8a8", "prompt_attn_mma", "quantize_rows", "row_norm"),
                 ("w8a8_matmul.cu", "prompt_attn_int8.cu", "quantize_rows.cu"),
-                # the bf16 forward's head-dim-64 and -80 instantiations (the CLIP towers)
-                ("attn_fwd_mma_kernelILi64", "attn_fwd_mma_kernelILi80"))
+                # the bf16 forward's head-dim-64, -72 and -80 instantiations (the towers)
+                ("attn_fwd_mma_kernelILi64", "attn_fwd_mma_kernelILi72",
+                 "attn_fwd_mma_kernelILi80"))
     _build.load_library()
 
     if sys.argv[1:] == ["--attention-only"]:

@@ -9,6 +9,21 @@
 // key tile costs -- loads, barriers, the softmax's exponentials -- has to run
 // beside them and not between them.
 //
+// What bounds D72 (SigLIP's and MoonViT's towers: the ViT row above, and the cells'
+// calls of 18 and 32 such images).  A score costs 2 (80 + 72) operations of
+// products (Q.K^T padded to 80 by the k16 step): 121 G for a 4992^2 x 16-head
+// call, ~0.12 ms at 989 TFLOP/s.  Its exponential costs the special-function unit
+// about as much (399 M ex2 at 16 a clock an SM, ~0.10 ms), and the fp32 scaling,
+// max and sums ~0.06 ms more; each warpgroup runs them one after another, and
+// only the other warpgroups' drift overlaps them.  Forms that overlap them within
+// the CTA (one CTA an SM, setmaxnreg, warpgroups taking turns on named barriers,
+// the next tile's Q.K^T or the last tile's P.V in flight under the softmax, 64- or
+// 128-key tiles) measured no faster than this one at any tower call and slower at
+// most, the B1 ViT row by a quarter (scripts/attn_fwd_tiling_sweep.py, PERF.md);
+// with two score tiles live they spilled even at 240 registers.  What D72 does
+// save is the keys no row attends: a landscape image's padded tail patches (up to
+// ~1700 of 4992 keys at the cells' image sizes) end its sweep early, below.
+//
 // Design (Hopper: wgmma + TMA + mbarrier, warp-specialised).
 //  * Two forms of CTA (CfgT).  At D72 and D128 a CTA is two consumer warpgroups
 //    (128 query rows) and one producer warp.  At D64 and D80, the CLIP towers'
@@ -87,12 +102,15 @@
 //    at the CTA's causal diagonal and passes over wholly masked tiles without
 //    looking at their rows (a row with no attendable key then gets the mean
 //    over the visited tiles: the documented difference of flash_fwd).
-//    In the one-warpgroup form without lse_u the CTA also reads its batch's key
-//    mask once: tiles past the last attendable key are dead for every row, and
-//    where each row would drop them anyway (skip_tiles, or every row of the CTA
-//    has an attendable key: the batch has one and, causal, its first lies at or
-//    before the CTA's first row) the sweep ends there and they are never loaded
-//    (the ViT's padded keys: idefics-9b's 257 of 384 end it after 5 of 6 tiles).
+//    In the one-warpgroup form and at D72 (ENDS_AT_LAST_KEY), without lse_u, the
+//    CTA also reads its batch's key mask once: tiles past the last attendable key
+//    are dead for every row, and where each row would drop them anyway
+//    (skip_tiles, or every row of the CTA has an attendable key: the batch has one
+//    and, causal, its first lies at or before the CTA's first row) the sweep ends
+//    there and they are never loaded (the ViT's padded keys: idefics-9b's 257 of
+//    384 end it after 5 of 6 tiles).  At D72 the consumer warps read the mask
+//    together while Q and the first tile load, and hand the end to the producer
+//    warp through an mbarrier.
 //  * Causal CTAs are scheduled heaviest first (blockIdx.x reversed).
 //  * Latent attention (Kimi-VL's MLA): q and k heads 192 wide, v heads 128, the
 //    same body with the widths apart (CfgQV): Q.K^T runs three 64-column blocks
@@ -144,6 +162,9 @@ struct CfgQV {
   static_assert(NWG_ == 1 || NWG_ == 2, "one or two consumer warpgroups");
   static constexpr int NWG = NWG_;  // warpgroups per CTA, 64 query rows each
   static constexpr bool SHORT = NWG == 1;
+  // the producer-warp form ends its sweep at the batch's last attendable key (the
+  // one-warpgroup form always does): at D72, the vision towers' padded patches
+  static constexpr bool ENDS_AT_LAST_KEY = !SHORT && DQK == 72;
   static constexpr int BM = 64 * NWG;
   static constexpr int BN = DQK <= 80 ? 64 : 128;  // keys per tile
   static_assert(BN == 64 || BN == 128, "the score tile is one wgmma of n = BN");
@@ -167,7 +188,9 @@ struct CfgQV {
   static constexpr int V_BYTES = V_MAIN + VT * BN * 16;
   static constexpr int SLOT_BYTES = K_BYTES + V_BYTES;
   static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0 && SLOT_BYTES % 1024 == 0, "alignment");
-  static constexpr int BAR_BYTES = (2 * STAGES + 1) * 8;
+  // full[slot], empty[slot], Q's barrier; with ENDS_AT_LAST_KEY the sweep's-end
+  // barrier and three words: the sweep's end and the batch's first and last keys
+  static constexpr int BAR_BYTES = (2 * STAGES + 1) * 8 + (ENDS_AT_LAST_KEY ? 8 + 16 : 0);
   static constexpr int BYTES = 1024 + Q_BYTES + STAGES * SLOT_BYTES + BAR_BYTES;  // 1024: alignment slack
 };
 
@@ -318,6 +341,14 @@ __device__ __forceinline__ void attn_fwd_body(const AttnArgs& a, int skip_tiles,
   auto full_bar = [&](int slot) { return bars + slot * 8; };
   auto empty_bar = [&](int slot) { return bars + (C::STAGES + slot) * 8; };
   const uint32_t q_bar = bars + 2 * C::STAGES * 8;
+  // with ENDS_AT_LAST_KEY (and no lse_u) the producer learns the sweep's end: a
+  // barrier after Q's, then three words, the end and the batch's first and last keys
+  constexpr bool ENDS = C::ENDS_AT_LAST_KEY && !UNM;
+  auto end_bar = [&]() { return q_bar + 8; };
+  auto words = [&]() {
+    const uint32_t base = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+    return reinterpret_cast<int*>(smem_raw + (q_bar + 16 - base));
+  };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wgi = warp >> 2;
   const int g = lane >> 2, t4 = lane & 3;
@@ -334,6 +365,11 @@ __device__ __forceinline__ void attn_fwd_body(const AttnArgs& a, int skip_tiles,
       mbar_init(empty_bar(st), C::NWG * 4);
     }
     mbar_init(q_bar, 1);
+    if constexpr (ENDS) {
+      mbar_init(end_bar(), 1);
+      words()[1] = 0x7fffffff;
+      words()[2] = -1;
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();  // with a producer warp the last one: from here its roles run on barriers only
@@ -391,8 +427,14 @@ __device__ __forceinline__ void attn_fwd_body(const AttnArgs& a, int skip_tiles,
     // ---- the producer warp: one lane keeps the ring of K/V tiles full through TMA ----
     if (lane == 0) {
       load_q();
-      int slot = 0, phase = 0;
-      for (int it = 0; it < ntiles; ++it) {
+      if constexpr (ENDS) {
+        // the first tile goes out before the sweep's end is known: every sweep has one
+        load_kv(0, 0);
+        mbar_wait(end_bar(), 0);
+        ntiles = *reinterpret_cast<volatile int*>(words());
+      }
+      int slot = ENDS ? 1 : 0, phase = 0;
+      for (int it = ENDS ? 1 : 0; it < ntiles; ++it) {
         mbar_wait(empty_bar(slot), phase ^ 1);  // passes at once on the first round
         load_kv(it, slot);
         if (++slot == C::STAGES) {
@@ -405,6 +447,37 @@ __device__ __forceinline__ void attn_fwd_body(const AttnArgs& a, int skip_tiles,
   }
 
   // ---- the consumer warpgroups ----
+  if constexpr (ENDS) {
+    // As in the one-warpgroup form: without lse_u, where every row would drop the
+    // tiles past the batch's last attendable key, the sweep ends there.  The
+    // consumer warps read the mask together (named barrier 3: 1 and 2 are
+    // warpgroup_all's) and hand the end to the producer warp.
+    int lo = 0x7fffffff, hi = -1;
+#pragma unroll 4
+    for (int s = tid; s < a.S; s += C::NWG * 128)
+      if (km[s] != 0) {
+        lo = min(lo, s);
+        hi = s;
+      }
+    lo = __reduce_min_sync(full, lo);
+    hi = __reduce_max_sync(full, hi);
+    int* const w = words();
+    if (lane == 0) {
+      atomicMin(w + 1, lo);
+      atomicMax(w + 2, hi);
+    }
+    asm volatile("bar.sync 3, %0;\n" ::"n"(C::NWG * 128) : "memory");
+    lo = *reinterpret_cast<volatile int*>(w + 1);
+    hi = *reinterpret_cast<volatile int*>(w + 2);
+    // at least the tile already on its way: with no attendable key at all it is
+    // dead under skip_tiles, and passed over
+    if (skip_tiles || (hi >= 0 && (!a.causal || lo <= q0)))
+      ntiles = min(ntiles, max(hi, 0) / BN + 1);
+    if (tid == 0) {
+      *reinterpret_cast<volatile int*>(w) = ntiles;
+      mbar_arrive(end_bar());
+    }
+  }
   auto mask_at = [&](int s) -> bool { return s < a.S && km[s] != 0; };
   bool mk[NW];  // this lane's keys of the next tile
 #pragma unroll

@@ -28,7 +28,9 @@ in plain PyTorch for the CPU tests.  fp32 inputs keep scalar fp32 kernels.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and takes the
 plain version, ``attention_plain``, only for CPU tensors.  ``LAUNCHES`` counts
-kernel launches by name; nothing else touches it.  Gradients go through
+kernel launches by name; nothing else touches it.  Each bf16 launch at head
+width 72 (the vision towers' attention) also counts ``attn_fwd_d72_launches``
+in the program's recorder (``utils/tracing.py``).  Gradients go through
 ``flash_attention_diff`` (a ``torch.autograd.Function`` whose backward is the
 pair of kernels of ``flash_backward.py``).
 
@@ -49,6 +51,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..models.layers import repeat_kv
+from ..utils.tracing import count
 
 NEG = -1.0e30
 
@@ -71,6 +74,12 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_BLOCK_M = {64: 64, 72: 128, 80: 64, 128: 128, 192: 128}
 TILE_GROUP_ROWS = 64
 TILE_BLOCK_N = {64: 64, 72: 64, 80: 64, 128: 128, 192: 128}
+# head widths whose kernel ends the sweep at the batch's last attendable key (without
+# lse_u, where every row may drop the tiles past it): the CLIP towers' one-warpgroup
+# form and the vision towers' D72
+TILE_SWEEP_ENDS_AT_LAST_KEY = frozenset({64, 72, 80})
+# the program's counter of the vision towers' launches (bf16 at head width 72)
+D72_FORM_COUNTER = "attn_fwd_d72_launches"
 
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
@@ -154,11 +163,12 @@ def attention_tiled_plain(
     - ``skip_tiles`` (``flash_fwd`` without ``need_unmasked``) ends the sweep
       at the CTA's causal diagonal and passes over dead tiles unseen: a row
       with no attendable key then averages the visited tiles only;
-    - a CTA of one warpgroup (head dims 64 and 80) without ``need_unmasked``
-      ends its sweep at its batch's last attendable key when every tile past
-      it would be dropped anyway: under ``skip_tiles``, or when each of its
-      rows has an attendable key (the batch has one and, causal, its first
-      lies at or before the CTA's first row).  Those tiles are never loaded.
+    - at head dims 64, 72 and 80 (``TILE_SWEEP_ENDS_AT_LAST_KEY``) a CTA
+      without ``need_unmasked`` ends its sweep at its batch's last attendable
+      key when every tile past it would be dropped anyway: under
+      ``skip_tiles``, or when each of its rows has an attendable key (the batch
+      has one and, causal, its first lies at or before the CTA's first row).
+      Those tiles are never loaded.
 
     ``onepass_fwd`` is ``skip_tiles=False``; ``flash_fwd`` is
     ``skip_tiles=not need_unmasked``.
@@ -192,7 +202,7 @@ def attention_tiled_plain(
             ntiles = min(ntiles, (q0 + block_m - 1) // block_n + 1)
         # per batch: the sweep ends after the last attendable key's tile
         ends = torch.full((B,), ntiles)
-        if block_m == group_rows and not need_unmasked:
+        if D in TILE_SWEEP_ENDS_AT_LAST_KEY and not need_unmasked:
             trims = has_key & (first_key <= q0) if causal else has_key
             trims = trims | skip_tiles
             ends = where(trims, torch.clamp(last_tile + 1, max=ntiles), ends)
@@ -304,6 +314,8 @@ def _launch(
         msg = lib.mimic_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
     LAUNCHES[name] += 1
+    if q.dtype == torch.bfloat16 and (D, Dv) == (72, 72):
+        count(D72_FORM_COUNTER)
     return out, lse, lse_u
 
 

@@ -256,6 +256,21 @@ def test_tiled_algorithm_at_clip_l_head_dim(kernel, need_unmasked, case):
     _check_clip_case(kernel, False, need_unmasked, q, k, v, km)
 
 
+@pytest.mark.parametrize("case", CLIP_CASES)
+@pytest.mark.parametrize("need_unmasked", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("kernel", ["onepass_fwd", "flash_fwd"])
+def test_tiled_algorithm_at_d72_tower_rows(kernel, causal, need_unmasked, case):
+    """Head dim 72 (two warpgroups of 64 rows a CTA, 64-key tiles, the sweep ended at
+    the batch's last attendable key, as at 64 and 80): keys live up to 200 of 384,
+    so the last two key tiles hold none and the sweep ends before them; and the
+    tiling's edges (CLIP_CASES)."""
+    assert (tfa.TILE_BLOCK_M[72], tfa.TILE_BLOCK_N[72]) == (128, 64)
+    assert 72 in tfa.TILE_SWEEP_ENDS_AT_LAST_KEY
+    q, k, v, km = _clip_inputs(case, 2, 384, 384, 2, 72, 200, 72)
+    _check_clip_case(kernel, causal, need_unmasked, q, k, v, km)
+
+
 def test_rows_without_keys_follow_each_kernels_rule():
     q, k, v, km = _inputs("aligned", "left-padded", 72)
     args = [_t(x) for x in (q, k, v, km)]

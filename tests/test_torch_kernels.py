@@ -115,6 +115,50 @@ def test_other_devices_raise_instead_of_falling_back():
         tfa.flash_attention(q, q, q, None)
 
 
+def test_d72_launches_are_counted_apart(monkeypatch):
+    """Each bf16 launch at head width 72 counts on the program's counter of the
+    vision towers' launches, while a profile records; a launch at 128 does not.  The
+    launch itself is stubbed: the wrapper runs on CPU tensors against a library that
+    does nothing; and so is the profile, whose flag alone the counter reads (a real
+    profile of the CPU, started first in a process, leaves later profiles there
+    blind to the card's kernels)."""
+    import contextlib
+    import types
+
+    from mimic_tpu_torch.ops import _build
+    from mimic_tpu_torch.utils import tracing
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    monkeypatch.setattr(_build, "load_library", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    profiler = types.SimpleNamespace(_is_profiler_enabled=True)
+    monkeypatch.setattr(tracing, "_autograd_profiler", profiler)
+
+    def launch(name, D, dtype=torch.bfloat16):
+        q = torch.zeros(1, 128, 2, D, dtype=dtype)
+        tfa._launch(name, q, q, q, None, False, None, False)
+
+    tfa.reset_launch_counts()
+    tracing.reset()
+    launch("onepass_fwd", 72)
+    launch("flash_fwd", 72)
+    launch("onepass_fwd", 128)
+    launch("flash_fwd", 72, torch.float32)  # the scalar fp32 kernel
+    counts = tracing.recorded()["counts"]
+    assert counts.get(tfa.D72_FORM_COUNTER) == 2
+    assert tfa.LAUNCHES == {"flash_fwd": 2, "onepass_fwd": 2}
+    profiler._is_profiler_enabled = False
+    launch("onepass_fwd", 72)  # outside a profile: counted by LAUNCHES alone
+    assert tracing.recorded()["counts"].get(tfa.D72_FORM_COUNTER) == 2
+    tracing.reset()
+    tfa.reset_launch_counts()
+
+
 def test_import_compiles_nothing():
     code = (
         "import sys, subprocess\n"
@@ -204,6 +248,17 @@ KERNEL_CASES = [
     ("onepass_fwd", 2, 333, 333, 4, 4, 64, True, False, 150),
     ("flash_fwd", 2, 1000, 1000, 4, 4, 64, True, False, 300),
     ("onepass_fwd", 2, 200, 333, 8, 2, 64, False, False, 333),
+    # D72's sweep ended at the batch's last attendable key: causal with lse_u under
+    # onepass_fwd (no end); a batch with
+    # no attendable key under each tile-visiting rule; interior tiles wholly masked
+    # and the sweep ended at the diagonal under flash_fwd; GQA with T > S, the first
+    # key tiles masked; masked first and last tiles under flash_fwd
+    ("onepass_fwd", 2, 500, 500, 4, 4, 72, True, True, 77),
+    ("onepass_fwd", 2, 700, 700, 4, 4, 72, False, False, 700),
+    ("flash_fwd", 2, 700, 700, 4, 4, 72, False, False, 700),
+    ("flash_fwd", 2, 1000, 1000, 4, 4, 72, True, False, 300, ((600, 700),)),
+    ("onepass_fwd", 2, 333, 200, 4, 2, 72, True, False, 150),
+    ("flash_fwd", 2, 200, 333, 8, 2, 72, False, False, 0, ((0, 70), (300, 333))),
 ]
 
 
@@ -265,6 +320,107 @@ def test_tiled_plain_version_walks_the_kernels_tiles_on_card(cuda_device, D, Dv)
     assert rc == 0
     assert (block_m.value, group_rows.value, block_n.value) == (
         tfa.TILE_BLOCK_M[D], tfa.TILE_GROUP_ROWS, tfa.TILE_BLOCK_N[D])
+
+
+def _sweep_module():
+    """scripts/attn_fwd_tiling_sweep.py: the towers' key masks, and the library of
+    tilings that holds D72 with and without the sweep's end side by side."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "attn_fwd_tiling_sweep.py")
+    spec = importlib.util.spec_from_file_location("attn_fwd_tiling_sweep", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the D72 towers' calls: (B, T = S, the key mask's maker, the images checked); the
+# masks are the cells': SigLIP at 980 px (the train cell's tower call of 18 images and
+# the eval's of 32: landscape images padded at the end, portrait ones in every row),
+# MoonViT's rows of each image, SigLIP at 384 px
+D72_TOWER_CASES = {
+    "siglip-980-train": (18, 4992, lambda m: m.siglip980_mask(m.TRAIN_SIZES * 2), (0, 1, 6)),
+    "siglip-980-eval": (32, 4992, lambda m: m.siglip980_mask(m.EVAL_SIZES), (2, 4, 31)),
+    "moonvit": (18, 1792, lambda m: m.moonvit_mask(m.TRAIN_SIZES * 2), (0, 2, 6)),
+    "siglip-384": (10, 768, lambda m: np.repeat((np.arange(768) < 729)[None], 10, 0), (0, 9)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tower", list(D72_TOWER_CASES))
+def test_d72_at_the_towers_rows_on_card(cuda_device, tower, monkeypatch):
+    """onepass_fwd at head width 72 on the towers' own calls (16 heads, non-causal,
+    no lse_u, as the towers call it), against the plain version on a few images of
+    the batch (the plain version holds every score), by chip_smoke.py's bf16
+    tolerances; each launch counted on the towers' counter while the profiler's
+    flag is up (stubbed: the file's later tests profile the card)."""
+    import types
+
+    from mimic_tpu_torch.utils import tracing
+
+    B, T, make_mask, items = D72_TOWER_CASES[tower]
+    km = make_mask(_sweep_module()).astype(np.int32)
+    rng = np.random.default_rng(T + B)
+    q, k, v = (_t(rng.normal(size=(B, T, 16, 72)).astype(np.float32)).to(cuda_device,
+                                                                          torch.bfloat16)
+               for _ in range(3))
+    km = _t(km).to(cuda_device)
+    tracing.reset()
+    monkeypatch.setattr(tracing, "_autograd_profiler",
+                        types.SimpleNamespace(_is_profiler_enabled=True))
+    got = tfa._launch("onepass_fwd", q, k, v, km, False, None, False)
+    torch.cuda.synchronize()
+    assert tracing.recorded()["counts"][tfa.D72_FORM_COUNTER] == 1
+    tracing.reset()
+    sel = list(items)
+    want = tfa.attention_plain(q[sel], k[sel], v[sel], km[sel], causal=False,
+                               need_unmasked=False)
+    out, ref = got[0][sel].float(), want[0].float()
+    diff = out - ref
+    assert torch.isfinite(out).all()
+    assert diff.abs().max().item() <= 2.0 ** -7 * ref.abs().max().item() + 1e-4
+    assert (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item() <= 2.0 ** -7
+    assert (got[1][sel] - want[1]).abs().max().item() <= 2e-3
+    assert torch.equal(got[2], got[1])
+
+
+@pytest.mark.cuda
+def test_d72_is_no_less_accurate_than_the_full_sweep_on_card(cuda_device, tmp_path):
+    """D72 as the package builds it against the same tiling with the full sweep it had
+    before its sweep ended at the last attendable key (the sweep's variant 8, built
+    beside it from the same sources): on chip_smoke.py's ViT row (B1 H16 T=S=4992, 53
+    of every 70 keys) its largest error against the plain version in fp32 is no
+    larger, and on the train cell's first images (landscape ones end early) its
+    output, lse and lse_u are the full sweep's bit for bit: the tiles it does not
+    load are those every row drops."""
+    sweep = _sweep_module()
+    assert sweep.VARIANTS[8][:2] == (72, "producer warp, full sweep")
+    lib = sweep.build(str(tmp_path), sweep._build.CSRC, 72)
+    rng = np.random.default_rng(0)
+    q, k, v = (_t(rng.normal(size=(1, 4992, 16, 72)).astype(np.float32)).to(cuda_device,
+                                                                            torch.bfloat16)
+               for _ in range(3))
+    km = _t(sweep.vit_row_mask()).to(cuda_device)
+    exact = tfa.attention_plain(q.float(), k.float(), v.float(), km, causal=False,
+                                need_unmasked=False)[0]
+    new = tfa._launch("onepass_fwd", q, k, v, km, False, None, False)[0]
+    old = sweep.launcher(lib, 8, q, k, v, km, False, False, 0)()[0]
+    torch.cuda.synchronize()
+    err_new = (new.float() - exact).abs().max().item()
+    err_old = (old.float() - exact).abs().max().item()
+    assert err_new <= err_old, (err_new, err_old)
+    del exact
+    km = _t(sweep.siglip980_mask(sweep.TRAIN_SIZES[:3])).to(cuda_device)
+    q, k, v = (_t(rng.normal(size=(3, 4992, 16, 72)).astype(np.float32)).to(cuda_device,
+                                                                            torch.bfloat16)
+               for _ in range(3))
+    new = [x.clone() for x in tfa._launch("onepass_fwd", q, k, v, km, False, None, False)]
+    old = sweep.launcher(lib, 8, q, k, v, km, False, False, 0)()
+    torch.cuda.synchronize()
+    for a, b in zip(new, old):
+        assert torch.equal(a, b)
 
 
 # (B, T, S, H, Hkv, causal, need_unmasked, left_pad[, zero key spans]); head dim 128
